@@ -1,0 +1,45 @@
+"""The port's package and its GPU scripts (chip_smoke.py, tools/torch_*.py)
+import no JAX, and each script refuses to run without a CUDA device."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+SCRIPTS = ["chip_smoke.py", "tools/torch_profile.py", "tools/torch_shape_check.py"]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, runpy, sys
+sys.path.insert(0, ".")
+import vector_indexer_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+for script in %r:
+    runpy.run_path(script, run_name="not_main")
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "vector_indexer_tpu"))
+print(bad)
+"""
+
+
+def test_port_and_scripts_import_no_jax():
+    res = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL % (SCRIPTS,)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the no-card refusal")
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_script_refuses_without_a_card(script):
+    res = subprocess.run(
+        [sys.executable, script], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    assert "no CUDA device" in res.stderr

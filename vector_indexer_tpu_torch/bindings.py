@@ -1,0 +1,124 @@
+"""Numpy-first bindings surface: build / load / suggest_nlist / VectorIndex.
+
+Port of ``vector_indexer_tpu/bindings.py`` (reference
+bindings/python/src/lib.rs):
+
+  * ``build(xb, work_dir)``: one-shot build from an (n, d) f32 array,
+    external_id = row index;
+  * ``load(index_dir, shards_dir, dim)``;
+  * ``VectorIndex.search_sync(xq, k, n_probe)`` returning ``(D, I)``
+    float32/int64 arrays of shape (nq, k), padded with +inf / -1;
+  * ``VectorIndex.search_device`` returning device tensors (no copy to the
+    host) for serving and benchmark loops.
+
+Both ``build`` and ``load`` take ``device`` (default: the first CUDA device
+if present, else the CPU).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import os
+import tempfile
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .api import VectorIndexer, VectorIndexerConfig
+from .utils.heuristics import suggest_nlist
+
+__all__ = ["build", "load", "suggest_nlist", "VectorIndex"]
+
+
+class VectorIndex:
+    """Batched query handle over a built/loaded index."""
+
+    def __init__(self, indexer: VectorIndexer):
+        self._indexer = indexer
+
+    @property
+    def d(self) -> int:
+        return self._indexer.cfg.dimension
+
+    @property
+    def nlist(self) -> int:
+        return self._indexer.index.num_clusters
+
+    @property
+    def index(self):
+        return self._indexer.index
+
+    @property
+    def indexer(self) -> VectorIndexer:
+        return self._indexer
+
+    def search_sync(self, xq: np.ndarray, k: int, n_probe: int,
+                    method: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
+        """(nq, d) -> (D (nq, k) f32, I (nq, k) i64 external ids; pads +inf/-1)."""
+        xq = np.ascontiguousarray(xq, dtype=np.float32)
+        if xq.ndim == 1:
+            xq = xq[None, :]
+        return self._indexer.search_batch(xq, k=k, n_probe=n_probe, method=method)
+
+    search_blocking = search_sync
+
+    def search_device(self, xq, k: int, n_probe: int, method: str = "auto"):
+        """Device-resident search: (D, layout_rows) tensors on the index's
+        device, no copy to the host. ``xq`` may already be a device tensor;
+        ``rows_to_external`` maps the rows to external ids."""
+        cfg = self._indexer.cfg
+        return self._indexer.index.search_batch_device(
+            xq, min(k, cfg.max_k), min(n_probe, cfg.max_n_probe), method
+        )
+
+    def rows_to_external(self, rows) -> np.ndarray:
+        """Map layout rows (from search_device) to external ids."""
+        idx = self._indexer.index
+        if isinstance(rows, torch.Tensor):
+            rows = rows.cpu().numpy()
+        internal = idx.rows_to_internal(np.asarray(rows))
+        return np.where(
+            internal >= 0,
+            idx.external_ids[np.clip(internal, 0, None)].astype(np.int64),
+            -1,
+        )
+
+    async def search(self, xq: np.ndarray, k: int, n_probe: int) -> Tuple[np.ndarray, np.ndarray]:
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(None, self.search_sync, xq, k, n_probe)
+
+
+def _default_work_dir() -> Path:
+    return Path(tempfile.gettempdir()) / "vector_indexer_tpu_torch"
+
+
+def build(xb: np.ndarray, work_dir: Optional[str] = None, metric: str = "l2",
+          spill: int = 0, device=None) -> VectorIndex:
+    """Build an index from an (n, d) float32 array; external_id = row index."""
+    xb = np.ascontiguousarray(xb, dtype=np.float32)
+    if xb.ndim != 2 or xb.shape[0] == 0:
+        raise ValueError("xb must be a non-empty (n, d) array")
+    wd = Path(work_dir) if work_dir else _default_work_dir()
+    cfg = (
+        VectorIndexerConfig(xb.shape[1], metric=metric, spill=spill)
+        .with_index_dir(wd / "index")
+        .with_shards_dir(wd / "shards")
+        .with_device(device)
+    )
+    os.makedirs(cfg.index_dir, exist_ok=True)
+    os.makedirs(cfg.shards_dir, exist_ok=True)
+    return VectorIndex(VectorIndexer(cfg).build_from_arrays(xb))
+
+
+def load(index_dir: str, shards_dir: str, dim: int, resident: str = "device",
+         device=None) -> VectorIndex:
+    """Load a saved index onto ``device``."""
+    cfg = (
+        VectorIndexerConfig(dim)
+        .with_index_dir(index_dir)
+        .with_shards_dir(shards_dir)
+        .with_device(device)
+    )
+    return VectorIndex(VectorIndexer.load(cfg, resident=resident))
