@@ -8,10 +8,12 @@ Phases (each prints its own lines; any failure exits non-zero):
 0. No CUDA device: exit 1 without a result.
 1. Environment: torch / CUDA versions and the card's name and power limit.
 2. Build: compile vector_indexer_tpu_torch/csrc with nvcc (seconds printed).
-3. Kernels: each CUDA kernel of the main path (K1 assign_argmin, K2
-   stream_distances, K4 stream_fused_plane, K3 flat_sweep_topk_plane) vs its
-   plain PyTorch version on the same device inputs at main-path shapes, with
-   the tolerance stated beside it, timed with CUDA events.
+3. Kernels: each CUDA kernel of the paths below, in every table mode (K1
+   assign_argmin; K2 stream_distances bf16 / int8 / f32; K4
+   stream_fused_plane bf16 / int8; K3 flat_sweep_topk_plane; K5
+   stream_shared_plane bf16 / int8 / f32) vs its plain PyTorch version on
+   the same device inputs at the paths' shapes, with the tolerance stated
+   beside it; l2 timed with CUDA events, ip checked.
 4. Main path: ``bindings.build`` on a SIFT1M-shaped corpus (1M x 128 f32,
    clustered, seed 42), ``bindings.load``, then ``search_device`` with
    method 'auto' at the n_probe values whose resolved programs cover K2, K4
@@ -22,6 +24,18 @@ Phases (each prints its own lines; any failure exits non-zero):
    queries are searched again on the CPU, where every kernel runs its
    plain version, at one n_probe per route and the largest: the card's
    results must agree rank by rank.
+5. Offload (on the index phase 4 saved): ``bindings.load(...,
+   resident='offload')`` keeps the f32 table off the card (peak device
+   memory over the load below its bytes) and serves ``auto`` through K2
+   int8 (n_probe 8) and K4 int8 (32) with the exact host re-rank; ``auto``
+   at 1024 queries and a huge probed footprint takes K5 int8 and is held
+   to method 'stream'; ``offload_rerank='device'`` is held to exact f32
+   distances; ``VectorIndex.offload(rerank='none')`` frees at least the f32
+   table's bytes; the device-resident 'stream_shared' (K5 bf16),
+   'stream_shared_exact' (K5 f32) and 'stream_exact' (K2 f32) return
+   'stream''s sets; and 200 queries searched on the CPU agree rank by rank
+   in modes 'host' and 'none'. Launch counters are reset at the phase's
+   start and every kernel mode above must launch in it.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -39,16 +53,24 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-SOURCES = {
+_BS = "vector_indexer_tpu/ops/pallas/block_stream.py"
+SOURCES = {  # kernel (mode) -> (source, TPU kernel it replaces)
     "assign_argmin": ("vector_indexer_tpu_torch/csrc/assign.cu",
                       "vector_indexer_tpu/ops/pallas/assign.py:80"),
-    "stream_distances": ("vector_indexer_tpu_torch/csrc/block_stream.cu",
-                         "vector_indexer_tpu/ops/pallas/block_stream.py:611"),
-    "stream_fused_plane": ("vector_indexer_tpu_torch/csrc/block_stream.cu",
-                           "vector_indexer_tpu/ops/pallas/block_stream.py:773"),
+    **{f"stream_distances[{m}]": ("vector_indexer_tpu_torch/csrc/block_stream.cu",
+                                  f"{_BS}:611") for m in ("bf16", "int8", "f32")},
+    **{f"stream_fused_plane[{m}]": ("vector_indexer_tpu_torch/csrc/block_stream.cu",
+                                    f"{_BS}:773") for m in ("bf16", "int8")},
     "flat_sweep_topk_plane": ("vector_indexer_tpu_torch/csrc/flat_sweep.cu",
                               "vector_indexer_tpu/ops/pallas/flat_sweep.py:473"),
+    **{f"stream_shared_plane[{m}]": ("vector_indexer_tpu_torch/csrc/block_stream_shared.cu",
+                                     f"{_BS}:1174") for m in ("bf16", "int8", "f32")},
 }
+# The kernels phase 4 (the device-resident main path) must launch; phase 5
+# (offload and the other stream methods) must launch all the others.
+MAIN_KERNELS = ("assign_argmin", "stream_distances[bf16]", "stream_fused_plane[bf16]",
+                "flat_sweep_topk_plane")
+OFFLOAD_KERNELS = tuple(n for n in SOURCES if n not in MAIN_KERNELS)
 RTOL = 1e-5  # of the magnitude of the terms each distance is summed from
 # Share of the exact top-k that the largest n_probe must return. There
 # 'auto' takes the fused dense sweep (K3), whose fixed plane keeps one row
@@ -61,6 +83,18 @@ OVERLAP_FLOOR = 0.85
 NQ_TWIN = 200  # queries searched again on the CPU (plain versions)
 TWIN_SAME_FLOOR = 0.95  # the rest may differ only by near-tie swaps
 N, NQ, K = 1_000_000, 1000, 100  # corpus rows (SIFT1M), queries per batch, neighbours
+NQ_SHARED = 1024  # the shared stream's batch gate (dispatch.SHARED_MIN_NQ)
+# Phase 5 gates: the host-re-ranked offload returns the device-resident
+# path's top-100 within 0.01 of overlap (the reference measured identical
+# sets at this shape); K5's task budget may drop a few far probes
+# (the reference documents 0.92-0.98 of the exact path's sets before the
+# re-rank), so shared may trail 'stream' by 0.03; the device re-rank's
+# distances are within 1e-4 relative at the 99th percentile (the
+# reference documents ~1e-5); the rank-only int8 mode keeps R@10 >= 0.95.
+OFFLOAD_OVERLAP_SLACK = 0.01
+SHARED_OVERLAP_SLACK = 0.03
+DEVICE_RERANK_P99_REL = 1e-4
+NONE_R10_FLOOR = 0.95
 
 
 def log(msg: str) -> None:
@@ -133,15 +167,17 @@ def check_k1(x, cent):
     return bool((err[same] <= tol[same]).all()) and ties_ok, len(diff), float(err.max())
 
 
-def stream_grid(q, table, c, c_sq, lengths, n_probe: int, metric: str):
-    """The stream program's task grid for these queries, and the magnitude
-    of the terms each distance is summed from (l2 |q-c|^2 + |r|^2, which
-    bounds 2|q-c||r|; ip |q.c| + |q||r|)."""
+def stream_grid(q, table, c, c_sq, lengths, n_probe: int, metric: str,
+                worst_case: bool = False):
+    """The stream program's task grid for these queries (worst-case slots
+    for the exact methods), and the magnitude of the terms each distance is
+    summed from (l2 |q-c|^2 + |r|^2, which bounds 2|q-c||r|; ip
+    |q.c| + |q||r|; r is the stored, dequantized row)."""
     import torch
     from vector_indexer_tpu_torch.index import programs
     from vector_indexer_tpu_torch.ops import block_stream as bs
 
-    t_fixed = bs.per_query_slots(lengths, n_probe, chunk=table.chunk)
+    t_fixed = bs.per_query_slots(lengths, n_probe, worst_case=worst_case, chunk=table.chunk)
     probe = programs._probe(q, c, c_sq, n_probe)
     blk, cid, nval, bias = bs.build_task_grid(q, table, probe, t_fixed, metric)
     lane = torch.arange(table.chunk, device=q.device)
@@ -155,7 +191,7 @@ def stream_grid(q, table, c, c_sq, lengths, n_probe: int, metric: str):
     return dict(t_fixed=t_fixed, blk=blk, cid=cid, nval=nval, bias=bias, valid=valid, term=term)
 
 
-def k2_args(q, table, grid):
+def k2_args(q, table, grid):  # scales go by keyword
     return (q, table.cent, grid["cid"], grid["blk"], grid["bias"], table.vecs, table.norms)
 
 
@@ -170,8 +206,9 @@ def check_k2(q, table, grid, metric: str):
     from vector_indexer_tpu_torch.ops import block_stream as bs
 
     args = k2_args(q, table, grid)
-    dist_k = bs.stream_distances(*args, chunk=table.chunk, metric=metric)
-    dist_p = bs.stream_distances_reference(*args, chunk=table.chunk, metric=metric)
+    kw = dict(chunk=table.chunk, metric=metric, scales=table.scales)
+    dist_k = bs.stream_distances(*args, **kw)
+    dist_p = bs.stream_distances_reference(*args, **kw)
     torch.cuda.synchronize()
     valid = grid["valid"]
     err = (dist_k - dist_p).abs()[valid]
@@ -185,11 +222,12 @@ def check_k4(q, table, grid, metric: str):
     import torch
     from vector_indexer_tpu_torch.ops import block_stream as bs
 
-    kw = dict(chunk=table.chunk, groups=bs.pick_stream_groups(table.chunk), metric=metric)
+    kw = dict(chunk=table.chunk, groups=bs.pick_stream_groups(table.chunk), metric=metric,
+              scales=table.scales)
     pk, sk = bs.stream_fused_plane(*k4_args(q, table, grid), **kw)
     pp, sp = bs.stream_fused_plane_reference(*k4_args(q, table, grid), **kw)
     dist_p = bs.stream_distances_reference(*k2_args(q, table, grid), chunk=table.chunk,
-                                           metric=metric)
+                                           metric=metric, scales=table.scales)
     torch.cuda.synchronize()
     scale = grid["term"].flatten(1).max(dim=1).values[:, None]
     fin = torch.isfinite(pp)
@@ -201,6 +239,41 @@ def check_k4(q, table, grid, metric: str):
     alt = dist_p[qi, sk[qi, col].long(), col % table.chunk]
     ties_ok = bool(((alt - pp[qi, col]).abs() <= RTOL * scale[qi, 0]).all())
     return same_fin and vals_ok and ties_ok, len(mism), float(err.max()) if err.numel() else 0.0
+
+
+def shared_tasks(q, table, c, c_sq, lengths, n_probe: int, t_fixed: int, t_cap: int,
+                 metric: str):
+    """K5's task list for these queries (one tile), as
+    block_stream_search_shared builds it."""
+    from vector_indexer_tpu_torch.index import programs
+    from vector_indexer_tpu_torch.ops import block_stream as bs
+
+    probe = programs._probe(q, c, c_sq, n_probe)
+    blk, _, nval, _ = bs.build_task_grid(q, table, probe, t_fixed, metric)
+    return bs.build_shared_tasks(q, table, blk, nval, t_cap, metric)
+
+
+def k5_args(table, tasks):
+    return (tasks.qc, tasks.blk, tasks.scl, table.vecs, table.norms)
+
+
+def check_k5(table, tasks, metric: str):
+    """K5 vs its plain version on the rows of the used tasks (unused tasks'
+    rows are never read): within RTOL of |qc|^2 + |r|^2, which bounds both
+    |r|^2 and 2|qc.r|. -> (ok, max |err|)."""
+    import torch
+    from vector_indexer_tpu_torch.ops import block_stream as bs
+
+    kw = dict(chunk=table.chunk, metric=metric)
+    pk = bs.stream_shared_plane(*k5_args(table, tasks), **kw)
+    pp = bs.stream_shared_plane_reference(*k5_args(table, tasks), **kw)
+    torch.cuda.synchronize()
+    used = tasks.blk >= 0
+    blk = tasks.blk[used].long()
+    nrm = table.norms.view(-1, table.chunk)[blk][:, None, :]
+    qsq = (tasks.qc[used] ** 2).sum(-1)[:, :, None]
+    err = (pk[used] - pp[used]).abs()
+    return bool((err <= RTOL * (qsq + nrm)).all()), float(err.max())
 
 
 def check_k3(q, vectors, row_norms, mask, metric: str, w: int, C: int):
@@ -252,6 +325,7 @@ def sweep_mask(q, idx, n_probe: int, w: int):
 
 
 def kernel_phase(torch, np, xb, xq, check, results, dev):
+    from vector_indexer_tpu_torch.index import dispatch
     from vector_indexer_tpu_torch.index.ivf import IvfIndex
     from vector_indexer_tpu_torch.ops import assign, block_stream as bs, flat_sweep as fs
     from vector_indexer_tpu_torch.storage.vector_store import VectorStore
@@ -287,33 +361,74 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
     nqk = q.shape[0]
 
     # K2 (n_probe 8) and K4 (n_probe 32) at the main path's l2 shapes
-    # (timed), then the same inputs under ip (checked only).
+    # (timed), then the same inputs under ip (checked only): on the bf16
+    # table (device-resident 'stream'), the int8 table (offload) and, for
+    # K2 alone, the f32 table with worst-case slots ('stream_exact').
+    tables = {"bf16": table, "int8": bs.build_stream_table(idx.layout, idx.centroids, torch.int8),
+              "f32": bs.build_stream_table(idx.layout, idx.centroids, torch.float32)}
+    cases = [("bf16", 8, "K2"), ("bf16", 32, "K4"), ("int8", 8, "K2"), ("int8", 32, "K4"),
+             ("f32", 8, "K2")]
     for metric in ("l2", "ip"):
-        for n_probe, name in ((8, "stream_distances"), (32, "stream_fused_plane")):
-            grid = stream_grid(q, table, c, c_sq, idx.layout.lengths, n_probe, metric)
-            what = (f"({metric}, nq={nqk}, n_probe={n_probe}, t_fixed={grid['t_fixed']}, "
-                    f"chunk={table.chunk})")
-            if name == "stream_distances":
-                ok, err = check_k2(q, table, grid, metric)
-                check(ok, f"K2 stream_distances vs plain {what}: |err| <= {RTOL:g}*(term "
+        for mode, n_probe, kern in cases:
+            tb = tables[mode]
+            grid = stream_grid(q, tb, c, c_sq, idx.layout.lengths, n_probe, metric,
+                               worst_case=mode == "f32")
+            what = (f"({mode}, {metric}, nq={nqk}, n_probe={n_probe}, t_fixed={grid['t_fixed']}, "
+                    f"chunk={tb.chunk})")
+            if kern == "K2":
+                name = f"stream_distances[{mode}]"
+                ok, err = check_k2(q, tb, grid, metric)
+                check(ok, f"K2 {name} vs plain {what}: |err| <= {RTOL:g}*(term "
                           f"magnitude) on valid lanes; max |err| {err:.3e}")
-                kw = dict(chunk=table.chunk, metric=metric)
-                fn_k = lambda: bs.stream_distances(*k2_args(q, table, grid), **kw)
-                fn_p = lambda: bs.stream_distances_reference(*k2_args(q, table, grid), **kw)
+                kw = dict(chunk=tb.chunk, metric=metric, scales=tb.scales)
+                fn_k = lambda: bs.stream_distances(*k2_args(q, tb, grid), **kw)
+                fn_p = lambda: bs.stream_distances_reference(*k2_args(q, tb, grid), **kw)
             else:
-                ok, n_mism, err = check_k4(q, table, grid, metric)
-                G = bs.pick_stream_groups(table.chunk)
-                check(ok, f"K4 stream_fused_plane vs plain {what}, G={G}: planes within "
+                name = f"stream_fused_plane[{mode}]"
+                ok, n_mism, err = check_k4(q, tb, grid, metric)
+                G = bs.pick_stream_groups(tb.chunk)
+                check(ok, f"K4 {name} vs plain {what}, G={G}: planes within "
                           f"{RTOL:g}*(query term scale), {n_mism} slot differences all "
                           f"near-ties; max |err| {err:.3e}")
-                kw = dict(chunk=table.chunk, groups=G, metric=metric)
-                fn_k = lambda: bs.stream_fused_plane(*k4_args(q, table, grid), **kw)
-                fn_p = lambda: bs.stream_fused_plane_reference(*k4_args(q, table, grid), **kw)
+                kw = dict(chunk=tb.chunk, groups=G, metric=metric, scales=tb.scales)
+                fn_k = lambda: bs.stream_fused_plane(*k4_args(q, tb, grid), **kw)
+                fn_p = lambda: bs.stream_fused_plane_reference(*k4_args(q, tb, grid), **kw)
             if metric == "l2":
                 results[name] = dict(
                     max_abs_err=err, ms=cuda_ms(torch, fn_k), plain_ms=cuda_ms(torch, fn_p),
-                    shape=f"nq={nqk} t_fixed={grid['t_fixed']} chunk={table.chunk} d=128",
+                    shape=f"nq={nqk} t_fixed={grid['t_fixed']} chunk={tb.chunk} d=128",
                 )
+
+    # K5 at the shape stream_params(shared=True) gives a 1024-query batch at
+    # the smallest power-of-two n_probe the shared gate passes on this index
+    # (worst-case slots and budget for the f32 table: 'stream_shared_exact').
+    lengths = np.asarray(idx.layout.lengths)
+    n_probe = shared_n_probe(lengths, idx.num_clusters, bs.pick_chunk(lengths, 128, 2))
+    check(n_probe is not None, f"the shared gate opens on the kernel-phase index (n_probe {n_probe})")
+    for metric in ("l2", "ip"):
+        for mode, tb in (tables.items() if n_probe else ()):
+            exact = mode == "f32"
+            _, t_fixed, q_tile, t_cap = dispatch.stream_params(
+                lengths, 128, tb.vecs.element_size(), NQ_SHARED, n_probe, exact=exact,
+                shared=True, chunk=tb.chunk)
+            qs = torch.as_tensor(xq[:q_tile], device=dev)
+            tasks = shared_tasks(qs, tb, c, c_sq, lengths, n_probe, t_fixed, t_cap, metric)
+            name = f"stream_shared_plane[{mode}]"
+            ok, err = check_k5(tb, tasks, metric)
+            check(ok, f"K5 {name} vs plain ({metric}, q_tile={q_tile} of nq={NQ_SHARED}, "
+                      f"n_probe={n_probe}, t_fixed={t_fixed}, t_cap={t_cap}, used tasks "
+                      f"{int((tasks.blk >= 0).sum())}): |err| <= {RTOL:g}*(|qc|^2+|r|^2) on "
+                      f"used tasks; max |err| {err:.3e}")
+            if metric == "l2":
+                kw = dict(chunk=tb.chunk, metric=metric)
+                results[name] = dict(
+                    max_abs_err=err,
+                    ms=cuda_ms(torch, lambda: bs.stream_shared_plane(*k5_args(tb, tasks), **kw)),
+                    plain_ms=cuda_ms(torch, lambda: bs.stream_shared_plane_reference(
+                        *k5_args(tb, tasks), **kw)),
+                    shape=f"t_cap={t_cap} (q_tile={q_tile}, n_probe={n_probe}) chunk={tb.chunk} d=128",
+                )
+    del tables
 
     # K3 on the index's layout table, unmasked (flat) and masked (dense at
     # n_probe = 64, the main path's shape); l2 timed, ip checked only.
@@ -343,9 +458,23 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
         max_abs_err=max(errs), ms=times["masked"][0], plain_ms=times["masked"][1],
         shape=f"nq={nqk} n_rows={n_rows} w={w} C={C} (ms: masked, n_probe=64)",
     )
-    for name in ("assign_argmin", "stream_distances", "stream_fused_plane"):
-        r = results[name]
+    for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms ({r['shape']})")
+
+
+def shared_n_probe(lengths, nlist: int, chunk: int):
+    """The smallest power-of-two n_probe (capped at nlist) at which the
+    shared gate opens for a 1024-query batch, or None."""
+    from vector_indexer_tpu_torch.index import dispatch
+
+    msr = dispatch.mean_slot_rows_of(lengths, chunk)
+    p = 1
+    while True:
+        if dispatch.shared_gate(NQ_SHARED, min(p, nlist), msr):
+            return min(p, nlist)
+        if p >= nlist:
+            return None
+        p *= 2
 
 
 # ---------------------------------------------------------------------------
@@ -434,8 +563,8 @@ def main_phase(torch, np, xb, xq, check, dev, work):
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"  launch counts in the main path: {counts}")
     log(f"  peak device memory (max_memory_allocated): {peak / 2**30:.3f} GiB")
-    for name, c in counts.items():
-        check(c > 0, f"{name} launched in the main path ({c}x)")
+    for name in MAIN_KERNELS:
+        check(counts[name] > 0, f"{name} launched in the main path ({counts[name]}x)")
 
     # The same search on the CPU, where each kernel's wrapper runs its plain
     # version: the card's results (ranks 1..k) must be the plain path's.
@@ -463,7 +592,260 @@ def main_phase(torch, np, xb, xq, check, dev, work):
               f"{float(err.max()):.3e}); equal top-{k} row sets on {same:.4f} of queries "
               f"(>= {TWIN_SAME_FLOOR})")
     log(f"  CPU comparison: {time.perf_counter() - t0:.2f}s")
-    return counts
+    return counts, {n_probe: overlap for n_probe, _, _, _, overlap in table}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: offload, the shared stream and the exact stream
+# ---------------------------------------------------------------------------
+
+
+def extra_queries(np, n: int):
+    """``n`` more queries of the corpus's distribution:
+    benchmarks/datasets.py::clustered(N, 128, NQ, seed=42) draws its
+    centers first from default_rng(42); new queries are drawn around those
+    centers by a second generator."""
+    ncent = max(64, min(1024, N // 1000))  # clustered()'s default
+    centers = np.random.default_rng(42).normal(0, 4.0, size=(ncent, 128)).astype(np.float32)
+    g = np.random.default_rng(43)
+    return (centers[g.integers(0, ncent, n)] + g.normal(0, 1.0, (n, 128))).astype(np.float32)
+
+
+def quality(np, I, gt, k: int):
+    """(R@1, R@10, R@100, top-k overlap) of external ids I against gt."""
+    rec = [float((I[:, :r] == gt[:, :1]).any(axis=1).mean()) for r in (1, 10, 100)]
+    overlap = float(np.mean([len(np.intersect1d(a, b)) for a, b in zip(I, gt)]) / k)
+    return (*rec, overlap)
+
+
+def host_ms(torch, fn, reps: int = 3) -> float:
+    """Mean host-clock milliseconds of fn() over ``reps`` after one warm-up
+    (fn returns host arrays, so each call ends synchronised)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def exact_dist(np, xb, q, I):
+    """Exact squared L2 (f64) of queries q to the rows I (-1: nan)."""
+    x = xb[np.clip(I, 0, None)].astype(np.float64)
+    d = ((x - q[:, None, :].astype(np.float64)) ** 2).sum(-1)
+    return np.where(I >= 0, d, np.nan)
+
+
+def offload_phase(torch, np, xb, xq, check, dev, work, p4_overlap):
+    import gc
+
+    from vector_indexer_tpu_torch import bindings
+    from vector_indexer_tpu_torch.index.dispatch import resolve
+    from vector_indexer_tpu_torch.index.ivf import load_index_from
+    from vector_indexer_tpu_torch.index.programs import shortlist_k
+    from vector_indexer_tpu_torch.kernels import build as kb
+    from vector_indexer_tpu_torch.ops.block_stream import fused_engages
+    from vector_indexer_tpu_torch.ops.topk import brute_force_topk
+
+    k, d, nq = K, xb.shape[1], xq.shape[0]
+    idx_dir, sh_dir = str(work / "index"), str(work / "shards")
+    xq_all = np.concatenate([xq, extra_queries(np, NQ_SHARED - nq)])
+    xb_dev = torch.as_tensor(xb, device=dev)
+    _, gt = brute_force_topk(torch.as_tensor(xq_all, device=dev), xb_dev, k)
+    gt = gt.cpu().numpy()
+    del xb_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    max_norm = float(np.max(np.sum(xb * xb, axis=1)))
+    scale = np.sum(xq_all * xq_all, axis=1) + max_norm  # |q|^2 + max |x|^2
+    kb.reset_launch_counts()  # counts from here on belong to phase 5
+
+    # 5.1 bindings.load(resident='offload'), exact host re-rank.
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    vo = bindings.load(idx_dir, sh_dir, d, resident="offload", device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    ix = vo.index
+    f32_bytes = ix._n_pad * d * 4
+    st = ix._stream_table()
+    log(f"  offload load: {load_s:.2f}s; f32 table {f32_bytes / 2**20:.1f} MiB (host only), "
+        f"int8 stream table + norms {st.nbytes / 2**20:.1f} MiB; peak device memory over "
+        f"the load {peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before it")
+    vec = ix.layout.vectors
+    check(not (isinstance(vec, torch.Tensor) and vec.is_cuda),
+          "offload load: layout.vectors is not a CUDA tensor")
+    check(peak < f32_bytes, f"offload load: peak device memory over the load {peak} B < the "
+                            f"f32 table's {f32_bytes} B")
+    host_res = {}
+    for n_probe in (8, 32):
+        dec = resolve(ix, nq // 2, n_probe, k=2 * k)  # the stream program of each half
+        kk = shortlist_k(2 * k, dec.t_fixed, dec.chunk, wide=4)
+        kern = ("stream_fused_plane[int8]" if fused_engages(dec.t_fixed, dec.chunk, kk)
+                else "stream_distances[int8]")
+        route = "K4 int8" if kern.startswith("stream_fused") else "K2 int8"
+        before = kb.launch_counts()[kern]
+        ms = host_ms(torch, lambda: vo.search_sync(xq, k, n_probe))
+        D, I = vo.search_sync(xq, k, n_probe)
+        check(kb.launch_counts()[kern] > before, f"offload auto n_probe={n_probe} ran {kern}")
+        r1, r10, r100, ov = quality(np, I, gt[:nq], k)
+        host_res[n_probe] = (D, I, ov)
+        log(f"  offload host n_probe={n_probe:3d} auto={ix.choose_method(nq, n_probe)} ({route}, "
+            f"t_fixed={dec.t_fixed}): {ms:8.3f} ms/batch host clock, QPS {nq / ms * 1e3:9.1f}  "
+            f"R@1 {r1:.4f} R@10 {r10:.4f} R@100 {r100:.4f} top-{k} overlap {ov:.4f}")
+        err = np.abs(D.astype(np.float64) - exact_dist(np, xb, xq, I))
+        check(bool(np.isfinite(D).all()) and bool((err <= RTOL * scale[:nq, None]).all()),
+              f"offload host n_probe={n_probe}: distances are the exact f32 distances of the "
+              f"returned ids within {RTOL:g}*(|q|^2+max|x|^2) (max |err| {np.nanmax(err):.3e})")
+        check(ov >= p4_overlap[n_probe] - OFFLOAD_OVERLAP_SLACK,
+              f"offload host n_probe={n_probe}: overlap {ov:.4f} >= device-resident "
+              f"{p4_overlap[n_probe]:.4f} - {OFFLOAD_OVERLAP_SLACK}")
+
+    # 5.2 'auto' takes K5 int8 at 1024 queries and a huge probed footprint.
+    p_sh = next((p for p in (2 ** i for i in range(16)) if p <= 2 * ix.num_clusters
+                 and ix.choose_method(NQ_SHARED, p) == "stream_shared"), None)
+    check(p_sh is not None, f"offload: choose_method returns 'stream_shared' at nq {NQ_SHARED} "
+                            f"(smallest power-of-two n_probe {p_sh})")
+    if p_sh is not None:
+        before = kb.launch_counts()["stream_shared_plane[int8]"]
+        t0 = time.perf_counter()
+        _, Ish = vo.search_sync(xq_all, k, p_sh)
+        sh_s = time.perf_counter() - t0
+        launched = kb.launch_counts()["stream_shared_plane[int8]"] - before
+        t0 = time.perf_counter()
+        _, Ist = vo.search_sync(xq_all, k, p_sh, method="stream")
+        st_s = time.perf_counter() - t0
+        ov_sh, ov_st = quality(np, Ish, gt, k)[3], quality(np, Ist, gt, k)[3]
+        log(f"  offload host nq={NQ_SHARED} n_probe={p_sh}: auto (stream_shared, K5 int8, "
+            f"{launched} launches) {sh_s * 1e3:.1f} ms overlap {ov_sh:.4f}; 'stream' "
+            f"{st_s * 1e3:.1f} ms overlap {ov_st:.4f} (host clock, one batch each)")
+        check(launched > 0, f"offload auto at n_probe {p_sh}: K5 int8 launched ({launched}x)")
+        check(ov_sh >= ov_st - SHARED_OVERLAP_SLACK,
+              f"offload shared overlap {ov_sh:.4f} >= stream {ov_st:.4f} - {SHARED_OVERLAP_SLACK}")
+
+    # 5.3 load_index_from(resident='offload', offload_rerank='device').
+    t0 = time.perf_counter()
+    ixd = load_index_from(idx_dir, sh_dir, resident="offload", device=dev,
+                          offload_rerank="device")
+    log(f"  offload load with the device re-rank: {time.perf_counter() - t0:.2f}s; correction "
+        f"table {ixd._corr_table.nbytes / 2**20:.1f} MiB")
+    for n_probe in (8, 32):
+        ms = host_ms(torch, lambda: ixd.search_batch(xq, k, n_probe))
+        D, Ii = ixd.search_batch(xq, k, n_probe)
+        I = np.where(Ii >= 0, ixd.external_ids[np.clip(Ii, 0, None)].astype(np.int64), -1)
+        ex = exact_dist(np, xb, xq, I)
+        rel = np.abs(D - ex) / np.maximum(ex, 1e-12)
+        p99 = float(np.nanpercentile(rel, 99))
+        ov = quality(np, I, gt[:nq], k)[3]
+        log(f"  offload device n_probe={n_probe:3d}: {ms:8.3f} ms/batch host clock, QPS "
+            f"{nq / ms * 1e3:9.1f}; p99 relative distance error {p99:.3e}, top-{k} overlap "
+            f"{ov:.4f}")
+        check(p99 <= DEVICE_RERANK_P99_REL, f"device re-rank n_probe={n_probe}: p99 relative "
+                                            f"error {p99:.3e} <= {DEVICE_RERANK_P99_REL:g}")
+        check(ov >= host_res[n_probe][2] - OFFLOAD_OVERLAP_SLACK,
+              f"device re-rank n_probe={n_probe}: overlap {ov:.4f} >= host "
+              f"{host_res[n_probe][2]:.4f} - {OFFLOAD_OVERLAP_SLACK}")
+    del ixd
+
+    # 5.4 VectorIndex.offload(rerank='none') on a device-resident load that
+    # has served a batch (so it holds its bf16 stream table, as in serving).
+    vr = bindings.load(idx_dir, sh_dir, d, device=dev)
+    xq_dev = torch.as_tensor(xq, device=dev)
+    vr.search_device(xq_dev, k, 8)
+    torch.cuda.synchronize()
+    gc.collect()
+    before = torch.cuda.memory_allocated(dev)
+    vr.offload(rerank="none")
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated(dev)
+    log(f"  offload_main_table: device memory {before / 2**20:.1f} -> {after / 2**20:.1f} MiB "
+        f"(f32 table {f32_bytes / 2**20:.1f} MiB and the bf16 stream table freed, int8 table "
+        f"{vr.index._stream_table().nbytes / 2**20:.1f} MiB built)")
+    check(before - after >= f32_bytes, f"offload(rerank='none') frees >= the f32 table's bytes "
+                                       f"({before - after} >= {f32_bytes})")
+    for n_probe in (8, 32):
+        ms = host_ms(torch, lambda: vr.search_sync(xq, k, n_probe))
+        _, I = vr.search_sync(xq, k, n_probe)
+        r1, r10, r100, ov = quality(np, I, gt[:nq], k)
+        log(f"  offload none n_probe={n_probe:3d}: {ms:8.3f} ms/batch host clock, QPS "
+            f"{nq / ms * 1e3:9.1f}; R@1 {r1:.4f} R@10 {r10:.4f} R@100 {r100:.4f} "
+            f"top-{k} overlap {ov:.4f}")
+        check(r10 >= NONE_R10_FLOOR, f"offload none n_probe={n_probe}: R@10 {r10:.4f} >= "
+                                     f"{NONE_R10_FLOOR}")
+    del vr
+
+    # 5.5 device-resident 'stream_shared' (K5 bf16), 'stream_shared_exact'
+    # (K5 f32) and 'stream_exact' (K2 f32) against 'stream'. 'stream' itself
+    # drops rows by design (K4's top-2-per-lane planes, t_fixed, bf16
+    # rounding at the 100th rank), so the gate is the share of 'stream''s
+    # rows returned; whole-set equality and the exact overlap are printed.
+    vdv = bindings.load(idx_dir, sh_dir, d, device=dev)
+    xq_all_dev = torch.as_tensor(xq_all, device=dev)
+    ref_sets = {}
+    for method, n_probe in (("stream_shared", p_sh), ("stream_shared_exact", p_sh),
+                            ("stream_exact", 8)):
+        if n_probe is None:
+            continue
+        qd = xq_all_dev if method.startswith("stream_shared") else xq_dev
+        if n_probe not in ref_sets:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, Rs = vdv.search_device(qd, k, n_probe, method="stream")
+            Rs = Rs.cpu().numpy()
+            log(f"  device-resident stream n_probe={n_probe} nq={len(qd)}: "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host clock, one batch)")
+            ref_sets[n_probe] = (Rs, quality(np, vdv.rows_to_external(Rs), gt[: len(qd)], k)[3])
+        Rs, ov_s = ref_sets[n_probe]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, R = vdv.search_device(qd, k, n_probe, method=method)
+        R = R.cpu().numpy()
+        m_s = time.perf_counter() - t0
+        same = float((np.sort(R, 1) == np.sort(Rs, 1)).all(axis=1).mean())
+        shared_rows = float(np.mean([len(np.intersect1d(a, b)) for a, b in zip(R, Rs)]) / k)
+        ov = quality(np, vdv.rows_to_external(R), gt[: len(qd)], k)[3]
+        log(f"  device-resident {method} n_probe={n_probe} nq={len(qd)}: {m_s * 1e3:.1f} ms "
+            f"(host clock, one batch); top-{k} overlap {ov:.4f} ('stream' {ov_s:.4f}); "
+            f"'stream''s rows returned {shared_rows:.4f}; identical sets on {same:.4f}")
+        check(shared_rows >= TWIN_SAME_FLOOR and ov >= ov_s - SHARED_OVERLAP_SLACK,
+              f"{method} n_probe={n_probe}: returns {shared_rows:.4f} of 'stream''s rows "
+              f"(>= {TWIN_SAME_FLOOR}) and overlap {ov:.4f} >= 'stream' {ov_s:.4f} - "
+              f"{SHARED_OVERLAP_SLACK}")
+    del vdv
+    torch.cuda.synchronize()
+    counts = kb.launch_counts()
+    log(f"  launch counts in phase 5: {counts}")
+    for name in OFFLOAD_KERNELS:
+        check(counts[name] > 0, f"{name} launched in phase 5 ({counts[name]}x)")
+
+    # 5.6 The same offloaded searches on the CPU (plain versions), modes
+    # 'host' (search_batch) and 'none' (the sweep's own ranking,
+    # search_batch_device, which is what a rerank='none' index serves).
+    t0 = time.perf_counter()
+    vc = bindings.load(idx_dir, sh_dir, d, resident="offload", device="cpu")
+    qs = xq[:NQ_TWIN]
+    for n_probe in (8, 32):
+        for mode in ("host", "none"):
+            if mode == "host":
+                Dc, Ic = (a[:NQ_TWIN] for a in host_res[n_probe][:2])
+                Dp, Ip = vc.search_sync(qs, k, n_probe)
+            else:
+                Dc, Rc = ix.search_batch_device(qs, k, n_probe)
+                Dc, Ic = Dc.cpu().numpy(), vo.rows_to_external(Rc)
+                Dp, Rp = vc.index.search_batch_device(qs, k, n_probe)
+                Dp, Ip = Dp.numpy(), vc.rows_to_external(Rp)
+            err = np.abs(Dc - Dp)
+            same = (np.sort(Ic, 1) == np.sort(Ip, 1)).all(axis=1).mean()
+            check(bool(np.isfinite(Dp).all()) and bool((err <= RTOL * scale[:NQ_TWIN, None]).all())
+                  and same >= TWIN_SAME_FLOOR,
+                  f"offload {mode} n_probe={n_probe}: card vs plain versions on the CPU, "
+                  f"{NQ_TWIN} queries: every rank within {RTOL:g}*(|q|^2+max|x|^2) (max |err| "
+                  f"{float(err.max()):.3e}); equal top-{k} sets on {same:.4f} (>= {TWIN_SAME_FLOOR})")
+    log(f"  CPU comparison: {time.perf_counter() - t0:.2f}s")
+    return {name: counts[name] for name in OFFLOAD_KERNELS}
 
 
 def main() -> int:
@@ -510,7 +892,11 @@ def main() -> int:
     work = ROOT / "build" / "chip_smoke_work"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        counts = main_phase(torch, np, xb, xq, check, dev, work)
+        counts, overlaps = main_phase(torch, np, xb, xq, check, dev, work)
+        log("== 5. offload and the other stream methods")
+        t0 = time.perf_counter()
+        counts.update(offload_phase(torch, np, xb, xq, check, dev, work, overlaps))
+        log(f"  phase 5: {time.perf_counter() - t0:.2f}s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

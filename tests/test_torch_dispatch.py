@@ -58,16 +58,18 @@ def test_choose_sweep_body_matches(kind):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_stream_params_match(kind):
+    """(chunk, t_fixed, q_tile, t_cap) equal the reference's for the plain,
+    exact, shared and shared-exact programs and every table itemsize."""
     ln = _lengths(kind)
-    for nq in (1, 37, 256, 1000):
+    for nq in (1, 37, 256, 1000, 4096):
         for n_probe in (1, 8, 32, 128):
             for chunk in (None, 512):
-                # The reference's 4th field (t_cap) belongs to the unported
-                # shared program and is 0 here.
-                ref = jd.stream_params(ln, 128, 2, nq, n_probe, exact=False, shared=False,
-                                       chunk=chunk)
-                assert ref[3] == 0
-                assert td.stream_params(ln, 128, 2, nq, n_probe, chunk=chunk) == ref[:3]
+                for itemsize in (1, 2, 4):
+                    for exact in (False, True):
+                        for shared in (False, True):
+                            kw = dict(exact=exact, shared=shared, chunk=chunk)
+                            assert td.stream_params(ln, 128, itemsize, nq, n_probe, **kw) == \
+                                jd.stream_params(ln, 128, itemsize, nq, n_probe, **kw)
 
 
 def test_pick_q_tile_and_gates_match():
@@ -93,6 +95,8 @@ class _Core:
         self.layout.n = int(np.sum(lengths)) if n is None else n
         self.layout.vectors = torch.empty((int(np.sum(lengths) * 1.05) + 8, 0))
         self.num_clusters = len(lengths)
+        self.stream_dtype = torch.bfloat16
+        self.offloaded = False
         self.choose_method = lambda nq, n_probe: IvfIndex.choose_method(self, nq, n_probe)
 
 
@@ -116,7 +120,7 @@ def test_resolve_small_table_takes_plain_dense():
     assert td.resolve(core, 10, 4, k=10, method="dense_fused").program in ("dense_fused", "dense_torch")
 
 
-@pytest.mark.parametrize("method", ["gather", "stream_shared", "flat", "dense_int8", "staged", "stream_exact"])
+@pytest.mark.parametrize("method", ["gather", "gather_dma", "flat", "dense_int8", "staged", "flat_exact"])
 def test_unported_methods_raise(method):
     core = _Core(np.full(50, 100))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -126,3 +130,32 @@ def test_unported_methods_raise(method):
 def test_unknown_method_raises():
     with pytest.raises(ValueError):
         td.resolve(_Core(np.full(50, 100)), 10, 4, method="nope")
+
+
+@pytest.mark.parametrize("method", ["stream", "stream_exact", "stream_shared", "stream_shared_exact"])
+def test_resolve_stream_methods_size_like_the_reference(method):
+    """Every stream method resolves to the reference's program and sizing;
+    the exact ones size an f32 table, the others the index's stream type."""
+    ln = np.random.default_rng(1).integers(200, 300, 600)
+    core = _Core(ln)
+    dec = td.resolve(core, 1500, 64, k=100, method=method)
+    exact, shared = method.endswith("_exact"), method.startswith("stream_shared")
+    ref = jd.stream_params(ln, 128, 4 if exact else 2, 1500, 64, exact=exact, shared=shared)
+    assert dec.program == ("stream_shared" if shared else "stream") and dec.exact == exact
+    assert (dec.chunk, dec.t_fixed, dec.q_tile, dec.t_cap) == ref
+    core.stream_dtype = torch.int8
+    dec = td.resolve(core, 1500, 64, k=100, method=method)
+    ref = jd.stream_params(ln, 128, 4 if exact else 1, 1500, 64, exact=exact, shared=shared)
+    assert (dec.chunk, dec.t_fixed, dec.q_tile, dec.t_cap) == ref
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_shared_task_cap_matches(kind):
+    ln = _lengths(kind)
+    for nq_tile in (8, 64, 1024):
+        for t_fixed in (16, 96, 3072):
+            for worst in (False, True):
+                for chunk in (256, 1024):
+                    assert tbs.shared_task_cap(ln, 64, nq_tile, t_fixed, worst, chunk) == \
+                        jbs.shared_task_cap(ln, 64, nq_tile, t_fixed, worst, chunk)
+    assert tbs.Q_SHARE == jbs.Q_SHARE

@@ -38,6 +38,20 @@ def reference_arrays(idx) -> dict:
     )
 
 
+def stream_table_arrays(st) -> dict:
+    """A vector_indexer_tpu StreamTable as numpy arrays, in the form
+    vector_indexer_tpu_torch.convert.stream_table_from_reference_arrays
+    takes."""
+    names = ("vecs", "norms", "to_main", "sblk0", "lengths", "cent", "blk_cid", "scales")
+    return dict({n: np.asarray(getattr(st, n)) for n in names}, m_pad=st.m_pad, chunk=st.chunk)
+
+
+def correction_table_arrays(ct) -> dict:
+    """A vector_indexer_tpu CorrectionTable as numpy arrays."""
+    names = ("q2", "scales2", "norms_abs", "inv")
+    return dict({n: np.asarray(getattr(ct, n)) for n in names}, m_pad=ct.m_pad)
+
+
 def set_overlap(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Per-row |A & B| / |A| over the non-negative ids of two (nq, k) sets."""
     out = []

@@ -107,9 +107,15 @@ class VectorIndexer:
     # ------------------------------------------------------------------
 
     @classmethod
-    def load(cls, cfg: VectorIndexerConfig, resident: str = "device") -> "VectorIndexer":
+    def load(cls, cfg: VectorIndexerConfig, resident: str = "device",
+             offload_rerank: str = "host") -> "VectorIndexer":
+        """``resident='offload'`` uploads only a host-quantized int8 stream
+        table, for serving f32 tables larger than device memory;
+        ``offload_rerank`` ('host', 'device' or 'none') picks how its
+        shortlist is re-ranked (index/offload.py)."""
         index = load_index_from(
-            cfg.index_dir, cfg.shards_dir, resident=resident, device=cfg.device
+            cfg.index_dir, cfg.shards_dir, resident=resident, device=cfg.device,
+            offload_rerank=offload_rerank,
         )
         return cls(cfg, _index=index)
 

@@ -5,11 +5,15 @@ bindings/python/src/lib.rs):
 
   * ``build(xb, work_dir)``: one-shot build from an (n, d) f32 array,
     external_id = row index;
-  * ``load(index_dir, shards_dir, dim)``;
+  * ``load(index_dir, shards_dir, dim, resident)``: ``resident='offload'``
+    serves from a host-quantized int8 stream table (the f32 table never
+    reaches the device);
   * ``VectorIndex.search_sync(xq, k, n_probe)`` returning ``(D, I)``
     float32/int64 arrays of shape (nq, k), padded with +inf / -1;
   * ``VectorIndex.search_device`` returning device tensors (no copy to the
-    host) for serving and benchmark loops.
+    host) for serving and benchmark loops;
+  * ``VectorIndex.offload(stream_dtype, rerank)``: free a loaded index's f32
+    table and serve from the compact stream table.
 
 Both ``build`` and ``load`` take ``device`` (default: the first CUDA device
 if present, else the CPU).
@@ -73,6 +77,14 @@ class VectorIndex:
             xq, min(k, cfg.max_k), min(n_probe, cfg.max_n_probe), method
         )
 
+    def offload(self, stream_dtype=None, rerank: str = "host") -> None:
+        """Larger-than-device mode: free the f32 main table and serve from a
+        compact (int8 by default) stream table, with the shortlist re-ranked
+        exactly on the host (rerank='host'), on the device against a
+        two-layer int8 reconstruction ('device'), or not at all ('none').
+        See IvfIndex.offload_main_table."""
+        self._indexer.index.offload_main_table(stream_dtype, rerank=rerank)
+
     def rows_to_external(self, rows) -> np.ndarray:
         """Map layout rows (from search_device) to external ids."""
         idx = self._indexer.index
@@ -114,7 +126,9 @@ def build(xb: np.ndarray, work_dir: Optional[str] = None, metric: str = "l2",
 
 def load(index_dir: str, shards_dir: str, dim: int, resident: str = "device",
          device=None) -> VectorIndex:
-    """Load a saved index onto ``device``."""
+    """Load a saved index onto ``device``. ``resident='offload'`` serves
+    f32 tables larger than device memory from a host-quantized int8 stream
+    table with an exact host re-rank (see IvfIndex.offload_from_host)."""
     cfg = (
         VectorIndexerConfig(dim)
         .with_index_dir(index_dir)

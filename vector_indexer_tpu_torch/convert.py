@@ -2,8 +2,11 @@
 
 ``index_from_reference_arrays`` builds a port ``IvfIndex`` from the arrays
 of a ``vector_indexer_tpu`` index, so that both packages search the same
-centroids and the same posting table. The port never imports jax: the
-caller does the ``np.asarray`` on the reference side (see
+centroids and the same posting table; ``stream_table_from_reference_arrays``
+and ``correction_table_from_reference_arrays`` carry a quantized stream
+table (bf16, int8 or f32) and an offload correction table across, so that
+both packages' kernels read the same quantized rows. The port never imports
+jax: the caller does the ``np.asarray`` on the reference side (see
 ``reference_arrays`` in the tests).
 """
 
@@ -16,6 +19,8 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .index.ivf import IvfIndex
+from .ops.block_stream import StreamTable
+from .ops.correction import CorrectionTable
 from .storage.layout import PostingLayout
 
 # Keys the reference side must provide.
@@ -58,3 +63,62 @@ def index_from_reference_arrays(arrays: Dict[str, np.ndarray],
     host[lay.perm[real]] = vectors[: lay.rows_used][real]
     idx._host_data = host
     return idx
+
+
+STREAM_TABLE_KEYS = ("vecs", "norms", "to_main", "sblk0", "lengths", "cent", "blk_cid",
+                     "scales", "m_pad", "chunk")
+CORRECTION_TABLE_KEYS = ("q2", "scales2", "norms_abs", "inv", "m_pad")
+
+
+def _rows(a: np.ndarray, dev) -> torch.Tensor:
+    """A table of rows; numpy has no bf16, so the reference's bf16 arrays
+    (ml_dtypes, dtype name 'bfloat16') cross as their 16-bit patterns."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.as_tensor(np.array(a), device=dev)
+
+
+def _i64(a, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+
+def _f32(a, dev) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, np.float32), device=dev)
+
+
+def stream_table_from_reference_arrays(arrays: Dict[str, np.ndarray],
+                                       device: DeviceLike = None) -> StreamTable:
+    """Port StreamTable holding a reference stream table's arrays."""
+    missing = [k for k in STREAM_TABLE_KEYS if k not in arrays]
+    if missing:
+        raise KeyError(f"reference stream table arrays missing: {missing}")
+    dev = resolve_device(device)
+    return StreamTable(
+        vecs=_rows(np.asarray(arrays["vecs"]), dev),
+        norms=_f32(arrays["norms"], dev),
+        to_main=_i64(arrays["to_main"], dev),
+        sblk0=_i64(arrays["sblk0"], dev),
+        lengths=_i64(arrays["lengths"], dev),
+        cent=_f32(arrays["cent"], dev),
+        blk_cid=_i64(arrays["blk_cid"], dev),
+        scales=_f32(arrays["scales"], dev),
+        m_pad=int(arrays["m_pad"]),
+        chunk=int(arrays["chunk"]),
+    )
+
+
+def correction_table_from_reference_arrays(arrays: Dict[str, np.ndarray],
+                                           device: DeviceLike = None) -> CorrectionTable:
+    """Port CorrectionTable holding a reference correction table's arrays."""
+    missing = [k for k in CORRECTION_TABLE_KEYS if k not in arrays]
+    if missing:
+        raise KeyError(f"reference correction table arrays missing: {missing}")
+    dev = resolve_device(device)
+    return CorrectionTable(
+        q2=_rows(np.asarray(arrays["q2"]), dev),
+        scales2=_f32(arrays["scales2"], dev),
+        norms_abs=_f32(arrays["norms_abs"], dev),
+        inv=_i64(arrays["inv"], dev),
+        m_pad=int(arrays["m_pad"]),
+    )

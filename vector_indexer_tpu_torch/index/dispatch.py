@@ -12,6 +12,9 @@ on the H100. Differences from the reference:
 
 * the fused programs are always available (the reference gates them on a
   TPU backend); on the CPU their kernels run their plain versions;
+* the stream table's itemsize comes from the index's ``stream_dtype``
+  (bf16 by default; int8 after offload), and the ``*_exact`` stream
+  methods size an f32 table, as in the reference;
 * ``dense`` below the fused gate (n <= 50k, d % 128 != 0, or no fused
   plan) runs one plain PyTorch dense program, program name ``dense_torch``;
 * programs outside the ported slice raise ``NotImplementedError`` naming
@@ -36,11 +39,16 @@ STREAM_FIXED_QBYTES = 160 << 10
 SHARED_MIN_PROBED_ROWS = 512 << 10
 SHARED_MIN_NQ = 1024
 
-STREAM_ITEMSIZE = 2  # the ported stream table is bf16
-
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def stream_itemsize(dtype) -> int:
+    """Bytes per element of a stream table of this torch dtype."""
+    import torch
+
+    return torch.empty((), dtype=dtype).element_size()
 
 
 def pick_q_tile(nq: int, budget: int, d: int, mem_cap_bytes: int = 3 << 29) -> int:
@@ -52,7 +60,8 @@ def pick_q_tile(nq: int, budget: int, d: int, mem_cap_bytes: int = 3 << 29) -> i
 
 
 def mean_slot_rows_of(lengths_np, chunk: int) -> float:
-    """Expected chunk-aligned probed rows per cell (mean over cells)."""
+    """Expected chunk-aligned probed rows per cell (mean over cells): the
+    footprint unit the stream gates are calibrated in."""
     chunk = max(chunk, 1)
     if len(lengths_np) == 0:
         return 0.0
@@ -60,7 +69,9 @@ def mean_slot_rows_of(lengths_np, chunk: int) -> float:
 
 
 def shared_gate(nq: int, n_probe: int, mean_slot_rows: float) -> bool:
-    """The shared-kernel upgrade rule."""
+    """The one shared-kernel (K5) upgrade rule, for both the
+    device-resident (``choose_sweep_body``) and the offloaded branch of
+    ``IvfIndex.choose_method``."""
     return nq >= SHARED_MIN_NQ and n_probe * mean_slot_rows >= SHARED_MIN_PROBED_ROWS
 
 
@@ -86,19 +97,40 @@ def choose_sweep_body(
 
 def stream_params(
     lengths_np, d: int, itemsize: int, nq: int, n_probe: int,
-    chunk: Optional[int] = None,
-) -> Tuple[int, int, int]:
-    """Static sizing of the (bf16, unshared) stream program: (chunk,
-    t_fixed, q_tile). ``chunk=None`` derives the chunk build_stream_table
-    picks."""
-    from ..ops.block_stream import SMEM_TASK_CAP, per_query_slots, pick_chunk
+    *, exact: bool = False, shared: bool = False, chunk: Optional[int] = None,
+) -> Tuple[int, int, int, int]:
+    """Static sizing of a stream program: (chunk, t_fixed, q_tile, t_cap).
+    ``exact`` sizes worst-case slots (no chunk is ever dropped); ``shared``
+    tiles up to 1024 queries (sharing grows with the tile) and halves the
+    tile until the task budget t_cap fits SMEM_TASK_CAP and the per-tile
+    plane + query rows (Q_SHARE * (chunk + d) * 4 B per task) fit 256 MB.
+    ``chunk=None`` derives the chunk build_stream_table picks."""
+    from ..ops.block_stream import (
+        Q_SHARE,
+        SMEM_TASK_CAP,
+        per_query_slots,
+        pick_chunk,
+        shared_task_cap,
+    )
 
     if chunk is None:
         chunk = pick_chunk(lengths_np, d, itemsize)
-    t_fixed = per_query_slots(lengths_np, n_probe, chunk=chunk)
+    t_fixed = per_query_slots(lengths_np, n_probe, worst_case=exact, chunk=chunk)
     q_tile = max(8, min(_QUERY_TILE, (SMEM_TASK_CAP // max(t_fixed, 1)) // 8 * 8))
+    t_cap = 0
+    if shared:
+        q_tile = max(8, min(1024, _round_up(nq, 8)))
+        while True:
+            t_cap = shared_task_cap(lengths_np, n_probe, q_tile, t_fixed,
+                                    worst_case=exact, chunk=chunk)
+            if q_tile <= 8 or (
+                t_cap <= SMEM_TASK_CAP
+                and t_cap * Q_SHARE * (chunk + d) * 4 <= (256 << 20)
+            ):
+                break
+            q_tile = max(8, q_tile // 2)
     q_tile = min(q_tile, _round_up(nq, 8))
-    return chunk, t_fixed, q_tile
+    return chunk, t_fixed, q_tile, t_cap
 
 
 @dataclasses.dataclass
@@ -108,17 +140,16 @@ class Decision:
     label; ``program`` names the code path."""
 
     method: str
-    program: str  # 'dense_fused' | 'dense_torch' | 'stream'
+    program: str  # 'dense_fused' | 'dense_torch' | 'stream' | 'stream_shared'
     q_tile: int = 0
     plan: Optional[Tuple[int, int, int]] = None  # fused (w, q_tile, c_groups)
     t_fixed: int = 0  # stream task slots per query
     chunk: int = 0  # stream block rows
+    t_cap: int = 0  # shared-kernel task budget per tile
+    exact: bool = False  # *_exact stream variant (f32 table, exact selection)
 
 
 _NOT_PORTED = {
-    "stream_exact": "the f32 stream table (ROADMAP Queue 2, K2 f32-exact mode)",
-    "stream_shared": "kernel K5 (ROADMAP Queue 2)",
-    "stream_shared_exact": "kernel K5 (ROADMAP Queue 2)",
     "gather": "the packed-gather program (ROADMAP Queue 1 item 5)",
     "gather_dma": "kernel K6 (ROADMAP Queue 2)",
     "flat": "the flat programs (ROADMAP Queue 1 item 7)",
@@ -138,7 +169,8 @@ def resolve(core, nq: int, n_probe: int, k: int = 100, method: str = "auto") -> 
     lay = core.layout
     d = core.dimension
     n_probe = min(n_probe, core.num_clusters)
-    table_rows = lay.vectors.shape[0]
+    # An offloaded index has freed its table; its padded row count stays.
+    table_rows = lay.vectors.shape[0] if lay.vectors is not None else core._n_pad
 
     if method == "auto":
         method = core.choose_method(nq, n_probe)
@@ -162,11 +194,15 @@ def resolve(core, nq: int, n_probe: int, k: int = 100, method: str = "auto") -> 
             q_tile=pick_q_tile(nq, table_rows * 4 // d, d),
         )
 
-    if method == "stream":
-        chunk, t_fixed, q_tile = stream_params(
-            np.asarray(lay.lengths), d, STREAM_ITEMSIZE, nq, n_probe
+    if method in ("stream", "stream_exact", "stream_shared", "stream_shared_exact"):
+        exact = method.endswith("_exact")
+        shared = method.startswith("stream_shared")
+        itemsize = 4 if exact else stream_itemsize(core.stream_dtype)
+        chunk, t_fixed, q_tile, t_cap = stream_params(
+            np.asarray(lay.lengths), d, itemsize, nq, n_probe, exact=exact, shared=shared,
         )
         return Decision(
-            method=method, program="stream", q_tile=q_tile, t_fixed=t_fixed, chunk=chunk,
+            method=method, program="stream_shared" if shared else "stream", q_tile=q_tile,
+            t_fixed=t_fixed, chunk=chunk, t_cap=t_cap, exact=exact,
         )
     raise ValueError(f"unknown search method: {method}")

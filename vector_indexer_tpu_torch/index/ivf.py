@@ -11,9 +11,13 @@ Port of the default path of ``vector_indexer_tpu/index/ivf.py``:
   ``index/programs.py`` runs it, and layout rows map to internal ids on the
   host;
 * persistence through ``storage/persist.py`` (the reference's on-disk
-  format).
+  format);
+* offloaded serving (``offload_main_table``, ``offload_from_host``,
+  ``load_index_from(..., resident='offload')``): the f32 table leaves the
+  device, an int8 stream table serves, and the shortlist is re-ranked on
+  the host, on the device, or not at all (index/offload.py).
 
-Offload, host-resident serving, spill and the mesh build are not ported yet
+Host-resident serving, spill and the mesh build are not ported yet
 (ROADMAP Queue 1 items 11-15) and raise.
 """
 
@@ -37,8 +41,15 @@ from ..utils.heuristics import (
     num_shards_for,
 )
 from ..utils.tracing import trace
+from . import offload as _offload
 from . import programs
-from .dispatch import STREAM_ITEMSIZE, choose_sweep_body, resolve
+from .dispatch import (
+    choose_sweep_body,
+    mean_slot_rows_of,
+    resolve,
+    shared_gate,
+    stream_itemsize,
+)
 
 log = logging.getLogger("vector_indexer_tpu_torch")
 
@@ -64,9 +75,23 @@ class IvfIndex:
         # it instead of copying the table back from the device).
         self._host_data: Optional[np.ndarray] = None
         self._dev = None
-        self._stream = None  # the bf16 StreamTable, built on first use
+        # Stream-table type of method 'stream' (bf16 halves the sweep's
+        # bytes; an offloaded index serves int8) and the tables built so
+        # far, by type (the exact methods build an f32 one).
+        self.stream_dtype = torch.bfloat16
+        self._stream_tables: dict = {}
         self._runs = None
         self._perm_inv = None
+        self._perm_dev = None
+        # Larger-than-device mode (index/offload.py): f32 table freed, a
+        # compact stream table serves; the shortlist re-rank mode, the
+        # freed table's row count, the correction table ('device') and the
+        # host mirror's norms ('host').
+        self.offloaded = False
+        self._offload_rerank = "host"
+        self._n_pad = 0
+        self._corr_table = None
+        self._host_norms = None
 
     # ------------------------------------------------------------------
     # Build
@@ -176,13 +201,39 @@ class IvfIndex:
             self._dev = (c, sq_norms(c))
         return self._dev
 
-    def _stream_table(self):
-        """bf16 stream table, built on first use (a one-time device re-pack
-        of the posting table)."""
-        if self._stream is None:
-            with trace("stream_table.build"):
-                self._stream = build_stream_table(self.layout, self.centroids)
-        return self._stream
+    def _stream_table(self, dtype: Optional[torch.dtype] = None):
+        """Stream table of ``dtype`` (default: ``stream_dtype``), built on
+        first use (a one-time device re-pack of the posting table)."""
+        dtype = self.stream_dtype if dtype is None else dtype
+        if dtype not in self._stream_tables:
+            with trace("stream_table.build", dtype=str(dtype)):
+                self._stream_tables[dtype] = build_stream_table(
+                    self.layout, self.centroids, dtype
+                )
+        return self._stream_tables[dtype]
+
+    def offload_main_table(self, stream_dtype=None, rerank: str = "host") -> None:
+        """Larger-than-device serving: free the f32 main table and serve
+        from a compact (int8 by default) stream table; ``rerank`` is 'host',
+        'device' or 'none' (index/offload.py::offload_main_table)."""
+        _offload.offload_main_table(self, stream_dtype, rerank)
+
+    def offload_from_host(self, stream_dtype=None, rerank: str = "host") -> None:
+        """Offload entry for host-staged layouts (``load_index_from(...,
+        resident='offload')``): the tables are built on the host and only
+        they are uploaded (index/offload.py::offload_from_host)."""
+        _offload.offload_from_host(self, stream_dtype, rerank)
+
+    def _perm_dev_table(self):
+        """Device map layout row -> internal id (-1 on gap and tail rows),
+        cached per layout object."""
+        lay = self.layout
+        if self._perm_dev is None or self._perm_dev[0] is not lay:
+            n_pad = lay.vectors.shape[0] if lay.vectors is not None else self._n_pad
+            pd = np.full(n_pad, -1, np.int64)
+            pd[: lay.rows_used] = lay.perm
+            self._perm_dev = (lay, torch.as_tensor(pd, device=self.device))
+        return self._perm_dev[1]
 
     def _run_tables(self):
         """(block_run, centroids_ord, c_sq_ord): posting runs in layout order
@@ -206,13 +257,26 @@ class IvfIndex:
 
     def choose_method(self, nq: int, n_probe: int) -> str:
         """Resolve 'auto' for this (nq, n_probe): the dense-vs-stream byte
-        model (index/dispatch.py::choose_sweep_body)."""
+        model (index/dispatch.py::choose_sweep_body), upgraded to the shared
+        stream (K5) at huge probed footprints. An offloaded index serves the
+        stream kernels only; there the shared upgrade applies only under a
+        re-ranked mode ('host' or 'device'), where the re-ranked >= 128-wide
+        shortlist makes the two kernels result-equivalent, while the
+        rank-only mode returns the raw plane, where the shared selection is
+        measurably lossier (the reference's measurement)."""
         lengths = np.asarray(self.layout.lengths)
         n_probe = min(n_probe, self.num_clusters)
-        chunk = pick_chunk(lengths, self.dimension, STREAM_ITEMSIZE)
+        itemsize = stream_itemsize(self.stream_dtype)
+        chunk = pick_chunk(lengths, self.dimension, itemsize)
+        if self.offloaded:
+            if self._offload_rerank in ("host", "device") and shared_gate(
+                nq, n_probe, mean_slot_rows_of(lengths, chunk)
+            ):
+                return "stream_shared"
+            return "stream"
         return choose_sweep_body(
             lengths, self.layout.vectors.shape[0], self.dimension,
-            STREAM_ITEMSIZE, nq, n_probe, chunk, allow_shared=True,
+            itemsize, nq, n_probe, chunk, allow_shared=True,
         )
 
     def _queries_on_device(self, queries) -> torch.Tensor:
@@ -240,17 +304,31 @@ class IvfIndex:
         if n_probe <= 0:
             raise ValueError("n_probe must be > 0")
         q = self._queries_on_device(queries)
-        nq = q.shape[0]
+        nq = q.shape[0]  # after the reshape: one (d,) query is nq = 1
         n_probe = min(n_probe, self.num_clusters)
+        if self.offloaded:
+            if method == "auto":
+                method = self.choose_method(nq, n_probe)
+            if method not in ("stream", "stream_shared"):
+                raise RuntimeError(
+                    "offloaded index serves the stream kernels only (the f32 main "
+                    "table was freed; the dense and exact paths need it: reload the "
+                    "index to restore them)"
+                )
         metric = self.metric if self.metric != "cosine" else "ip"
         lay = self.layout
         dec = resolve(self, nq, n_probe, k=k, method=method)
-        if dec.program == "stream":
+        if dec.program in ("stream", "stream_shared"):
             centroids, c_sq = self._device_tables()
-            st = self._stream_table()
+            st = self._stream_table(torch.float32 if dec.exact else self.stream_dtype)
+            # int8 on a device-resident index: exact f32 re-rank of the
+            # shortlist (an offloaded index re-ranks in index/offload.py).
+            rerank = st.dtype == torch.int8 and not self.offloaded
             return programs.stream_program(
-                q, centroids, c_sq, st, k=k, n_probe=n_probe,
-                t_fixed=dec.t_fixed, q_tile=dec.q_tile, metric=metric,
+                q, centroids, c_sq, st, k=k, n_probe=n_probe, t_fixed=dec.t_fixed,
+                q_tile=dec.q_tile, metric=metric, approx=not dec.exact,
+                shared=dec.program == "stream_shared", t_cap=dec.t_cap,
+                rerank_from=(lay.vectors, lay.row_norms) if rerank else None,
             )
         block_run, c_ord, c_sq_ord = self._run_tables()
         if dec.program == "dense_fused":
@@ -273,7 +351,16 @@ class IvfIndex:
     def search_batch(self, queries, k: int, n_probe: int,
                      method: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
         """Batched search: (nq, d) -> (D (nq, k) f32, internal ids (nq, k)
-        int64), missing slots padded +inf / -1."""
+        int64), missing slots padded +inf / -1. An offloaded index re-ranks
+        its shortlist as its mode says (index/offload.py)."""
+        if self.offloaded and self._offload_rerank in ("host", "device"):
+            if k <= 0:
+                raise ValueError("k must be > 0")
+            if n_probe <= 0:
+                raise ValueError("n_probe must be > 0")
+            search = (_offload.search_offloaded if self._offload_rerank == "host"
+                      else _offload.search_offloaded_device)
+            return search(self, queries, k, n_probe, method)
         dvals, rows = self.search_batch_device(queries, k, n_probe, method)
         return dvals.cpu().numpy(), self.rows_to_internal(rows.cpu().numpy())
 
@@ -291,6 +378,11 @@ class IvfIndex:
 
     def _vector_of(self, internal_id: int) -> np.ndarray:
         lay = self.layout
+        if lay.vectors is None:  # offloaded: the rows live in the host mirror
+            if self._host_data is None:
+                raise RuntimeError("result vectors unavailable: main table offloaded "
+                                   "and no host mirror present")
+            return np.asarray(self._host_data[internal_id], np.float32)
         if self._perm_inv is None or self._perm_inv[0] is not lay:
             size = int(lay.perm.max()) + 1 if lay.n else 0
             inv = np.full(size, -1, np.int64)
@@ -318,13 +410,13 @@ class IvfIndex:
 
 
 def load_index_from(index_dir, shards_dir=None, resident: str = "device",
-                    device: DeviceLike = None) -> IvfIndex:
+                    device: DeviceLike = None, offload_rerank: str = "host") -> IvfIndex:
     """Load index metadata (+ the posting layout from shard files when
-    ``shards_dir`` is given) onto ``device``."""
+    ``shards_dir`` is given) onto ``device``. ``resident='offload'`` builds
+    an int8 stream table on the host and uploads only it (the f32 table
+    never reaches the device); ``offload_rerank`` is then 'host', 'device'
+    or 'none' (index/offload.py)."""
     from ..storage import persist
 
-    if resident != "device":
-        raise NotImplementedError(
-            f"resident={resident!r} is not ported yet (ROADMAP Queue 1 items 12-13)"
-        )
-    return persist.load_index(index_dir, shards_dir, device=device)
+    return persist.load_index(index_dir, shards_dir, device=device, resident=resident,
+                              offload_rerank=offload_rerank)

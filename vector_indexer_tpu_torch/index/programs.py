@@ -5,9 +5,13 @@ int64), padded with +inf / -1. Coarse probing is always L2 (the posting
 lists were built by L2 assignment), whatever the ranking metric.
 
 * ``stream_program`` - coarse top-n_probe, then the probed-blocks stream
-  (kernels K2/K4) over the bf16 residual table, a widened shortlist ``kk``
-  and an exact narrow to k (the reference's ``_ivf_search_stream_program``
-  with its bf16 default, rerank=False);
+  (kernels K2/K4, or K5 when shared) over the residual stream table, a
+  widened shortlist ``kk``, and either an exact narrow to k over the
+  kernel distances (bf16 and f32 tables, and offloaded int8 tables, whose
+  re-rank happens elsewhere) or an exact f32 re-rank from the main table
+  (int8 tables on a device-resident index): the reference's
+  ``_ivf_search_stream_program`` with the defaults of its
+  ``_stream_rerank_wanted``;
 * ``dense_fused_program`` - the block probe mask and the fused masked
   sweep (kernel K3), then a top-k over the fixed plane (the reference's
   ``_ivf_search_dense_fused_program``);
@@ -19,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.block_stream import block_stream_search
+from ..ops.block_stream import block_stream_search, block_stream_search_shared
 from ..ops.distance import score, sq_norms
 from ..ops.flat_sweep import S, flat_sweep_topk_plane
 from ..ops.topk import topk_smallest
@@ -44,26 +48,67 @@ def _probe(qt, centroids, c_sq, n_probe: int):
     return torch.topk(dcoarse, n_probe, dim=1, largest=False, sorted=True).indices
 
 
-def shortlist_k(k: int, t_fixed: int, chunk: int) -> int:
-    """Width of the stream program's shortlist (the reference's bf16 rule,
-    wide = 2). The in-sweep selection (K4's top-2-per-lane planes) is
-    approximate; the exact narrow from this shortlist to k is not."""
-    return min(max(2 * k, 64), t_fixed * chunk)
+# Queries per exact re-rank: bounds the (queries, kk, d) candidate gather
+# (~400 MB at kk = 200, d = 128).
+RERANK_Q_TILE = 4096
+
+
+def shortlist_k(k: int, t_fixed: int, chunk: int, wide: int = 2) -> int:
+    """Width of the stream program's shortlist (the reference's rule: wide
+    2 for bf16 and f32 tables, 4 for int8). The in-sweep selection (K4's
+    top-2-per-lane planes) is approximate, and an int8 table's ranking is
+    coarse; the exact narrow or re-rank from this shortlist to k is not."""
+    return min(max(wide * k, 64 * (wide // 2)), t_fixed * chunk)
+
+
+def exact_rerank(queries, rows, vectors, row_norms, k: int, metric: str):
+    """Exact f32 re-rank of a shortlist of layout rows: recompute the
+    candidates' distances from the f32 table and re-select the top k.
+    rows < 0 pass through as +inf / -1; sentinel rows keep their >= 1e29
+    penalty and never win."""
+    rows0 = rows.clamp_min(0)
+    cross = torch.matmul(vectors[rows0], queries[:, :, None])[..., 0]  # (q, kk)
+    norms_sel = row_norms[rows0]
+    if metric == "l2":
+        exact = (sq_norms(queries)[:, None] - 2.0 * cross + norms_sel).clamp_min(0.0)
+    else:
+        exact = -cross + torch.where(norms_sel >= 1e29, norms_sel, torch.zeros_like(norms_sel))
+    return _narrow(torch.where(rows >= 0, exact, float("inf")), rows, k)
 
 
 def stream_program(queries, centroids, c_sq, table, *, k: int, n_probe: int,
-                   t_fixed: int, q_tile: int, metric: str):
-    """Probed-blocks-only search over the bf16 stream table."""
-    kk = shortlist_k(k, t_fixed, table.chunk)
+                   t_fixed: int, q_tile: int, metric: str, approx: bool = True,
+                   shared: bool = False, t_cap: int = 0, rerank_from=None):
+    """Probed-blocks-only search over a stream table. ``shared`` runs K5
+    (``t_cap`` tasks per query tile). ``rerank_from`` = (vectors,
+    row_norms) of the f32 main table re-ranks the widened shortlist
+    exactly, hoisted out of the sweep's tile loop into tiles of up to
+    RERANK_Q_TILE queries; without it the kernel distances are narrowed
+    to k."""
+    wide = 4 if table.dtype == torch.int8 else 2
+    kk = shortlist_k(k, t_fixed, table.chunk, wide)
     dv_parts, row_parts = [], []
     for s in range(0, queries.shape[0], q_tile):
         qt = queries[s : s + q_tile]
         probe = _probe(qt, centroids, c_sq, n_probe)
-        dv, rows = block_stream_search(qt, table, probe, kk, t_fixed=t_fixed, metric=metric)
+        if shared:
+            dv, rows = block_stream_search_shared(
+                qt, table, probe, kk, t_fixed=t_fixed, t_cap=t_cap, metric=metric
+            )
+        else:
+            dv, rows = block_stream_search(
+                qt, table, probe, kk, t_fixed=t_fixed, metric=metric, approx=approx
+            )
         dv_parts.append(dv)
         row_parts.append(rows)
     dvals = torch.cat(dv_parts)
     rows = torch.cat(row_parts)
+    if rerank_from is not None:
+        vectors, row_norms = rerank_from
+        rt = max(q_tile, RERANK_Q_TILE // q_tile * q_tile)
+        parts = [exact_rerank(queries[s : s + rt], rows[s : s + rt], vectors, row_norms,
+                              k, metric) for s in range(0, queries.shape[0], rt)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
     if metric == "l2":
         # Kernel distances are |q - (c + r^)|^2 from exact f32 pieces; the
         # three-term sum can leave ~-1e-5 on (near-)self matches.

@@ -1,9 +1,10 @@
 """Build, load and count the port's CUDA kernels.
 
 All kernel sources live in ``vector_indexer_tpu_torch/csrc``. At first use
-they are compiled by ``nvcc`` for Hopper (``sm_90a``) into ONE shared
-library with a plain C interface, which is loaded with ``ctypes``. No
-PyTorch header is compiled, so the build takes seconds. The library's file
+each source is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all of
+them at once, and the objects are linked into ONE shared library with a
+plain C interface, which is loaded with ``ctypes``. No PyTorch header is
+compiled, so the build takes seconds. The library's file
 name carries a hash of the sources and flags, so an edited source is never
 served by a stale build. The build directory is ``build/torch_kernels`` at
 the root of the checkout (listed in ``.gitignore``).
@@ -14,9 +15,10 @@ raises when that is not 0. There is no fallback: a failed build, a missing
 library or a refused launch raises.
 
 Launch counters: each kernel wrapper calls ``launch`` exactly where it
-launches its kernel, which adds one to that kernel's count. A caller resets
-the counts before a run and reads them after it to prove which kernels the
-run went through.
+launches its kernel, which adds one to that kernel's count. The stream
+kernels count per table type, as ``name[bf16]``, ``name[int8]`` or
+``name[f32]``. A caller resets the counts before a run and reads them after
+it to prove which kernels (and modes) the run went through.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -48,15 +50,22 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # x, c, c_sq, n, k, d, best_score, best_idx, stream
     "vitorch_assign_argmin": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
-    # queries, cent, cid2d, blk2d, bias2d, vecs, norms, nq, t_fixed,
-    # chunk, d, is_l2, out, stream
+    # queries, cent, cid2d, blk2d, bias2d, vecs, norms, scales, nq,
+    # t_fixed, chunk, d, is_l2, row_type, out, stream
     "vitorch_stream_distances": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
-    # queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms, nq,
-    # t_fixed, t_sub, chunk, groups, d, is_l2, dist_plane, slot_plane, stream
+    # queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms, scales, nq,
+    # t_fixed, t_sub, chunk, groups, d, is_l2, row_type, dist_plane,
+    # slot_plane, stream
     "vitorch_stream_fused_plane": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P,
+    ),
+    # qc, blk_t, scl_t, vecs, norms, t_cap, q_share, chunk, d, is_l2,
+    # row_type, plane, stream
+    "vitorch_stream_shared_plane": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
     # q, x, norms, mask, nq, n_rows, d, w, c_groups, mcols, is_l2,
     # v1, i1, v2, i2, stream
@@ -65,12 +74,26 @@ _SIGNATURES = {
     ),
 }
 
-# Kernel name (as reported) -> launches since the last reset.
+# Stream-table element type -> (row_type code of the C entry points, label).
+ROW_TYPES = {
+    torch.bfloat16: (0, "bf16"),
+    torch.int8: (1, "int8"),
+    torch.float32: (2, "f32"),
+}
+
+# Kernel name (as reported; the stream kernels per table type) -> launches
+# since the last reset.
 _LAUNCHES: Dict[str, int] = {
     "assign_argmin": 0,
-    "stream_distances": 0,
-    "stream_fused_plane": 0,
+    "stream_distances[bf16]": 0,
+    "stream_distances[int8]": 0,
+    "stream_distances[f32]": 0,
+    "stream_fused_plane[bf16]": 0,
+    "stream_fused_plane[int8]": 0,
     "flat_sweep_topk_plane": 0,
+    "stream_shared_plane[bf16]": 0,
+    "stream_shared_plane[int8]": 0,
+    "stream_shared_plane[f32]": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -115,10 +138,23 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once; raise naming the first that failed.
+    Returns their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{o}")
+    return "\n".join(outs)
+
+
 def build_library() -> Path:
     """Compile csrc/*.cu into the hashed shared library (no-op when it is
-    already built). Records the wall seconds and nvcc's report (registers,
-    shared memory, spills from ``-Xptxas -v``) in ``build_info()``."""
+    already built): one nvcc per source, all started together, then one
+    link. Records the wall seconds and nvcc's report (registers, shared
+    memory, spills from ``-Xptxas -v``) in ``build_info()``."""
     out = BUILD_DIR / f"libvitorch_kernels_{_digest()}.so"
     if out.is_file():
         _BUILD_INFO.setdefault("path", str(out))
@@ -126,27 +162,16 @@ def build_library() -> Path:
         _BUILD_INFO.setdefault("log", "")
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp,
-           *map(str, sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs = [str(Path(tmpdir) / f"{src.stem}.o") for src in sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src), "-o", obj]
+                        for src, obj in zip(sources(), objs)])
+        tmp = str(Path(tmpdir) / out.name)
+        log += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, out)  # atomic: a concurrent build sees all or none
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    _BUILD_INFO.update(
-        path=str(out),
-        seconds=time.perf_counter() - t0,
-        log=(res.stdout + res.stderr).strip(),
-    )
+    _BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0, log=log.strip())
     return out
 
 

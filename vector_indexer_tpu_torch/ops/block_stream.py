@@ -1,11 +1,14 @@
 """Probed-blocks stream search: the stream table, its task grid, and
-kernels K2 (per-task distance rows) and K4 (fused top-2-per-lane planes).
+kernels K2 (per-task distance rows), K4 (fused top-2-per-lane planes) and
+K5 (the block-major shared stream).
 
-Port of ``vector_indexer_tpu/ops/pallas/block_stream.py`` (bf16 path).
+Port of ``vector_indexer_tpu/ops/pallas/block_stream.py``.
 
 * A **stream table** re-packs the posting table so that every cluster
   starts at a ``chunk``-row-aligned base and stores RESIDUAL rows
-  (vector - centroid) in bf16, with the f32 norms of the STORED rows. So
+  (vector - centroid) in bf16, int8 (symmetric per-cluster scale
+  s_c = max|r| / 127, the offload table) or f32 (the ``stream_exact``
+  table), with the f32 norms of the STORED (dequantized) rows. So
   |q-c|^2 - 2 (q-c).r^ + |r^|^2 is exactly |q - (c + r^)|^2: the search
   distance is exact to the quantized point.
 * Each probed list becomes ceil(len / chunk) **tasks**; every query gets
@@ -17,12 +20,16 @@ Port of ``vector_indexer_tpu/ops/pallas/block_stream.py`` (bf16 path).
   selection on chip and returns per-(group, lane) best/second planes with
   their slot ids; it engages once a query's task plane is wide
   (``fused_engages``), as in the reference.
+* **K5** (``stream_shared_plane``, behind ``block_stream_search_shared``)
+  inverts the (query, slot) pairs into block-major tasks of up to
+  ``Q_SHARE`` queries, so that a block probed by many queries of a tile is
+  read once per task instead of once per query.
 
-The sizing constants (chunk target, FAN, the fused threshold) are the
-reference's TPU-calibrated values, copied unchanged until they are
-re-measured on the H100 (ROADMAP Queue 1 item 10). Each kernel wrapper runs
-its plain PyTorch version on a CPU tensor and launches its CUDA kernel on a
-CUDA tensor (or raises).
+The sizing constants (chunk target, FAN, the fused threshold, Q_SHARE, the
+task-cap grain) are the reference's TPU-calibrated values, copied unchanged
+until they are re-measured on the H100 (ROADMAP Queue 1 item 10). Each
+kernel wrapper runs its plain PyTorch version on a CPU tensor and launches
+its CUDA kernel on a CUDA tensor (or raises).
 """
 
 from __future__ import annotations
@@ -64,18 +71,33 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+STREAM_DTYPES = (torch.bfloat16, torch.int8, torch.float32)
+_SENTINEL = 1e30  # stored norm of pad rows: their distances stay >= 1e29
+
+
 @dataclasses.dataclass
 class StreamTable:
-    """chunk-aligned bf16 residual re-pack of a PostingLayout."""
+    """chunk-aligned residual re-pack of a PostingLayout."""
 
-    vecs: torch.Tensor  # (m_pad, d) bf16 residual rows (x - centroid[c])
-    norms: torch.Tensor  # (m_pad,) f32 |stored residual|^2; 1e30 on pad rows
+    vecs: torch.Tensor  # (m_pad, d) bf16 / int8 / f32 residual rows (x - centroid[c])
+    norms: torch.Tensor  # (m_pad,) f32 |stored (dequantized) residual|^2; 1e30 on pads
     to_main: torch.Tensor  # (m_pad,) int64 stream row -> main layout row
     sblk0: torch.Tensor  # (kc,) int64 per-cluster start block
     lengths: torch.Tensor  # (kc,) int64 posting lengths
     cent: torch.Tensor  # (kc, d) f32 centroids (residual bases)
+    blk_cid: torch.Tensor  # (m_pad / chunk,) int64 owning cluster per block
+    scales: torch.Tensor  # (kc,) f32 per-cluster int8 dequant scale (1.0 otherwise)
     m_pad: int
     chunk: int = CHUNK
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.vecs.dtype
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the row table and its norms."""
+        return self.vecs.numel() * self.vecs.element_size() + self.norms.numel() * 4
 
 
 def _stream_maps(lengths: np.ndarray, starts: np.ndarray, d: int, itemsize: int,
@@ -108,44 +130,145 @@ def _stream_maps(lengths: np.ndarray, starts: np.ndarray, d: int, itemsize: int,
     return chunk, bases, m_pad, to_main, row_cid
 
 
-def build_stream_table(layout, centroids, chunk: Optional[int] = None) -> StreamTable:
-    """Re-pack the layout into chunk-aligned cluster blocks of bf16 residual
-    rows on the layout's device, in row tiles of 2^19 to bound the f32
-    transient. Only the bf16 table is ported (the int8 and f32 stream_exact
-    tables: ROADMAP Queue 2)."""
+def _check_dtype(dtype) -> torch.dtype:
+    if dtype not in STREAM_DTYPES:
+        raise ValueError(f"stream table dtype must be one of {STREAM_DTYPES}, got {dtype}")
+    return dtype
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _table(vecs, norms, to_main, bases, row_cid, lengths, cent, scales, chunk, dev):
+    """Assemble a StreamTable on ``dev`` from its host-side maps."""
+    m_pad = vecs.shape[0]
+    return StreamTable(
+        vecs=vecs,
+        norms=norms,
+        to_main=torch.as_tensor(to_main, device=dev),
+        sblk0=torch.as_tensor(bases // chunk, device=dev),
+        lengths=torch.as_tensor(np.asarray(lengths).astype(np.int64), device=dev),
+        cent=cent,
+        blk_cid=torch.as_tensor(row_cid[::chunk], device=dev),
+        scales=scales,
+        m_pad=m_pad,
+        chunk=chunk,
+    )
+
+
+def build_stream_table(layout, centroids, dtype: torch.dtype = torch.bfloat16,
+                       chunk: Optional[int] = None) -> StreamTable:
+    """Re-pack the layout into chunk-aligned cluster blocks of residual rows
+    on the layout's device, in row tiles of 2^19 to bound the f32 transient.
+
+    ``dtype=torch.int8`` stores symmetric per-cluster-scaled residuals:
+    s_c = max|r| / 127 over the cluster (a scatter-max pass), then
+    round(r / s_c) clipped to [-127, 127] (a second pass), with the norms of
+    the dequantized rows s_c * q8. bf16 and f32 store the residual cast to
+    the type, with the norms of the stored rows."""
+    _check_dtype(dtype)
     dev = layout.vectors.device
     d = layout.dim
     main_pad_row = layout.vectors.shape[0] - 1
     chunk, bases, m_pad, to_main, row_cid = _stream_maps(
-        layout.lengths, layout.offsets[:-1], d, 2, main_pad_row, chunk
+        layout.lengths, layout.offsets[:-1], d, _itemsize(dtype), main_pad_row, chunk
     )
+    kc = len(layout.lengths)
     cent = torch.as_tensor(np.asarray(centroids), dtype=torch.float32, device=dev)
     to_main_t = torch.as_tensor(to_main, device=dev)
     row_cid_t = torch.as_tensor(row_cid, device=dev)
     real = to_main_t != main_pad_row
-    vecs = torch.empty((m_pad, d), dtype=torch.bfloat16, device=dev)
-    norms = torch.empty(m_pad, dtype=torch.float32, device=dev)
     R = 1 << 19
-    for lo in range(0, m_pad, R):
-        hi = min(lo + R, m_pad)
+
+    def residual(lo, hi):
         res = layout.vectors[to_main_t[lo:hi]]  # gather: a fresh tile
         # In place on the tile: residual, then zero the pad rows.
-        res.sub_(cent[row_cid_t[lo:hi]]).mul_(real[lo:hi, None])
-        stored = res.to(torch.bfloat16)
-        vecs[lo:hi] = stored
-        deq = stored.to(torch.float32)
-        norms[lo:hi] = torch.where(
-            real[lo:hi], torch.sum(deq * deq, dim=1), torch.tensor(1e30, device=dev)
-        )
-    return StreamTable(
-        vecs=vecs,
-        norms=norms,
-        to_main=to_main_t,
-        sblk0=torch.as_tensor(bases // chunk, device=dev),
-        lengths=torch.as_tensor(layout.lengths.astype(np.int64), device=dev),
-        cent=cent,
-        m_pad=m_pad,
-        chunk=chunk,
+        return res.sub_(cent[row_cid_t[lo:hi]]).mul_(real[lo:hi, None])
+
+    scales = torch.ones(kc, dtype=torch.float32, device=dev)
+    if dtype == torch.int8:
+        smax = torch.zeros(kc, dtype=torch.float32, device=dev)
+        for lo in range(0, m_pad, R):
+            hi = min(lo + R, m_pad)
+            m = residual(lo, hi).abs().amax(dim=1)
+            smax.scatter_reduce_(0, row_cid_t[lo:hi], m, reduce="amax")
+        scales = (smax / 127.0).clamp_min(1e-12)
+    vecs = torch.empty((m_pad, d), dtype=dtype, device=dev)
+    norms = torch.empty(m_pad, dtype=torch.float32, device=dev)
+    sentinel = torch.tensor(_SENTINEL, device=dev)
+    for lo in range(0, m_pad, R):
+        hi = min(lo + R, m_pad)
+        res = residual(lo, hi)
+        if dtype == torch.int8:
+            s = scales[row_cid_t[lo:hi]][:, None]
+            q8 = torch.round(res / s).clamp_(-127, 127)
+            vecs[lo:hi] = q8.to(torch.int8)
+            deq = q8.mul_(s)
+        else:
+            vecs[lo:hi] = res.to(dtype)
+            deq = vecs[lo:hi].to(torch.float32)
+        norms[lo:hi] = torch.where(real[lo:hi], torch.sum(deq * deq, dim=1), sentinel)
+    return _table(vecs, norms, to_main_t, bases, row_cid, layout.lengths, cent, scales,
+                  chunk, dev)
+
+
+def build_stream_table_host(layout, centroids, dtype: torch.dtype = torch.int8,
+                            chunk: Optional[int] = None, device=None) -> StreamTable:
+    """Host twin of ``build_stream_table`` for a host-staged layout (numpy
+    ``layout.vectors``, the ``load(..., resident='offload')`` path): the
+    residuals are computed and quantized with numpy and ONLY the compact
+    table is uploaded to ``device``, so the f32 corpus never reaches it.
+    Same math as build_stream_table; the norms differ only by f32
+    summation order. (numpy has no bf16: that cast goes through a CPU
+    tensor.)"""
+    _check_dtype(dtype)
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    vecs_host = np.asarray(layout.vectors)
+    d = layout.dim
+    main_pad_row = vecs_host.shape[0] - 1
+    chunk, bases, m_pad, to_main, row_cid = _stream_maps(
+        layout.lengths, layout.offsets[:-1], d, _itemsize(dtype), main_pad_row, chunk
+    )
+    kc = len(layout.lengths)
+    cent = np.asarray(centroids, np.float32)
+    real = to_main != main_pad_row
+    R = 1 << 19
+
+    def residual(lo, hi):
+        res = vecs_host[to_main[lo:hi]].astype(np.float32, copy=True)
+        res -= cent[row_cid[lo:hi]]
+        res[~real[lo:hi]] = 0.0
+        return res
+
+    scales = np.ones(kc, np.float32)
+    if dtype == torch.int8:
+        smax = np.zeros(kc, np.float32)
+        for lo in range(0, m_pad, R):
+            hi = min(lo + R, m_pad)
+            np.maximum.at(smax, row_cid[lo:hi], np.abs(residual(lo, hi)).max(axis=1))
+        scales = np.maximum(smax / np.float32(127.0), np.float32(1e-12))
+    out = torch.empty((m_pad, d), dtype=dtype)
+    norms = np.empty(m_pad, np.float32)
+    for lo in range(0, m_pad, R):
+        hi = min(lo + R, m_pad)
+        res = residual(lo, hi)
+        if dtype == torch.int8:
+            s = scales[row_cid[lo:hi]][:, None]
+            q8 = np.clip(np.round(res / s), -127, 127)
+            out[lo:hi] = torch.from_numpy(q8.astype(np.int8))
+            deq = q8 * s
+        elif dtype == torch.bfloat16:
+            out[lo:hi] = torch.from_numpy(res).to(torch.bfloat16)
+            deq = out[lo:hi].to(torch.float32).numpy()
+        else:
+            out[lo:hi] = torch.from_numpy(res)
+            deq = res
+        norms[lo:hi] = np.where(real[lo:hi], (deq * deq).sum(axis=1), np.float32(_SENTINEL))
+    return _table(
+        out.to(dev), torch.as_tensor(norms, device=dev), to_main, bases, row_cid,
+        layout.lengths, torch.as_tensor(cent, device=dev),
+        torch.as_tensor(scales, device=dev), chunk, dev,
     )
 
 
@@ -227,14 +350,26 @@ def build_task_grid(queries, table: StreamTable, probe, t_fixed: int, metric: st
 # ---------------------------------------------------------------------------
 
 
+def _slot_scales(scales, cid2d, vecs):
+    """Per-slot dequant scale (int8 tables; None means 1)."""
+    if vecs.dtype != torch.int8:
+        return None
+    if scales is None:
+        raise ValueError("an int8 stream table needs its per-cluster scales")
+    return scales[cid2d.long()]
+
+
 def stream_distances_reference(queries, cent, cid2d, blk2d, bias2d, vecs, norms,
-                               *, chunk: int, metric: str):
+                               *, chunk: int, metric: str, scales=None):
     """Plain version of K2: (nq, t_fixed, chunk) f32 distances of every
-    task's block (every lane, including lanes past the list's end)."""
+    task's block (every lane, including lanes past the list's end). int8
+    rows are widened exactly and the dot is scaled by the slot's cluster
+    scale ``scales[cid]``."""
     nq, t = blk2d.shape
     d = queries.shape[1]
     blocks = vecs.view(-1, chunk, d)
     nrm_blocks = norms.view(-1, chunk)
+    slot_scl = _slot_scales(scales, cid2d, vecs)
     out = torch.empty((nq, t, chunk), dtype=torch.float32, device=queries.device)
     step = max(1, (1 << 25) // max(1, t * chunk * d))  # queries per tile
     for s in range(0, nq, step):
@@ -244,6 +379,8 @@ def stream_distances_reference(queries, cent, cid2d, blk2d, bias2d, vecs, norms,
         qc = q - cent[cid2d[s:e].long()] if metric == "l2" else q.expand(-1, t, -1)
         rows = blocks[blk].to(torch.float32)  # (b, t, chunk, d)
         cross = torch.matmul(rows, qc.unsqueeze(-1)).squeeze(-1)  # (b, t, chunk)
+        if slot_scl is not None:
+            cross = cross * slot_scl[s:e, :, None]
         nrm = nrm_blocks[blk]
         bias = bias2d[s:e, :, None]
         if metric == "l2":
@@ -253,24 +390,36 @@ def stream_distances_reference(queries, cent, cid2d, blk2d, bias2d, vecs, norms,
     return out
 
 
+def _row_type(name: str, vecs, scales, allowed=STREAM_DTYPES):
+    """(row_type code, launch-count label, the scales the kernel reads) of a
+    table, or TypeError / ValueError."""
+    if vecs.dtype not in allowed:
+        raise TypeError(f"{name}: the kernel takes {allowed} tables, got {vecs.dtype}")
+    if vecs.dtype != torch.int8:
+        return (*kb.ROW_TYPES[vecs.dtype], None)
+    if scales is None:
+        raise ValueError(f"{name}: an int8 table needs its per-cluster scales")
+    return (*kb.ROW_TYPES[vecs.dtype], scales)
+
+
 def stream_distances(queries, cent, cid2d, blk2d, bias2d, vecs, norms,
-                     *, chunk: int, metric: str):
+                     *, chunk: int, metric: str, scales=None):
     """K2. CPU tensors -> plain version; CUDA tensors -> the kernel."""
     if queries.device.type == "cpu":
         return stream_distances_reference(
-            queries, cent, cid2d, blk2d, bias2d, vecs, norms, chunk=chunk, metric=metric
+            queries, cent, cid2d, blk2d, bias2d, vecs, norms, chunk=chunk, metric=metric,
+            scales=scales,
         )
-    if vecs.dtype != torch.bfloat16:
-        raise TypeError("stream_distances: the kernel takes a bf16 stream table")
+    code, label, scl = _row_type("stream_distances", vecs, scales)
     nq, t = blk2d.shape
     d = queries.shape[1]
     args = [queries.contiguous(), cent.contiguous(), cid2d.to(torch.int32).contiguous(),
             blk2d.to(torch.int32).contiguous(), bias2d.contiguous(), vecs, norms]
-    kb.require_cuda("stream_distances", *args)
+    kb.require_cuda("stream_distances", *args, *([scl] if scl is not None else []))
     out = torch.empty((nq, t, chunk), dtype=torch.float32, device=queries.device)
     kb.launch(
-        "stream_distances", "vitorch_stream_distances",
-        *map(kb.ptr, args), nq, t, chunk, d, int(metric == "l2"),
+        f"stream_distances[{label}]", "vitorch_stream_distances",
+        *map(kb.ptr, args), kb.ptr(scl), nq, t, chunk, d, int(metric == "l2"), code,
         kb.ptr(out), kb.stream_of(out),
     )
     return out
@@ -282,7 +431,8 @@ def stream_distances(queries, cent, cid2d, blk2d, bias2d, vecs, norms,
 
 
 def stream_fused_plane_reference(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs,
-                                 norms, *, chunk: int, groups: int, metric: str):
+                                 norms, *, chunk: int, groups: int, metric: str,
+                                 scales=None):
     """Plain version of K4: K2's distances with lanes >= nval set to +inf,
     folded slot by slot in the reference's order (local slot u outer, fan f
     inner, group f % G) into per-(group, lane) best/second planes with
@@ -290,7 +440,8 @@ def stream_fused_plane_reference(queries, cent, cid2d, blk2d, nval2d, bias2d, ve
     nq, t_fixed = blk2d.shape
     t_sub = t_fixed // FAN
     dist = stream_distances_reference(
-        queries, cent, cid2d, blk2d, bias2d, vecs, norms, chunk=chunk, metric=metric
+        queries, cent, cid2d, blk2d, bias2d, vecs, norms, chunk=chunk, metric=metric,
+        scales=scales,
     )
     lane = torch.arange(chunk, device=dist.device)
     dist = torch.where(lane[None, None, :] < nval2d[:, :, None], dist, float("inf"))
@@ -319,15 +470,16 @@ def stream_fused_plane_reference(queries, cent, cid2d, blk2d, nval2d, bias2d, ve
 
 
 def stream_fused_plane(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms,
-                       *, chunk: int, groups: int, metric: str):
-    """K4. CPU tensors -> plain version; CUDA tensors -> the kernel."""
+                       *, chunk: int, groups: int, metric: str, scales=None):
+    """K4 (bf16 and int8 tables). CPU tensors -> plain version; CUDA
+    tensors -> the kernel."""
     if queries.device.type == "cpu":
         return stream_fused_plane_reference(
             queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms,
-            chunk=chunk, groups=groups, metric=metric,
+            chunk=chunk, groups=groups, metric=metric, scales=scales,
         )
-    if vecs.dtype != torch.bfloat16:
-        raise TypeError("stream_fused_plane: the kernel takes a bf16 stream table")
+    code, label, scl = _row_type("stream_fused_plane", vecs, scales,
+                                 (torch.bfloat16, torch.int8))
     nq, t_fixed = blk2d.shape
     if t_fixed % FAN:
         raise ValueError(f"stream_fused_plane: t_fixed must be a multiple of {FAN}")
@@ -336,14 +488,14 @@ def stream_fused_plane(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms,
     args = [queries.contiguous(), cent.contiguous(), cid2d.to(i32).contiguous(),
             blk2d.to(i32).contiguous(), nval2d.to(i32).contiguous(),
             bias2d.contiguous(), vecs, norms]
-    kb.require_cuda("stream_fused_plane", *args)
+    kb.require_cuda("stream_fused_plane", *args, *([scl] if scl is not None else []))
     width = 2 * groups * chunk
     dist_plane = torch.empty((nq, width), dtype=torch.float32, device=queries.device)
     slot_plane = torch.empty((nq, width), dtype=i32, device=queries.device)
     kb.launch(
-        "stream_fused_plane", "vitorch_stream_fused_plane",
-        *map(kb.ptr, args), nq, t_fixed, t_fixed // FAN, chunk, groups, d,
-        int(metric == "l2"), kb.ptr(dist_plane), kb.ptr(slot_plane),
+        f"stream_fused_plane[{label}]", "vitorch_stream_fused_plane",
+        *map(kb.ptr, args), kb.ptr(scl), nq, t_fixed, t_fixed // FAN, chunk, groups, d,
+        int(metric == "l2"), code, kb.ptr(dist_plane), kb.ptr(slot_plane),
         kb.stream_of(dist_plane),
     )
     return dist_plane, slot_plane
@@ -354,48 +506,241 @@ def stream_fused_plane(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms,
 # ---------------------------------------------------------------------------
 
 
+def _rows_of(dvals, ci, blk2d, table: StreamTable):
+    """Plane column -> (distance, main layout row) of a (slot, lane) plane
+    of width t_fixed * chunk; sentinel and missing entries -> +inf / -1."""
+    chunk = table.chunk
+    ci0 = ci.clamp_min(0)
+    blk_sel = torch.gather(blk2d, 1, ci0 // chunk)
+    main_rows = table.to_main[blk_sel * chunk + ci0 % chunk]
+    real = (ci >= 0) & torch.isfinite(dvals) & (dvals < 1e29)
+    return (torch.where(real, dvals, float("inf")),
+            torch.where(real, main_rows, torch.full_like(main_rows, -1)))
+
+
 def block_stream_search(queries, table: StreamTable, probe, k: int, *,
-                        t_fixed: int, metric: str = "l2",
+                        t_fixed: int, metric: str = "l2", approx: bool = True,
                         fused: Optional[bool] = None):
     """-> (D (nq, k) f32, main layout rows (nq, k) int64), +inf / -1 padded.
 
     Each query gets ``t_fixed`` chunk-row task slots, nearest probed lists
-    first. ``fused`` picks K4 (default: ``fused_engages``); otherwise K2
-    plus a masked top-k over the (nq, t_fixed * chunk) plane. Selection is
-    exact (the reference's approximate selection is exact on its CPU
-    backend, which is what the parity tests compare)."""
+    first. ``fused`` picks K4 (default: ``fused_engages`` when ``approx``;
+    K4's top-2-per-lane planes are an approximate selection, so
+    ``approx=False``, the stream_exact program, never engages it, and
+    neither does an f32 table, which only that program builds); otherwise K2
+    plus a masked top-k over the (nq, t_fixed * chunk) plane. The final
+    selection is exact (the reference's approximate selection is exact on
+    its CPU backend, which is what the parity tests compare)."""
     nq = queries.shape[0]
     chunk = table.chunk
     blk2d, cid2d, nval2d, bias2d = build_task_grid(queries, table, probe, t_fixed, metric)
     G = pick_stream_groups(chunk)
     if fused is None:
-        fused = fused_engages(t_fixed, chunk, k)
+        fused = approx and table.dtype != torch.float32 and fused_engages(t_fixed, chunk, k)
     if fused and k > 2 * G * chunk:
         fused = False  # selection cannot return more than the plane holds
-    inf = torch.tensor(float("inf"), device=queries.device)
     if fused:
         dist_plane, slot_plane = stream_fused_plane(
             queries, table.cent, cid2d, blk2d, nval2d, bias2d, table.vecs,
-            table.norms, chunk=chunk, groups=G, metric=metric,
+            table.norms, chunk=chunk, groups=G, metric=metric, scales=table.scales,
         )
         dvals, ci = topk_smallest(dist_plane, k)
-        ci0 = ci.clamp_min(0)
-        s_sel = torch.gather(slot_plane.long(), 1, ci0)
-        w_sel = ci0 % chunk  # lane within the chunk block
-        blk_sel = torch.gather(blk2d, 1, s_sel.clamp_min(0))
-        main_rows = table.to_main[blk_sel * chunk + w_sel]
-        real = (ci >= 0) & (s_sel >= 0) & torch.isfinite(dvals) & (dvals < 1e29)
-    else:
-        dist = stream_distances(
-            queries, table.cent, cid2d, blk2d, bias2d, table.vecs, table.norms,
-            chunk=chunk, metric=metric,
-        )
-        lane = torch.arange(chunk, device=dist.device)
-        dist = torch.where(lane[None, None, :] < nval2d[:, :, None], dist, inf)
-        dvals, ci = topk_smallest(dist.reshape(nq, t_fixed * chunk), k)
-        ci0 = ci.clamp_min(0)
-        blk_sel = torch.gather(blk2d, 1, ci0 // chunk)
-        main_rows = table.to_main[blk_sel * chunk + ci0 % chunk]
-        real = (ci >= 0) & torch.isfinite(dvals)
-    main_rows = torch.where(real, main_rows, torch.full_like(main_rows, -1))
-    return torch.where(real, dvals, inf), main_rows
+        # Plane column -> (winning slot, lane) -> a column of the slot plane.
+        s_sel = torch.gather(slot_plane.long(), 1, ci.clamp_min(0))
+        ci = torch.where((ci >= 0) & (s_sel >= 0), s_sel * chunk + ci % chunk, -1)
+        return _rows_of(dvals, ci, blk2d, table)
+    dist = stream_distances(
+        queries, table.cent, cid2d, blk2d, bias2d, table.vecs, table.norms,
+        chunk=chunk, metric=metric, scales=table.scales,
+    )
+    lane = torch.arange(chunk, device=dist.device)
+    dist = torch.where(lane[None, None, :] < nval2d[:, :, None], dist, float("inf"))
+    dvals, ci = topk_smallest(dist.reshape(nq, t_fixed * chunk), k)
+    return _rows_of(dvals, ci, blk2d, table)
+
+
+# ---------------------------------------------------------------------------
+# K5: the block-major shared stream
+# ---------------------------------------------------------------------------
+#
+# The per-query kernels read every probed block once PER QUERY; in a large
+# batch many queries probe the same cluster. The shared variant inverts the
+# task list: one task is one (block, <= Q_SHARE queries) group, built by
+# sorting the (query, slot) pairs by block id, so the block is read once and
+# scored against every query of its group. K5 writes a task-major plane
+# (t_cap, Q_SHARE, chunk); the pairs' rows are gathered back to query order
+# and the lane-constant bias (|q-c|^2 or -q.c) is added after the gather.
+
+Q_SHARE = 8  # query rows per task
+# The reference's task-cap grain (Q_SHARE x its 8-task grid step), kept so
+# both packages size t_cap alike; the port's kernel takes any t_cap.
+_TASK_ALIGN = 64
+
+
+def shared_task_cap(lengths_np, n_probe: int, nq_tile: int, t_fixed: int,
+                    worst_case: bool = False, chunk: int = CHUNK) -> int:
+    """Static task budget of a query tile. The worst case
+    sum_b ceil(c_b / Q) <= npairs // Q + min(npairs, nblocks) never drops a
+    (query, chunk) pair; the default sizes to ~1.15x the expected number of
+    distinct probed blocks plus the full-task term."""
+    ln = np.asarray(lengths_np, np.float64)
+    npairs = nq_tile * t_fixed
+    nblocks = int(np.ceil(np.maximum(ln, 1) / chunk).sum())
+    # A task holds >= 1 pair, so npairs is itself a hard task bound.
+    worst = min(npairs, npairs // Q_SHARE + min(npairs, nblocks) + 1)
+    if worst_case:
+        return _round_up(worst, _TASK_ALIGN)
+    n = max(ln.sum(), 1.0)
+    p_probed = np.minimum(1.0, n_probe * ln / n)
+    # P(cluster probed by >= 1 query of the tile) x its chunk count.
+    e_blocks = float(((1.0 - (1.0 - p_probed) ** nq_tile) * np.ceil(ln / chunk)).sum())
+    exp = int(1.15 * (e_blocks + npairs / Q_SHARE)) + 8
+    return _round_up(min(worst, quantize_up(exp)), _TASK_ALIGN)
+
+
+@dataclasses.dataclass
+class SharedTasks:
+    """A tile's block-major task list (K5's inputs) and the map back."""
+
+    qc: torch.Tensor  # (t_cap, Q_SHARE, d) f32 query rows q - c (l2) or q (ip)
+    blk: torch.Tensor  # (t_cap,) int32 block per task; -1 = unused task
+    scl: torch.Tensor  # (t_cap,) f32 the block's cluster dequant scale
+    plane_row: torch.Tensor  # (nq * t_fixed,) int64 plane row of each pair
+    written: torch.Tensor  # (nq * t_fixed,) bool: pair is a real, kept pair
+
+
+def build_shared_tasks(queries, table: StreamTable, blk2d, nval2d, t_cap: int,
+                       metric: str) -> SharedTasks:
+    """Invert a tile's (query, slot) pairs into block-major tasks of up to
+    Q_SHARE pairs. A two-pass stable sort orders the pairs by (the block's
+    best probe rank, block, probe rank, query): pass 1 groups pairs by
+    (block, probe rank), pass 2 moves whole blocks by their best rank. So
+    when the tasks overflow ``t_cap``, the dropped tasks are those whose
+    best pair has the worst probe rank, as the per-query kernels drop the
+    farthest probes. Pairs of dropped tasks and unused slots read +inf."""
+    nq, t_fixed = blk2d.shape
+    d = queries.shape[1]
+    dev = queries.device
+    chunk = table.chunk
+    npairs = nq * t_fixed
+    nblocks = table.m_pad // chunk
+    iota = torch.arange(npairs, device=dev)
+    # Unused slots take a sentinel block id and sink to the end.
+    blk_f = torch.where(nval2d > 0, blk2d, nblocks).reshape(-1).long()
+    slot_f = iota % t_fixed  # probe-rank proxy (slots fill nearest-first)
+
+    def segment_starts(keys):
+        is_start = torch.ones_like(keys, dtype=torch.bool)
+        is_start[1:] = keys[1:] != keys[:-1]
+        return torch.cummax(torch.where(is_start, iota, 0), 0).values
+
+    # Pass 1: (block, slot, query) order. One stable sort on the composite
+    # int64 key is the reference's two chained stable sorts.
+    ord1 = torch.argsort(blk_f * t_fixed + slot_f, stable=True)
+    ks1 = blk_f[ord1]
+    prio1 = slot_f[ord1][segment_starts(ks1)]  # the block's best probe rank
+    # Pass 2: whole blocks by best rank (pass 1 is block-minor, so a stable
+    # sort by rank keeps each block's pairs together).
+    ord2 = torch.argsort(prio1, stable=True)
+    ordv = ord1[ord2]
+    ks = ks1[ord2]
+    rank = iota - segment_starts(ks)
+    newtask = ((rank % Q_SHARE) == 0) & (ks < nblocks)
+    # Task start positions in block order (a stable 0/1 sort compacts them).
+    pos_all = torch.argsort((~newtask).to(torch.uint8), stable=True)
+    pos_t = pos_all[:t_cap]
+    if t_cap > npairs:
+        pos_t = torch.cat([pos_t, pos_t.new_zeros(t_cap - npairs)])
+    valid_task = torch.arange(t_cap, device=dev) < newtask.sum()
+    blk_t = torch.where(valid_task, ks[pos_t], -1)
+    cid_t = table.blk_cid[blk_t.clamp_min(0)]
+
+    pos = pos_t[:, None] + torch.arange(Q_SHARE, device=dev)[None, :]  # (t_cap, Q)
+    pos_c = pos.clamp_max(npairs - 1)
+    in_task = valid_task[:, None] & (pos < npairs) & (ks[pos_c] == blk_t[:, None])
+    # Unused task slots take a zero query row (index nq); their plane rows
+    # are never gathered.
+    qi = torch.where(in_task, ordv[pos_c] // t_fixed, nq)
+    qall = torch.cat([queries, queries.new_zeros(1, d)])
+    qc = qall[qi]  # (t_cap, Q, d)
+    if metric == "l2":
+        qc = qc - table.cent[cid_t][:, None, :]
+
+    # Sorted position i sits in task (#task starts <= i) - 1 at in-task rank
+    # rank % Q_SHARE; tasks past t_cap are dropped.
+    tid = torch.cumsum(newtask, 0) - 1
+    written_s = (ks < nblocks) & (tid >= 0) & (tid < t_cap)
+    row_s = tid.clamp(0, t_cap - 1) * Q_SHARE + rank % Q_SHARE
+    inv = torch.empty_like(ordv)
+    inv[ordv] = iota  # pair -> sorted position
+    return SharedTasks(
+        qc=qc.contiguous(), blk=blk_t.to(torch.int32), scl=table.scales[cid_t],
+        plane_row=row_s[inv], written=written_s[inv],
+    )
+
+
+def stream_shared_plane_reference(qc, blk_t, scl_t, vecs, norms, *, chunk: int,
+                                  metric: str):
+    """Plain version of K5: the task-major (t_cap, Q_SHARE, chunk) plane.
+    Task t scores block blk_t[t] against its query rows: l2
+    |r^|^2 - 2 qc.r^, ip penalty - q.r^ (the bias is added by the caller);
+    int8 rows are scaled by scl_t[t]. Unused tasks (blk_t < 0) are +inf."""
+    t_cap, q_share, d = qc.shape
+    blocks = vecs.view(-1, chunk, d)
+    nrm_blocks = norms.view(-1, chunk)
+    out = torch.empty((t_cap, q_share, chunk), dtype=torch.float32, device=qc.device)
+    step = max(1, (1 << 25) // max(1, chunk * d))  # tasks per tile
+    for s in range(0, t_cap, step):
+        e = min(t_cap, s + step)
+        blk = blk_t[s:e].long()
+        rows = blocks[blk.clamp_min(0)].to(torch.float32)  # (b, chunk, d)
+        cross = torch.matmul(qc[s:e], rows.transpose(1, 2))  # (b, Q, chunk)
+        if vecs.dtype == torch.int8:
+            cross = cross * scl_t[s:e, None, None]
+        nrm = nrm_blocks[blk.clamp_min(0)][:, None, :]
+        if metric == "l2":
+            v = nrm - 2.0 * cross
+        else:
+            v = torch.where(nrm >= 1e29, nrm, torch.zeros_like(nrm)) - cross
+        out[s:e] = torch.where((blk >= 0)[:, None, None], v, float("inf"))
+    return out
+
+
+def stream_shared_plane(qc, blk_t, scl_t, vecs, norms, *, chunk: int, metric: str):
+    """K5. CPU tensors -> plain version; CUDA tensors -> the kernel (which
+    leaves the rows of unused tasks unwritten: no pair reads them)."""
+    if qc.device.type == "cpu":
+        return stream_shared_plane_reference(qc, blk_t, scl_t, vecs, norms, chunk=chunk,
+                                             metric=metric)
+    code, label, _ = _row_type("stream_shared_plane", vecs, scl_t)
+    t_cap, q_share, d = qc.shape
+    args = [qc.contiguous(), blk_t.to(torch.int32).contiguous(), scl_t.contiguous(),
+            vecs, norms]
+    kb.require_cuda("stream_shared_plane", *args)
+    plane = torch.empty((t_cap, q_share, chunk), dtype=torch.float32, device=qc.device)
+    kb.launch(
+        f"stream_shared_plane[{label}]", "vitorch_stream_shared_plane",
+        *map(kb.ptr, args), t_cap, q_share, chunk, d, int(metric == "l2"), code,
+        kb.ptr(plane), kb.stream_of(plane),
+    )
+    return plane
+
+
+def block_stream_search_shared(queries, table: StreamTable, probe, k: int, *,
+                               t_fixed: int, t_cap: int, metric: str = "l2"):
+    """Shared-block variant of ``block_stream_search`` (kernel K5): the same
+    contract (-> (D, main rows), +inf / -1 padded), but each probed block is
+    read once per task of up to Q_SHARE queries of the tile instead of once
+    per query. Tasks beyond ``t_cap`` are dropped (their pairs stay +inf;
+    size t_cap with worst_case=True to forbid drops). Selection is exact."""
+    nq = queries.shape[0]
+    chunk = table.chunk
+    blk2d, _, nval2d, bias2d = build_task_grid(queries, table, probe, t_fixed, metric)
+    tasks = build_shared_tasks(queries, table, blk2d, nval2d, t_cap, metric)
+    plane = stream_shared_plane(tasks.qc, tasks.blk, tasks.scl, table.vecs, table.norms,
+                                chunk=chunk, metric=metric)
+    dist = plane.view(-1, chunk)[tasks.plane_row]  # (npairs, chunk), query order
+    dist = torch.where(tasks.written[:, None], dist, float("inf"))
+    dist = dist.view(nq, t_fixed, chunk) + bias2d[:, :, None]
+    dvals, ci = topk_smallest(dist.view(nq, t_fixed * chunk), k)
+    return _rows_of(dvals, ci, blk2d, table)

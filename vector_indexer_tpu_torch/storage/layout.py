@@ -13,6 +13,10 @@ Invariants (the same as the reference's storage/layout.py):
 * the table carries a tail pad of round_up(max_list_len, 512) + 1 rows past
   the last run, kept so that the table shape equals the reference's (the
   converted-index tests rely on it; no port kernel reads past a list end).
+
+A layout is normally on a torch device. A HOST-staged layout (numpy
+``vectors`` and ``row_norms``) is what ``load(..., resident='offload')``
+quantizes from, so that the f32 table never reaches the device.
 """
 
 from __future__ import annotations
@@ -40,10 +44,12 @@ def _round_up_arr(x, m):
 
 @dataclasses.dataclass
 class PostingLayout:
-    """Cluster-permuted vector table + CSR offsets on one device."""
+    """Cluster-permuted vector table + CSR offsets on one device (or, host
+    staged, in numpy arrays). ``vectors`` and ``row_norms`` are None once
+    an offloaded index has freed them."""
 
-    vectors: torch.Tensor  # (n_pad, d) f32; gap/tail rows are zero
-    row_norms: torch.Tensor  # (n_pad,) f32 squared norms; SENTINEL_NORM on pads
+    vectors: Optional[torch.Tensor]  # (n_pad, d) f32; gap/tail rows are zero
+    row_norms: Optional[torch.Tensor]  # (n_pad,) f32 squared norms; SENTINEL_NORM on pads
     offsets: np.ndarray  # (k + 1,) int32: per-cluster start rows (+ row end)
     lengths: np.ndarray  # (k,) int32 posting-list lengths
     perm: np.ndarray  # (rows_used,) int64: layout row -> internal id; -1 gaps
@@ -75,31 +81,39 @@ def _placement(starts: np.ndarray, lengths: np.ndarray, num_clusters: int):
 
 
 def pack_layout(
-    source: torch.Tensor,
+    source,
     src_rows: np.ndarray,
     perm: np.ndarray,
     starts: np.ndarray,
     lengths: np.ndarray,
     n_real: int,
 ) -> PostingLayout:
-    """Gather the layout table on ``source``'s device: layout row r takes
+    """Gather the layout table on ``source``'s device (a torch tensor) or in
+    host memory (a numpy array: a host-staged layout): layout row r takes
     source row ``src_rows[r]`` (-1 on gap rows -> zero vector + SENTINEL
     norm). ``perm`` is the layout row -> internal id map."""
     num_clusters = len(lengths)
     rows_used, max_len, n_pad = _placement(starts, lengths, num_clusters)
-    dev = source.device
     rowmap = np.full(n_pad, -1, np.int64)
     rowmap[:rows_used] = src_rows
-    rm = torch.as_tensor(rowmap, device=dev)
-    real = rm >= 0
-    if source.shape[0]:
-        vectors = source[rm.clamp_min(0)].to(torch.float32)
-        vectors.mul_(real[:, None].to(vectors.dtype))  # zero gap rows in place
+    if isinstance(source, np.ndarray):
+        real = rowmap >= 0
+        vectors = np.zeros((n_pad, source.shape[1]), np.float32)
+        vectors[real] = source[rowmap[real]]
+        norms = np.where(real, np.einsum("ij,ij->i", vectors, vectors), SENTINEL_NORM)
+        norms = norms.astype(np.float32)
     else:
-        vectors = torch.zeros((n_pad, source.shape[1]), dtype=torch.float32, device=dev)
-    norms = torch.where(
-        real, sq_norms(vectors), torch.tensor(SENTINEL_NORM, device=dev)
-    )
+        dev = source.device
+        rm = torch.as_tensor(rowmap, device=dev)
+        real = rm >= 0
+        if source.shape[0]:
+            vectors = source[rm.clamp_min(0)].to(torch.float32)
+            vectors.mul_(real[:, None].to(vectors.dtype))  # zero gap rows in place
+        else:
+            vectors = torch.zeros((n_pad, source.shape[1]), dtype=torch.float32, device=dev)
+        norms = torch.where(
+            real, sq_norms(vectors), torch.tensor(SENTINEL_NORM, device=dev)
+        )
     csr = np.zeros(num_clusters + 1, dtype=np.int32)
     csr[:-1] = starts
     csr[-1] = rows_used

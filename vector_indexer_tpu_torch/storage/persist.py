@@ -7,8 +7,10 @@ byte for byte, so an index saved by either package loads in the other:
   shards_dir/shard_N.bin - posting lists (vectors + ids + timestamps)
 
 Loading parses every shard file and re-stages the posting layout on the
-requested device. A missing or corrupt shard is logged and skipped: its
-clusters drop out of the searchable set, and search keeps working.
+requested device (or, for ``resident='offload'``, in host memory, from
+where only the compact offload tables are uploaded). A missing or corrupt
+shard is logged and skipped: its clusters drop out of the searchable set,
+and search keeps working.
 """
 
 from __future__ import annotations
@@ -105,11 +107,23 @@ def _save_one_shard(index, sid, shards_dir, host, vectors, starts, lengths, perm
         log.error("failed to write shard %d: %s", sid, e)
 
 
-def load_index(index_dir, shards_dir=None, device: DeviceLike = None):
-    """Read index.bin; when shards_dir is given, re-stage the posting lists
-    on ``device``."""
+def load_index(index_dir, shards_dir=None, device: DeviceLike = None,
+               resident: str = "device", offload_rerank: str = "host"):
+    """Read index.bin; when shards_dir is given, re-stage the posting lists.
+
+    ``resident``: 'device' stages the layout on ``device``; 'offload' stages
+    it in host memory, builds the int8 stream table there and uploads only
+    that (plus the correction table for ``offload_rerank='device'``), so the
+    f32 table never reaches the device (IvfIndex.offload_from_host). 'host'
+    (serving from host memory by per-batch staging) is not ported yet."""
     from ..index.ivf import IvfIndex
 
+    if resident not in ("device", "host", "offload"):
+        raise ValueError("resident must be 'device', 'host', or 'offload'")
+    if resident == "host":
+        raise NotImplementedError(
+            "resident='host' (host-staged serving) is not ported yet (ROADMAP Queue 1 item 13)"
+        )
     dev = resolve_device(device)
     p = index_path(index_dir)
     if not os.path.exists(p):
@@ -141,14 +155,17 @@ def load_index(index_dir, shards_dir=None, device: DeviceLike = None):
     idx.centroids_to_shard = c2s.copy()
     idx.num_shards = num_shards
     if shards_dir is not None:
-        _stage_shards(idx, shards_dir, n_total)
+        _stage_shards(idx, shards_dir, n_total, device_put=resident == "device")
+        if resident == "offload":
+            idx.offload_from_host(rerank=offload_rerank)
     return idx
 
 
-def _stage_shards(idx, shards_dir, n_total: int) -> None:
+def _stage_shards(idx, shards_dir, n_total: int, device_put: bool = True) -> None:
     """Parse all shard files and rebuild the posting layout on the index's
-    device. Missing/corrupt shards are skipped with a warning; their
-    clusters keep zero-length posting lists."""
+    device (``device_put``) or in host memory. Missing/corrupt shards are
+    skipped with a warning; their clusters keep zero-length posting
+    lists."""
     from .layout import ALIGN, pack_layout, scatter_runs
 
     kc = idx.num_clusters
@@ -195,7 +212,7 @@ def _stage_shards(idx, shards_dir, n_total: int) -> None:
     # concatenated row src[r].
     src = scatter_runs(np.arange(len(perm_real)), starts, lengths)
     perm = scatter_runs(perm_real, starts, lengths)
-    source = torch.as_tensor(allvecs, device=idx.device)
+    source = torch.as_tensor(allvecs, device=idx.device) if device_put else allvecs
     idx.layout = pack_layout(
         source, src, perm, starts, lengths,
         n_real=min(n_total, len(perm_real)) if n_total else len(perm_real),
