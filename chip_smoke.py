@@ -10,10 +10,12 @@ Phases (each prints its own lines; any failure exits non-zero):
 2. Build: compile vector_indexer_tpu_torch/csrc with nvcc (seconds printed).
 3. Kernels: each CUDA kernel of the paths below, in every table mode (K1
    assign_argmin; K2 stream_distances bf16 / int8 / f32; K4
-   stream_fused_plane bf16 / int8; K3 flat_sweep_topk_plane; K5
-   stream_shared_plane bf16 / int8 / f32) vs its plain PyTorch version on
-   the same device inputs at the paths' shapes, with the tolerance stated
-   beside it; l2 timed with CUDA events, ip checked.
+   stream_fused_plane bf16 / int8; K3 flat_sweep_topk_plane f32 / int8 /
+   int8x1, flat and masked; K5 stream_shared_plane bf16 / int8 / f32; K7
+   flat_sweep_minreduce at w 32; K6 ivf_gather_distances at n_probe 32)
+   vs its plain PyTorch version on the same device inputs at the paths'
+   shapes, with the tolerance stated beside it; l2 timed with CUDA
+   events, ip checked.
 4. Main path: ``bindings.build`` on a SIFT1M-shaped corpus (1M x 128 f32,
    clustered, seed 42), ``bindings.load``, then ``search_device`` with
    method 'auto' at the n_probe values whose resolved programs cover K2, K4
@@ -36,6 +38,15 @@ Phases (each prints its own lines; any failure exits non-zero):
    'stream''s sets; and 200 queries searched on the CPU agree rank by rank
    in modes 'host' and 'none'. Launch counters are reset at the phase's
    start and every kernel mode above must launch in it.
+6. Exhaustive, int8 and gather methods (on the index phase 4 saved):
+   ``search_device(method=...)`` for 'flat' (K3 f32), 'flat_exact' (plain),
+   'flat_int8' / 'flat_int8x1' (K3 int8 modes), 'dense_int8' /
+   'dense_int8x1' at n_probe 128 (masked), and 'gather' (plain) and
+   'gather_dma' (K6) at n_probe 8 and 32: QPS by CUDA events, R@1/10/100
+   and overlaps against phase 4's exact ground truth, the gates below, a
+   launch check on the phase's counters (every new mode but K7, which no
+   serving path runs), and 200 queries again on the CPU for 'flat',
+   'flat_int8', 'dense_int8' and 'gather_dma'.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -54,6 +65,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 _BS = "vector_indexer_tpu/ops/pallas/block_stream.py"
+_FS = "vector_indexer_tpu/ops/pallas/flat_sweep.py"
 SOURCES = {  # kernel (mode) -> (source, TPU kernel it replaces)
     "assign_argmin": ("vector_indexer_tpu_torch/csrc/assign.cu",
                       "vector_indexer_tpu/ops/pallas/assign.py:80"),
@@ -61,16 +73,26 @@ SOURCES = {  # kernel (mode) -> (source, TPU kernel it replaces)
                                   f"{_BS}:611") for m in ("bf16", "int8", "f32")},
     **{f"stream_fused_plane[{m}]": ("vector_indexer_tpu_torch/csrc/block_stream.cu",
                                     f"{_BS}:773") for m in ("bf16", "int8")},
-    "flat_sweep_topk_plane": ("vector_indexer_tpu_torch/csrc/flat_sweep.cu",
-                              "vector_indexer_tpu/ops/pallas/flat_sweep.py:473"),
+    "flat_sweep_topk_plane": ("vector_indexer_tpu_torch/csrc/flat_sweep.cu", f"{_FS}:473"),
     **{f"stream_shared_plane[{m}]": ("vector_indexer_tpu_torch/csrc/block_stream_shared.cu",
                                      f"{_BS}:1174") for m in ("bf16", "int8", "f32")},
+    **{f"flat_sweep_topk_plane[{m}]": ("vector_indexer_tpu_torch/csrc/flat_sweep.cu",
+                                       f"{_FS}:473") for m in ("int8", "int8x1")},
+    "flat_sweep_minreduce": ("vector_indexer_tpu_torch/csrc/flat_sweep.cu", f"{_FS}:573"),
+    "ivf_gather_distances": ("vector_indexer_tpu_torch/csrc/ivf_gather.cu",
+                             "vector_indexer_tpu/ops/pallas/ivf_gather.py:197"),
 }
 # The kernels phase 4 (the device-resident main path) must launch; phase 5
-# (offload and the other stream methods) must launch all the others.
+# (offload and the other stream methods) and phase 6 (the exhaustive, int8
+# and gather methods) must launch theirs. K7 has no serving caller (the
+# reference runs it only in its tests), so only phase 3 launches it.
 MAIN_KERNELS = ("assign_argmin", "stream_distances[bf16]", "stream_fused_plane[bf16]",
                 "flat_sweep_topk_plane")
-OFFLOAD_KERNELS = tuple(n for n in SOURCES if n not in MAIN_KERNELS)
+OFFLOAD_KERNELS = ("stream_distances[int8]", "stream_distances[f32]", "stream_fused_plane[int8]",
+                   "stream_shared_plane[bf16]", "stream_shared_plane[int8]",
+                   "stream_shared_plane[f32]")
+PHASE6_KERNELS = ("flat_sweep_topk_plane[int8]", "flat_sweep_topk_plane[int8x1]",
+                  "ivf_gather_distances")
 RTOL = 1e-5  # of the magnitude of the terms each distance is summed from
 # Share of the exact top-k that the largest n_probe must return. There
 # 'auto' takes the fused dense sweep (K3), whose fixed plane keeps one row
@@ -95,6 +117,27 @@ OFFLOAD_OVERLAP_SLACK = 0.01
 SHARED_OVERLAP_SLACK = 0.03
 DEVICE_RERANK_P99_REL = 1e-4
 NONE_R10_FLOOR = 0.95
+# Phase 6: (method, n_probe) runs (n_probe is unused by the flat methods),
+# the runs searched again on the CPU, and the gates. flat_exact is exact;
+# flat sweeps the cluster-permuted table with K3's plane, so it loses
+# neighbours that share a step's lanes as the masked sweep does (the K3
+# route's OVERLAP_FLOOR) but never the nearest; 'int8' keeps the
+# reference's own top-10 floor (0.97, tests/test_flat_sweep.py, isotropic
+# data). 'int8x1' (no residual term) is restated from the reference's 0.92:
+# on this corpus (1000 points per center, spread 4) its one-level grid is
+# coarser than the gaps between near neighbours, which costs top-10 overlap
+# whatever computes it; the CPU twins (PHASE6_TWINS) hold both int8x1 routes
+# to their plain versions at this shape. gather_dma is the exact gather
+# with K6's distances.
+PHASE6_RUNS = (("flat", 1), ("flat_exact", 1), ("flat_int8", 1), ("flat_int8x1", 1),
+               ("dense_int8", 128), ("dense_int8x1", 128), ("gather", 8), ("gather", 32),
+               ("gather_dma", 8), ("gather_dma", 32))
+PHASE6_TWINS = (("flat", 1), ("flat_int8", 1), ("flat_int8x1", 1), ("dense_int8", 128),
+                ("dense_int8x1", 128), ("gather_dma", 32))
+FLAT_EXACT_FLOOR = 0.999
+FLAT_R1_FLOOR = 0.99
+INT8_TOP10_FLOORS = {"flat_int8": 0.97, "flat_int8x1": 0.85}
+GATHER_SAME_FLOOR = 0.99
 
 
 def log(msg: str) -> None:
@@ -276,36 +319,103 @@ def check_k5(table, tasks, metric: str):
     return bool((err <= RTOL * (qsq + nrm)).all()), float(err.max())
 
 
-def check_k3(q, vectors, row_norms, mask, metric: str, w: int, C: int):
-    """K3 vs its plain version: values within RTOL of |x|^2 + 2|q||x|, and a
-    different row only where its distance is a near-tie.
-    -> (ok, row differences, max |err|)."""
-    import torch
+def check_k3(q, vectors, row_norms, mask, metric: str, w: int, C: int,
+             precision: str = "highest", tables=None):
+    """K3 vs its plain version (compare_planes). ``precision`` 'int8' /
+    'int8x1' sweeps ``tables`` = (x8, r8, sx) (``vectors`` is then only the
+    f32 table the scale is taken from); both sides dequantize the same exact
+    integer dots with the same two f32 products, so their values should be
+    equal and a different row is a tie only at an equal value."""
     from vector_indexer_tpu_torch.ops import flat_sweep as fs
 
+    kw = dict(metric=metric, w=w, c_groups=C, precision=precision)
+    args = (q, vectors, row_norms, mask) if tables is None else (
+        q, tables[0], row_norms, mask, tables[1] if precision == "int8" else None, tables[2])
+    vk, rk = fs.flat_sweep_topk_plane(*args, **kw)
+    vp, rp = fs.flat_sweep_topk_plane_reference(*args, **kw)
+    return compare_planes(q, vectors, row_norms, (vk, rk), (vp, rp), metric,
+                          exact_ties=precision != "highest")
+
+
+def check_k7(q, vectors, row_norms, mask, metric: str, w: int):
+    """K7 vs its plain version over the whole survivor plane
+    (compare_planes)."""
+    from vector_indexer_tpu_torch.ops import flat_sweep as fs
+
+    kw = dict(metric=metric, w=w)
+    return compare_planes(q, vectors, row_norms,
+                          fs.flat_sweep_minreduce(q, vectors, row_norms, mask, **kw),
+                          fs.flat_sweep_minreduce_reference(q, vectors, row_norms, mask, **kw),
+                          metric)
+
+
+def compare_planes(q, vectors, row_norms, kernel, plain, metric: str, exact_ties: bool = False):
+    """A sweep kernel's (values, rows) plane vs its plain version's: the same
+    +inf entries with the same rows; elsewhere, short of the padding rows'
+    sentinel (>= 1e29), values within RTOL of |x|^2 + 2|q||x| and a
+    different row only at a tie (an equal value if ``exact_ties``, else a
+    float64 near-tie). -> (ok, row differences, max |err|)."""
+    import torch
+
+    (vk, rk), (vp, rp) = kernel, plain
+    torch.cuda.synchronize()
     real = row_norms < 1e29
     max_norm = float(row_norms[real].max())
     scale = (max_norm + 2 * q.norm(dim=1) * max_norm ** 0.5)[:, None]
-    kw = dict(metric=metric, w=w, c_groups=C)
-    vk, rk = fs.flat_sweep_topk_plane(q, vectors, row_norms, mask, **kw)
-    vp, rp = fs.flat_sweep_topk_plane_reference(q, vectors, row_norms, mask, **kw)
-    torch.cuda.synchronize()
     fin = torch.isfinite(vp)
-    same_fin = bool((torch.isfinite(vk) == fin).all())
+    same_fin = bool((torch.isfinite(vk) == fin).all()) and bool((rk == rp)[~fin].all())
     ok = fin & (vp < 1e29)
     err = (vk - vp).abs()[ok]
     vals_ok = bool((err <= RTOL * scale.expand_as(vp)[ok]).all())
     mism = torch.nonzero((rk != rp) & ok)
     qi, col = mism[:, 0], mism[:, 1]
-    ra, rb = rk[qi, col].long(), rp[qi, col].long()
-    qd = q[qi].double()
+    if exact_ties:
+        ties_ok = bool((vk[qi, col] == vp[qi, col]).all())
+    else:
+        ties_ok = near_ties(q, vectors, row_norms, qi, rk[qi, col], rp[qi, col], metric, scale)
+    return same_fin and vals_ok and ties_ok, len(mism), float(err.max()) if err.numel() else 0.0
+
+
+def near_ties(q, vectors, row_norms, qi, ra, rb, metric: str, scale) -> bool:
+    """Whether rows ra and rb score within 2 RTOL * scale of each other for
+    queries qi (float64 distances without |q|^2)."""
+    ra, rb, qd = ra.long(), rb.long(), q[qi].double()
     wgt = 2.0 if metric == "l2" else 1.0
     na = row_norms[ra].double() if metric == "l2" else 0.0
     nb = row_norms[rb].double() if metric == "l2" else 0.0
     da = na - wgt * (qd * vectors[ra].double()).sum(1)
     db = nb - wgt * (qd * vectors[rb].double()).sum(1)
-    ties_ok = bool(((da - db).abs() <= 2 * RTOL * scale[qi, 0].double()).all())
-    return same_fin and vals_ok and ties_ok, len(mism), float(err.max()) if err.numel() else 0.0
+    return bool(((da - db).abs() <= 2 * RTOL * scale[qi, 0].double()).all())
+
+
+def gather_operands(q, idx, n_probe: int):
+    """K6's operands for these queries on an index, as gather_dma_program
+    builds them: (starts, lengths) of the probed lists, max_len, budget."""
+    from vector_indexer_tpu_torch.index import programs
+
+    c, c_sq = idx._device_tables()
+    starts, lengths = idx._list_tables()
+    probe = programs._probe(q, c, c_sq, n_probe)
+    return starts[probe], lengths[probe], max(1, idx.layout.max_list_len), idx._budget_for(n_probe)
+
+
+def check_k6(q, vectors, starts, lengths, max_len: int, budget: int, metric: str):
+    """K6 vs its plain version slot by slot: equal rows and holes, distances
+    within RTOL of |q|^2 + |x|^2 (l2) or |q||x| (ip). -> (ok, max |err|)."""
+    import torch
+    from vector_indexer_tpu_torch.ops import ivf_gather as ig
+
+    kw = dict(max_len=max_len, budget=budget, metric=metric)
+    dk, rk = ig.ivf_gather_distances(q, vectors, starts, lengths, **kw)
+    dp, rp = ig.ivf_gather_distances_reference(q, vectors, starts, lengths, **kw)
+    torch.cuda.synchronize()
+    rows_ok = bool((rk == rp).all()) and bool((torch.isinf(dk) == (rp < 0)).all())
+    filled = rp >= 0
+    xn = vectors.norm(dim=1)[rp.clamp_min(0).long()]
+    qn = q.norm(dim=1)[:, None]
+    term = qn * qn + xn * xn if metric == "l2" else qn * xn
+    err = (dk - dp).abs()[filled]
+    return rows_ok and bool((err <= RTOL * term[filled]).all()), float(err.max())
 
 
 def sweep_mask(q, idx, n_probe: int, w: int):
@@ -327,7 +437,9 @@ def sweep_mask(q, idx, n_probe: int, w: int):
 def kernel_phase(torch, np, xb, xq, check, results, dev):
     from vector_indexer_tpu_torch.index import dispatch
     from vector_indexer_tpu_torch.index.ivf import IvfIndex
+    from vector_indexer_tpu_torch.kernels import build as kb
     from vector_indexer_tpu_torch.ops import assign, block_stream as bs, flat_sweep as fs
+    from vector_indexer_tpu_torch.ops import ivf_gather as ig
     from vector_indexer_tpu_torch.storage.vector_store import VectorStore
 
     # K1 at the build's final-assignment shape: 65,536 points x 4,000 x 128.
@@ -457,6 +569,79 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
     results["flat_sweep_topk_plane"] = dict(
         max_abs_err=max(errs), ms=times["masked"][0], plain_ms=times["masked"][1],
         shape=f"nq={nqk} n_rows={n_rows} w={w} C={C} (ms: masked, n_probe=64)",
+    )
+
+    # K3's int8 modes over the layout's int8 twin (quantized on the card),
+    # at the plans plan_fused gives them, flat and masked at n_probe 64.
+    tabs = idx._sweep_int8_tables()
+    for prec in ("int8", "int8x1"):
+        wp, _, Cp = fs.plan_fused(n_rows, 128, nqk, 100, precision=prec) or (w, 0, C)
+        mask_p = mask if wp == w else sweep_mask(q, idx, 64, wp)
+        errs, times = [], {}
+        for metric in ("l2", "ip"):
+            for label, m in (("flat", None), ("masked", mask_p)):
+                ok, n_mism, err = check_k3(q, lay.vectors, lay.row_norms, m, metric, wp, Cp,
+                                           prec, tabs)
+                check(ok, f"K3 flat_sweep_topk_plane[{prec}] vs plain ({metric}, {label}, "
+                          f"nq={nqk}, n_rows={n_rows}, w={wp}, C={Cp}): values within "
+                          f"{RTOL:g}*(|x|^2+2|q||x|), {n_mism} row differences all at equal "
+                          f"values; max |err| {err:.3e}")
+                if metric == "l2":
+                    kw = dict(metric=metric, w=wp, c_groups=Cp, precision=prec)
+                    args = (q, tabs[0], lay.row_norms, m, tabs[1] if prec == "int8" else None,
+                            tabs[2])
+                    errs.append(err)
+                    times[label] = (
+                        cuda_ms(torch, lambda: fs.flat_sweep_topk_plane(*args, **kw)),
+                        cuda_ms(torch, lambda: fs.flat_sweep_topk_plane_reference(*args, **kw)),
+                    )
+                    log(f"  K3 [{prec}] {label}: kernel {times[label][0]:.3f} ms, plain "
+                        f"{times[label][1]:.3f} ms")
+        results[f"flat_sweep_topk_plane[{prec}]"] = dict(
+            max_abs_err=max(errs), ms=times["masked"][0], plain_ms=times["masked"][1],
+            shape=f"nq={nqk} n_rows={n_rows} w={wp} C={Cp} (ms: masked, n_probe=64)",
+        )
+    del tabs
+
+    # K7 at w = 32, flat and masked (n_probe 64). No serving path runs it,
+    # so its launch count in the JSON line is this block's.
+    kb.reset_launch_counts()
+    mask32 = sweep_mask(q, idx, 64, 32)
+    errs = []
+    for metric in ("l2", "ip"):
+        for label, m in (("flat", None), ("masked", mask32)):
+            ok, n_mism, err = check_k7(q, lay.vectors, lay.row_norms, m, metric, 32)
+            check(ok, f"K7 flat_sweep_minreduce vs plain ({metric}, {label}, nq={nqk}, "
+                      f"n_rows={n_rows}, w=32): values within {RTOL:g}*(|x|^2+2|q||x|), "
+                      f"{n_mism} row differences all near-ties; max |err| {err:.3e}")
+            errs.append(err)
+    kw = dict(metric="l2", w=32)
+    results["flat_sweep_minreduce"] = dict(
+        max_abs_err=max(errs),
+        ms=cuda_ms(torch, lambda: fs.flat_sweep_minreduce(q, lay.vectors, lay.row_norms, **kw)),
+        plain_ms=cuda_ms(torch, lambda: fs.flat_sweep_minreduce_reference(
+            q, lay.vectors, lay.row_norms, **kw)),
+        shape=f"nq={nqk} n_rows={n_rows} w=32 (ms: flat)",
+    )
+    results["flat_sweep_minreduce"]["launches"] = kb.launch_counts()["flat_sweep_minreduce"]
+    del mask32
+
+    # K6 at n_probe 32 (the gather_dma program's operands for these queries).
+    starts, lengths, max_len, budget = gather_operands(q, idx, 32)
+    errs = []
+    for metric in ("l2", "ip"):
+        ok, err = check_k6(q, lay.vectors, starts, lengths, max_len, budget, metric)
+        check(ok, f"K6 ivf_gather_distances vs plain ({metric}, nq={nqk}, n_probe=32, "
+                  f"max_len={max_len}, budget={budget}): equal rows and holes in every slot, "
+                  f"distances within {RTOL:g}*(terms); max |err| {err:.3e}")
+        errs.append(err)
+    kw = dict(max_len=max_len, budget=budget, metric="l2")
+    results["ivf_gather_distances"] = dict(
+        max_abs_err=max(errs),
+        ms=cuda_ms(torch, lambda: ig.ivf_gather_distances(q, lay.vectors, starts, lengths, **kw)),
+        plain_ms=cuda_ms(torch, lambda: ig.ivf_gather_distances_reference(
+            q, lay.vectors, starts, lengths, **kw)),
+        shape=f"nq={nqk} n_probe=32 budget={budget} max_len={max_len} d=128",
     )
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms ({r['shape']})")
@@ -592,7 +777,7 @@ def main_phase(torch, np, xb, xq, check, dev, work):
               f"{float(err.max()):.3e}); equal top-{k} row sets on {same:.4f} of queries "
               f"(>= {TWIN_SAME_FLOOR})")
     log(f"  CPU comparison: {time.perf_counter() - t0:.2f}s")
-    return counts, {n_probe: overlap for n_probe, _, _, _, overlap in table}
+    return counts, {n_probe: overlap for n_probe, _, _, _, overlap in table}, gt
 
 
 # ---------------------------------------------------------------------------
@@ -848,6 +1033,85 @@ def offload_phase(torch, np, xb, xq, check, dev, work, p4_overlap):
     return {name: counts[name] for name in OFFLOAD_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the exhaustive, int8 and gather methods
+# ---------------------------------------------------------------------------
+
+
+def flat_gather_phase(torch, np, xb, xq, check, dev, work, gt):
+    """The methods of the flat / int8 / gather slice on the index phase 4
+    saved, each through ``search_device(method=...)``: QPS (CUDA events),
+    recall and overlap against ``gt``, the gates, the launch check, and a
+    CPU twin of 200 queries for each run in PHASE6_TWINS."""
+    from vector_indexer_tpu_torch import bindings
+    from vector_indexer_tpu_torch.index.dispatch import resolve
+    from vector_indexer_tpu_torch.kernels import build as kb
+
+    k, d, nq = K, xb.shape[1], xq.shape[0]
+    vi = bindings.load(str(work / "index"), str(work / "shards"), d, device=dev)
+    xq_dev = torch.as_tensor(xq, device=dev)
+    kb.reset_launch_counts()  # counts from here on belong to phase 6
+    got = {}
+    for method, n_probe in PHASE6_RUNS:
+        dec = resolve(vi.index, nq, n_probe, k=k, method=method)
+        D, R = vi.search_device(xq_dev, k, n_probe, method=method)  # warm-up (int8 tables once)
+        torch.cuda.synchronize()
+        ms = cuda_ms(torch, lambda: vi.search_device(xq_dev, k, n_probe, method=method), reps=3)
+        Dn, Rn = D.cpu().numpy(), R.cpu().numpy()
+        I = vi.rows_to_external(Rn)
+        r1, r10, r100, ov = quality(np, I, gt, k)
+        ov10 = float(np.mean([len(np.intersect1d(a[:10], b[:10])) for a, b in zip(I, gt)]) / 10)
+        got[(method, n_probe)] = (Dn, Rn, dict(r1=r1, r10=r10, ov=ov, ov10=ov10))
+        log(f"  {method:12s} n_probe={n_probe:4d} program={dec.program:11s} "
+            f"precision={dec.precision:7s} batch {ms:8.3f} ms  QPS {nq / ms * 1e3:10.1f}  "
+            f"R@1 {r1:.4f} R@10 {r10:.4f} R@100 {r100:.4f} top-10 overlap {ov10:.4f} "
+            f"top-{k} overlap {ov:.4f}" + (f"  plan(w,_,C)={dec.plan}" if dec.plan else "")
+            + (f"  budget={dec.budget}" if dec.budget else ""))
+        check(bool(np.isfinite(Dn).all()) and Dn.shape == (nq, k),
+              f"{method} n_probe={n_probe}: finite (nq, k) = ({nq}, {k}) result")
+    q6 = {key: v[2] for key, v in got.items()}
+    check(q6[("flat_exact", 1)]["ov"] >= FLAT_EXACT_FLOOR,
+          f"flat_exact top-{k} overlap {q6[('flat_exact', 1)]['ov']:.4f} >= {FLAT_EXACT_FLOOR}")
+    check(q6[("flat", 1)]["r1"] >= FLAT_R1_FLOOR and q6[("flat", 1)]["ov"] >= OVERLAP_FLOOR,
+          f"flat R@1 {q6[('flat', 1)]['r1']:.4f} >= {FLAT_R1_FLOOR} and top-{k} overlap "
+          f"{q6[('flat', 1)]['ov']:.4f} >= {OVERLAP_FLOOR}")
+    for method, floor in INT8_TOP10_FLOORS.items():
+        check(q6[(method, 1)]["ov10"] >= floor,
+              f"{method} top-10 overlap {q6[(method, 1)]['ov10']:.4f} >= {floor}")
+    for n_probe in (8, 32):
+        (Dg, Rg, _), (Dd, Rd, _) = got[("gather", n_probe)], got[("gather_dma", n_probe)]
+        same = float((np.sort(Rg, 1) == np.sort(Rd, 1)).all(axis=1).mean())
+        err = np.abs(Dg - Dd)
+        scale = np.sum(xq * xq, axis=1) + float(np.max(np.sum(xb * xb, axis=1)))
+        check(same >= GATHER_SAME_FLOOR and bool((err <= RTOL * scale[:, None]).all()),
+              f"gather_dma n_probe={n_probe} returns gather's sets on {same:.4f} of queries "
+              f"(>= {GATHER_SAME_FLOOR}), distances within {RTOL:g}*(|q|^2+max|x|^2) (max |err| "
+              f"{float(err.max()):.3e})")
+    torch.cuda.synchronize()
+    counts = kb.launch_counts()
+    log(f"  launch counts in phase 6: {counts}")
+    for name in PHASE6_KERNELS + ("flat_sweep_topk_plane",):
+        check(counts[name] > 0, f"{name} launched in phase 6 ({counts[name]}x)")
+
+    t0 = time.perf_counter()
+    vc = bindings.load(str(work / "index"), str(work / "shards"), d, device="cpu")
+    qs = xq[:NQ_TWIN]
+    scale = np.sum(qs * qs, axis=1) + float(np.max(np.sum(xb * xb, axis=1)))
+    for method, n_probe in PHASE6_TWINS:
+        Dp, Rp = (a.numpy() for a in vc.index.search_batch_device(qs, k, n_probe, method=method))
+        Dc, Rc = (a[:NQ_TWIN] for a in got[(method, n_probe)][:2])
+        err = np.abs(Dc - Dp)
+        same = (np.sort(Rc, 1) == np.sort(Rp, 1)).all(axis=1).mean()
+        check(bool(np.isfinite(Dp).all()) and bool((err <= RTOL * scale[:, None]).all())
+              and same >= TWIN_SAME_FLOOR,
+              f"{method} n_probe={n_probe}: card vs plain versions on the CPU, {NQ_TWIN} "
+              f"queries: every rank's distance within {RTOL:g}*(|q|^2+max|x|^2) (max |err| "
+              f"{float(err.max()):.3e}); equal top-{k} row sets on {same:.4f} of queries "
+              f"(>= {TWIN_SAME_FLOOR})")
+    log(f"  CPU comparison: {time.perf_counter() - t0:.2f}s")
+    return {name: counts[name] for name in PHASE6_KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -892,14 +1156,19 @@ def main() -> int:
     work = ROOT / "build" / "chip_smoke_work"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        counts, overlaps = main_phase(torch, np, xb, xq, check, dev, work)
+        counts, overlaps, gt = main_phase(torch, np, xb, xq, check, dev, work)
         log("== 5. offload and the other stream methods")
         t0 = time.perf_counter()
         counts.update(offload_phase(torch, np, xb, xq, check, dev, work, overlaps))
         log(f"  phase 5: {time.perf_counter() - t0:.2f}s")
+        log("== 6. the exhaustive, int8 and gather methods")
+        t0 = time.perf_counter()
+        counts.update(flat_gather_phase(torch, np, xb, xq, check, dev, work, gt))
+        log(f"  phase 6: {time.perf_counter() - t0:.2f}s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    counts["flat_sweep_minreduce"] = results["flat_sweep_minreduce"]["launches"]  # phase 3
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
              max_abs_err=results[name]["max_abs_err"], ms=results[name]["ms"],

@@ -6,7 +6,9 @@ import pytest
 import torch
 
 from vector_indexer_tpu.index import dispatch as jd
+from vector_indexer_tpu.ops import gather as jg
 from vector_indexer_tpu.ops.pallas import block_stream as jbs
+from vector_indexer_tpu.ops.pallas import flat_sweep as jfs
 from vector_indexer_tpu_torch.index import dispatch as td
 from vector_indexer_tpu_torch.index.programs import shortlist_k
 from vector_indexer_tpu_torch.ops import block_stream as tbs
@@ -98,6 +100,8 @@ class _Core:
         self.stream_dtype = torch.bfloat16
         self.offloaded = False
         self.choose_method = lambda nq, n_probe: IvfIndex.choose_method(self, nq, n_probe)
+        self._budgets = None
+        self._budget_for = lambda n_probe: IvfIndex._budget_for(self, n_probe)
 
 
 def test_resolve_routes_the_sift1m_shape():
@@ -120,7 +124,58 @@ def test_resolve_small_table_takes_plain_dense():
     assert td.resolve(core, 10, 4, k=10, method="dense_fused").program in ("dense_fused", "dense_torch")
 
 
-@pytest.mark.parametrize("method", ["gather", "gather_dma", "flat", "dense_int8", "staged", "flat_exact"])
+def _reference_decision(ln, n_rows, n, method, nq, n_probe, k, d=128):
+    """(program, plan, precision, budget) the port must resolve ``method``
+    to: the reference's branches (dispatch.py:248-290, :331-366) on its own
+    plan_fused / candidate_budget, with the TPU gate dropped, the plain
+    programs named flat_torch / dense_torch, and gather_dma never falling
+    back to gather."""
+    prec = {"flat_int8": "int8", "dense_int8": "int8", "flat_int8x1": "int8x1",
+            "dense_int8x1": "int8x1"}.get(method)
+    if prec:
+        plan = jfs.plan_fused(n_rows, d, nq, k, precision=prec) if d % 128 == 0 else None
+        if plan is not None:
+            return ("flat_fused" if method.startswith("flat") else "dense_fused", plan, prec, 0)
+        method = "flat" if method.startswith("flat") else "dense"
+    if method in ("gather", "gather_dma"):
+        return (method, None, "highest", jg.candidate_budget(ln, n_probe))
+    fused = (method != "flat_exact" and n > 50_000) if method.startswith("flat") else n > 50_000
+    plan = jfs.plan_fused(n_rows, d, nq, k) if fused and d % 128 == 0 else None
+    kind = "flat" if method.startswith("flat") else "dense"
+    return (f"{kind}_fused" if plan else f"{kind}_torch", plan, "highest", 0)
+
+
+SIZES = {"small": 50, "sift1m": 4000}  # lists of ~250 rows: 12.5k and 1M rows
+
+
+@pytest.mark.parametrize("size", list(SIZES))
+@pytest.mark.parametrize("method", ["gather", "gather_dma", "flat", "dense_int8", "flat_exact",
+                                    "flat_fused", "flat_int8", "flat_int8x1", "dense_int8x1"])
+def test_resolve_serves_the_slice_methods(method, size):
+    """Every method of the flat, int8 and gather slice resolves to the
+    reference's program, fused plan, precision and budget, at a small table
+    (the plain and fused fallbacks) and at the SIFT1M shape (the fused and
+    int8 sweeps)."""
+    ln = np.random.default_rng(2).integers(200, 300, SIZES[size])
+    core = _Core(ln)
+    n_rows = core.layout.vectors.shape[0]
+    for nq, n_probe, k in ((10, 4, 10), (1000, 32, 100)):
+        dec = td.resolve(core, nq, n_probe, k=k, method=method)
+        assert (dec.program, dec.plan, dec.precision, dec.budget) == _reference_decision(
+            ln, n_rows, core.layout.n, method, nq, n_probe, k)
+        if dec.budget:
+            assert dec.q_tile == td.pick_q_tile(nq, dec.budget, 128)
+
+
+def test_int8_methods_fall_back_where_no_plan_fits():
+    """Past the int32 accumulator bound (d > 2048) the int8 methods take
+    their f32 twins, as in the reference."""
+    core = _Core(np.full(400, 3000), d=4096)
+    assert td.resolve(core, 100, 8, k=10, method="flat_int8").program == "flat_torch"
+    assert td.resolve(core, 100, 8, k=10, method="dense_int8x1").program == "dense_torch"
+
+
+@pytest.mark.parametrize("method", ["staged"])
 def test_unported_methods_raise(method):
     core = _Core(np.full(50, 100))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

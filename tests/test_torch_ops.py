@@ -129,3 +129,28 @@ def test_layout_invariants():
     assert lay.vectors.shape[0] >= lay.rows_used + lay.max_list_len + 1
     real = lay.perm >= 0
     np.testing.assert_array_equal(lay.vectors.numpy()[: lay.rows_used][real], x[lay.perm[real]])
+
+
+@pytest.mark.parametrize("n,k,chunk", [(1000, 37, 256), (5000, 200, 16384), (3, 5, 2)])
+def test_assign_chunked_matches(n, k, chunk):
+    """Labels equal except near-ties (f32 sums in either order); distances
+    within 1e-6 of |x|^2 + |c|^2, the terms' scale."""
+    g = np.random.default_rng(n + k)
+    x = g.normal(0, 2, (n, 64)).astype(np.float32)
+    c = g.normal(0, 2, (k, 64)).astype(np.float32)
+    lab, dist = td.assign_chunked(t(x), t(c), chunk=chunk)
+    rlab, rdist = (np.asarray(a) for a in jd.assign_chunked(jnp.asarray(x), jnp.asarray(c),
+                                                            chunk=chunk))
+    assert lab.dtype == torch.int32 and lab.shape == (n,)
+    exact = (x.astype(np.float64)[:, None, :] - c.astype(np.float64)[None]) ** 2
+    exact = exact.sum(-1)
+    scale = np.sum(x * x, 1) + np.max(np.sum(c * c, 1))
+    diff = np.flatnonzero(lab.numpy() != rlab)
+    assert np.all(np.abs(exact[diff, lab.numpy()[diff]] - exact[diff, rlab[diff]])
+                  <= 1e-6 * scale[diff])
+    assert np.all(np.abs(dist.numpy() - rdist) <= 1e-6 * scale)
+
+
+def test_euclidean_distance_squared_matches():
+    a, b = np.array([1.0, 2.0, 3.0], np.float32), np.array([4.0, 6.0, 3.0], np.float32)
+    assert float(td.euclidean_distance_squared(a, b)) == float(jd.euclidean_distance_squared(a, b))

@@ -70,3 +70,49 @@ def near_tie_ok(lab_a, lab_b, score_fn, rel=1e-5):
         sa, sb = score_fn(i, lab_a[i]), score_fn(i, lab_b[i])
         assert abs(sa - sb) <= rel * max(abs(sa), abs(sb), 1.0), (i, sa, sb)
     return len(diff)
+
+
+def reference_search(ref, program: str, xq, k: int, n_probe: int, precision: str = "highest"):
+    """The reference's counterpart of the port's ``program`` (a dispatch
+    ``Decision.program``, with its ``precision``), called directly on a
+    vector_indexer_tpu IvfIndex with its Pallas kernels in interpret mode:
+    (D, layout rows) numpy. The reference's own dispatch gates its fused
+    and int8 programs on a TPU backend, so on the CPU it would run others."""
+    import jax.numpy as jnp
+
+    from vector_indexer_tpu.index import ivf
+    from vector_indexer_tpu.ops.pallas.flat_sweep import plan_fused, quantize_table_int8
+
+    lay = ref.layout
+    q = jnp.asarray(xq)
+    nq, d = xq.shape
+    n_pad = lay.vectors.shape[0]
+    metric = ref.metric if ref.metric != "cosine" else "ip"
+    tables = (lay.vectors, lay.row_norms, None, None)
+    if precision != "highest":
+        x8, r8, sx = quantize_table_int8(lay.vectors)
+        tables = (x8, lay.row_norms, r8 if precision == "int8" else None, sx)
+    if program == "flat_torch":  # the reference's flat_xla, exact selection
+        out = ivf._flat_search_program(q, lay.vectors, lay.row_norms, k=k, q_tile=nq,
+                                       approx=False, metric=metric)
+    elif program == "flat_fused":
+        w, q_tile, c = plan_fused(n_pad, d, nq, k, precision=precision)
+        out = ivf._flat_search_fused_program(q, *tables, k=k, q_tile=q_tile, w=w, c_groups=c,
+                                             metric=metric, precision=precision, interpret=True)
+    elif program == "dense_fused":
+        w, q_tile, c = plan_fused(n_pad, d, nq, k, precision=precision)
+        run_starts_b, c_ord, c_sq = ref._run_tables()
+        x, norms, resid, scales = tables
+        out = ivf._ivf_search_dense_fused_program(
+            q, c_ord, c_sq, x, norms, run_starts_b, jnp.int32(n_probe), resid, scales, k=k,
+            q_tile=q_tile, w=w, c_groups=c, metric=metric, precision=precision, interpret=True)
+    elif program == "gather":
+        centroids, c_sq = ref._device_tables()
+        out = ivf._ivf_search_program(q, centroids, c_sq, lay.vectors, lay.row_norms,
+                                      lay.offsets[:-1], lay.lengths, k=k, n_probe=n_probe,
+                                      budget=ref._budget_for(n_probe), q_tile=nq, metric=metric)
+    elif program == "gather_dma":  # inline in search_batch_device; interpret on the CPU
+        out = ref.search_batch_device(xq, k, n_probe, method="gather_dma")
+    else:
+        raise ValueError(program)
+    return tuple(np.asarray(a)[:nq] for a in out)

@@ -4,14 +4,15 @@
     python3 tools/torch_shape_check.py
 
 chip_smoke.py checks each kernel at the SIFT1M paths' shapes; this script
-runs the same checks (chip_smoke's ``check_k1`` .. ``check_k5``, same
+runs the same checks (chip_smoke's ``check_k1`` .. ``check_k7``, same
 tolerances) over odd sizes, dimensions, chunks, table types (K2 bf16 /
-int8 / f32, K4 bf16 / int8, K5 bf16 / int8 / f32), windows, group counts
-and both metrics, then searches one saved index on the card and on the CPU
-(where every kernel runs its plain version) for each search method of the
-port, and offloaded in each re-rank mode, for both metrics, and compares
-the results rank by rank. Exits 1 if any check fails. Needs one CUDA
-device.
+int8 / f32, K4 bf16 / int8, K5 bf16 / int8 / f32, K3 f32 / int8 /
+int8x1), windows, group counts, list lengths (K6: short and long lists,
+empty probes) and both metrics, then searches one saved index on the card
+and on the CPU (where every kernel runs its plain version) for each search
+method of the port, and offloaded in each re-rank mode, for both metrics,
+and compares the results rank by rank. Exits 1 if any check fails. Needs
+one CUDA device.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from chip_smoke import (  # noqa: E402
     check_k3,
     check_k4,
     check_k5,
+    check_k6,
+    check_k7,
     shared_tasks,
     stream_grid,
 )
@@ -42,10 +45,15 @@ STREAM_CHUNKS = (256, 512, 1024)
 STREAM_PROBES = (1, 5, 17)
 QUANT_DIMS = (32, 96, 128)  # dims of the int8 / f32 tables and of K5
 SEARCH_METHODS = ("stream", "stream_exact", "stream_shared", "stream_shared_exact", "dense",
-                  "dense_exact", "auto")
+                  "dense_exact", "auto", "flat", "flat_exact", "flat_fused", "flat_int8",
+                  "flat_int8x1", "dense_int8", "dense_int8x1", "gather", "gather_dma")
 SWEEP_DIMS = (16, 64, 128)
 SWEEP_WC = ((8, 1), (16, 2), (32, 8), (8, 8))  # (w, C)
 SWEEP_NQ = (1, 37, 300)
+INT8_DIMS = (128, 256)  # K3's int8 modes
+K7_WINDOWS = (8, 16, 32)
+# K6: (d, max_len, probes per query, every how many lists is empty)
+K6_CASES = ((16, 40, 4, 3), (96, 300, 8, 5), (128, 700, 32, 4), (128, 2000, 6, 2))
 
 
 def main() -> int:
@@ -59,6 +67,7 @@ def main() -> int:
     from vector_indexer_tpu_torch.index.ivf import IvfIndex, load_index_from
     from vector_indexer_tpu_torch.ops import block_stream as bs
     from vector_indexer_tpu_torch.ops.block_stream import build_stream_table
+    from vector_indexer_tpu_torch.ops.gather import candidate_budget
     from vector_indexer_tpu_torch.storage.vector_store import VectorStore
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -116,6 +125,46 @@ def main() -> int:
                 ok, n_mism, err = check_k3(q, lay.vectors, lay.row_norms, mask, metric, w, C)
                 check(ok, f"K3 d={d} w={w} C={C} nq={nq} {metric} {label}: {n_mism} near-tie "
                           f"row differences, max |err| {err:.3e}")
+
+    print("== K3 int8 / int8x1 and K7 flat_sweep_minreduce", flush=True)
+    for d in INT8_DIMS:
+        xb, xq = ds.clustered(30_000, d, max(SWEEP_NQ), seed=200 + d)
+        store = VectorStore(external_ids=np.arange(len(xb), dtype=np.uint64), vectors=xb)
+        idx = IvfIndex.fit(store, seed=1, nlist=64, max_iters=5, device=dev)
+        lay = idx.layout
+        tabs = idx._sweep_int8_tables()
+        for (w, C), nq, metric in itertools.product(SWEEP_WC, SWEEP_NQ, ("l2", "ip")):
+            q = torch.as_tensor(xq[:nq], device=dev)
+            for label, mask in (("flat", None), ("masked", chip_smoke.sweep_mask(q, idx, 8, w))):
+                for prec in ("int8", "int8x1"):
+                    ok, n_mism, err = check_k3(q, lay.vectors, lay.row_norms, mask, metric, w, C,
+                                               prec, tabs)
+                    check(ok, f"K3 [{prec}] d={d} w={w} C={C} nq={nq} {metric} {label}: "
+                              f"{n_mism} equal-value row differences, max |err| {err:.3e}")
+        for w, nq, metric in itertools.product(K7_WINDOWS, SWEEP_NQ, ("l2", "ip")):
+            q = torch.as_tensor(xq[:nq], device=dev)
+            for label, mask in (("flat", None), ("masked", chip_smoke.sweep_mask(q, idx, 8, w))):
+                ok, n_mism, err = check_k7(q, lay.vectors, lay.row_norms, mask, metric, w)
+                check(ok, f"K7 d={d} w={w} nq={nq} {metric} {label}: {n_mism} near-tie row "
+                          f"differences, max |err| {err:.3e}")
+
+    print("== K6 ivf_gather_distances", flush=True)
+    for case, (d, max_len, p, empty_every) in enumerate(K6_CASES):
+        gen = np.random.default_rng(case)
+        lens = gen.integers(1, max_len + 1, 64)
+        lens[::empty_every] = 0
+        lens[0] = max_len
+        starts = np.concatenate([[0], np.cumsum(-(-lens // 8) * 8)[:-1]])
+        vectors = torch.randn((int(starts[-1] + lens[-1]) + 8, d), generator=g, device=dev)
+        for nq, metric in itertools.product((1, 37, 300), ("l2", "ip")):
+            probe = np.stack([gen.permutation(64)[:p] for _ in range(nq)])
+            st = torch.as_tensor(starts[probe], device=dev)
+            ln = torch.as_tensor(lens[probe], device=dev)
+            budget = candidate_budget(lens, p)
+            q = torch.randn((nq, d), generator=g, device=dev)
+            ok, err = check_k6(q, vectors, st, ln, max_len, budget, metric)
+            check(ok, f"K6 d={d} max_len={max_len} p={p} nq={nq} {metric} (empty probes "
+                      f"{int((ln == 0).sum())}): max |err| {err:.3e}")
 
     print("== search: card vs CPU on one saved index", flush=True)
     xb, xq = ds.clustered(60_000, 128, 100, seed=5)

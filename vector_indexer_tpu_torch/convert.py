@@ -4,8 +4,10 @@
 of a ``vector_indexer_tpu`` index, so that both packages search the same
 centroids and the same posting table; ``stream_table_from_reference_arrays``
 and ``correction_table_from_reference_arrays`` carry a quantized stream
-table (bf16, int8 or f32) and an offload correction table across, so that
-both packages' kernels read the same quantized rows. The port never imports
+table (bf16, int8 or f32) and an offload correction table across, and
+``sweep_int8_tables_from_reference_arrays`` the int8 sweep tables of
+``quantize_table_int8``, so that both packages' kernels read the same
+quantized rows. The port never imports
 jax: the caller does the ``np.asarray`` on the reference side (see
 ``reference_arrays`` in the tests).
 """
@@ -122,3 +124,16 @@ def correction_table_from_reference_arrays(arrays: Dict[str, np.ndarray],
         inv=_i64(arrays["inv"], dev),
         m_pad=int(arrays["m_pad"]),
     )
+
+
+def sweep_int8_tables_from_reference_arrays(x8: np.ndarray, r8: np.ndarray, sx: np.ndarray,
+                                            device: DeviceLike = None):
+    """The reference's int8 sweep tables (x8, r8 (n, d) int8, sx (n,) f32,
+    from ``quantize_table_int8``) as port tensors on ``device``."""
+    x8, r8, sx = np.asarray(x8), np.asarray(r8), np.asarray(sx)
+    if x8.dtype != np.int8 or r8.dtype != np.int8 or x8.shape != r8.shape \
+            or sx.shape != (x8.shape[0],):
+        raise ValueError("sweep tables: x8, r8 (n, d) int8 and sx (n,) required")
+    dev = resolve_device(device)
+    return (torch.as_tensor(x8.copy(), device=dev), torch.as_tensor(r8.copy(), device=dev),
+            _f32(sx, dev))

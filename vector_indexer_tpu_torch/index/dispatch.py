@@ -11,14 +11,24 @@ packages pick the same programs; ROADMAP Queue 1 item 10 re-measures them
 on the H100. Differences from the reference:
 
 * the fused programs are always available (the reference gates them on a
-  TPU backend); on the CPU their kernels run their plain versions;
+  TPU backend); on the CPU their kernels run their plain versions. So on
+  the CPU the reference's ``flat_int8`` becomes ``flat``, and the port's
+  does not;
 * the stream table's itemsize comes from the index's ``stream_dtype``
   (bf16 by default; int8 after offload), and the ``*_exact`` stream
   methods size an f32 table, as in the reference;
-* ``dense`` below the fused gate (n <= 50k, d % 128 != 0, or no fused
-  plan) runs one plain PyTorch dense program, program name ``dense_torch``;
-* programs outside the ported slice raise ``NotImplementedError`` naming
-  their ROADMAP item.
+* ``dense`` and ``flat`` below the fused gate (n <= 50k, d % 128 != 0,
+  or no fused plan) run plain PyTorch programs, ``dense_torch`` and
+  ``flat_torch`` (exact top-k where the reference's ``flat_xla`` uses
+  ``approx_min_k``);
+* ``gather_dma`` always runs kernel K6. The reference falls back to
+  ``gather`` when d % 128 != 0, when the (p, max_len, d) VMEM scratch
+  would pass 12 MB, or when the budget passes 32,768 slots: limits of the
+  TPU kernel (lane tiling, VMEM, slot clamping) that the CUDA kernel does
+  not have. Both programs return the same sets, so the two packages
+  agree on results where their programs differ;
+* ``staged`` (host-staged serving) is not ported yet and raises
+  ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -140,25 +150,24 @@ class Decision:
     label; ``program`` names the code path."""
 
     method: str
-    program: str  # 'dense_fused' | 'dense_torch' | 'stream' | 'stream_shared'
+    program: str  # 'flat_fused' | 'flat_torch' | 'dense_fused' | 'dense_torch' |
+    #               'stream' | 'stream_shared' | 'gather' | 'gather_dma'
     q_tile: int = 0
     plan: Optional[Tuple[int, int, int]] = None  # fused (w, q_tile, c_groups)
+    precision: str = "highest"  # fused sweep precision: 'highest' (f32), 'int8', 'int8x1'
+    budget: int = 0  # gather candidate budget (slots per query)
     t_fixed: int = 0  # stream task slots per query
     chunk: int = 0  # stream block rows
     t_cap: int = 0  # shared-kernel task budget per tile
     exact: bool = False  # *_exact stream variant (f32 table, exact selection)
 
 
+_SWEEP_METHODS = (
+    "flat", "flat_exact", "flat_fused", "flat_int8", "flat_int8x1",
+    "dense", "dense_exact", "dense_fused", "dense_int8", "dense_int8x1",
+)
+
 _NOT_PORTED = {
-    "gather": "the packed-gather program (ROADMAP Queue 1 item 5)",
-    "gather_dma": "kernel K6 (ROADMAP Queue 2)",
-    "flat": "the flat programs (ROADMAP Queue 1 item 7)",
-    "flat_exact": "the flat programs (ROADMAP Queue 1 item 7)",
-    "flat_fused": "the flat programs (ROADMAP Queue 1 item 7)",
-    "flat_int8": "the int8 modes of K3 (ROADMAP Queue 2)",
-    "flat_int8x1": "the int8 modes of K3 (ROADMAP Queue 2)",
-    "dense_int8": "the int8 modes of K3 (ROADMAP Queue 2)",
-    "dense_int8x1": "the int8 modes of K3 (ROADMAP Queue 2)",
     "staged": "host-staged serving (ROADMAP Queue 1 item 13)",
 }
 
@@ -179,18 +188,27 @@ def resolve(core, nq: int, n_probe: int, k: int = 100, method: str = "auto") -> 
             f"search method {method!r} needs {_NOT_PORTED[method]}, not ported yet"
         )
 
-    if method in ("dense", "dense_exact", "dense_fused"):
-        want_fused = method == "dense_fused" or (method == "dense" and lay.n > 50_000)
-        if want_fused and d % 128 == 0:
-            from ..ops.flat_sweep import plan_fused
+    from ..ops.flat_sweep import plan_fused
 
+    if method in _SWEEP_METHODS:
+        kind = "flat" if method.startswith("flat") else "dense"
+        # The int8 fixed-point sweeps, or their f32 twins where no plan fits.
+        if method.endswith(("_int8", "_int8x1")):
+            prec = "int8x1" if method.endswith("x1") else "int8"
+            plan = plan_fused(table_rows, d, nq, k, precision=prec) if d % 128 == 0 else None
+            if plan is not None:
+                return Decision(method=method, program=f"{kind}_fused", q_tile=plan[1],
+                                plan=plan, precision=prec)
+            method = kind
+        # flat_fused below the size gate still runs the plain flat program.
+        want_fused = method == "dense_fused" or (
+            method in ("flat", "flat_fused", "dense") and lay.n > 50_000)
+        if want_fused and d % 128 == 0:
             plan = plan_fused(table_rows, d, nq, k)
             if plan is not None:
-                return Decision(
-                    method=method, program="dense_fused", q_tile=plan[1], plan=plan,
-                )
+                return Decision(method=method, program=f"{kind}_fused", q_tile=plan[1], plan=plan)
         return Decision(
-            method=method, program="dense_torch",
+            method=method, program=f"{kind}_torch",
             q_tile=pick_q_tile(nq, table_rows * 4 // d, d),
         )
 
@@ -205,4 +223,9 @@ def resolve(core, nq: int, n_probe: int, k: int = 100, method: str = "auto") -> 
             method=method, program="stream_shared" if shared else "stream", q_tile=q_tile,
             t_fixed=t_fixed, chunk=chunk, t_cap=t_cap, exact=exact,
         )
+
+    if method in ("gather", "gather_dma"):
+        budget = core._budget_for(n_probe)
+        return Decision(method=method, program=method, budget=budget,
+                        q_tile=pick_q_tile(nq, budget, d))
     raise ValueError(f"unknown search method: {method}")

@@ -7,9 +7,10 @@ Port of the default path of ``vector_indexer_tpu/index/ivf.py``:
   ``num_shards = ceil(sqrt(nlist))`` and seed ``seed*31 + 7``, empty lists
   filtered and ids densely remapped, and a posting layout whose clusters
   are grouped by shard;
-* ``search_batch``: ``index/dispatch.py::resolve`` picks the program,
-  ``index/programs.py`` runs it, and layout rows map to internal ids on the
-  host;
+* ``search_batch``: ``index/dispatch.py::resolve`` picks the program
+  (stream, fused or plain dense, fused or plain flat, the int8 sweeps,
+  the packed gather or the K6 range gather), ``index/programs.py`` runs
+  it, and layout rows map to internal ids on the host;
 * persistence through ``storage/persist.py`` (the reference's on-disk
   format);
 * offloaded serving (``offload_main_table``, ``offload_from_host``,
@@ -33,6 +34,8 @@ from ..device import DeviceLike, resolve_device
 from ..models.kmeans import run_kmeans_lloyd
 from ..ops.block_stream import build_stream_table, pick_chunk
 from ..ops.distance import sq_norms
+from ..ops.flat_sweep import quantize_table_int8
+from ..ops.gather import candidate_budget
 from ..storage.layout import ALIGN, PostingLayout, build_layout
 from ..storage.vector_store import VectorStore
 from ..utils.heuristics import (
@@ -83,6 +86,11 @@ class IvfIndex:
         self._runs = None
         self._perm_inv = None
         self._perm_dev = None
+        # Per-layout caches: the int8 sweep tables, the device list
+        # starts/lengths and the gather budgets, each (layout, value).
+        self._sweep_q = None
+        self._lists = None
+        self._budgets = None
         # Larger-than-device mode (index/offload.py): f32 table freed, a
         # compact stream table serves; the shortlist re-rank mode, the
         # freed table's row count, the correction table ('device') and the
@@ -255,6 +263,40 @@ class IvfIndex:
             )
         return self._runs
 
+    def _sweep_int8_tables(self):
+        """(x8, r8, sx): the fixed-point int8 twin of the layout table for
+        the int8 sweeps ('flat_int8', 'dense_int8' and their x1 variants),
+        quantized on the device once per layout (~2 n d bytes beside the
+        f32 table)."""
+        lay = self.layout
+        if self._sweep_q is None or self._sweep_q[0] is not lay:
+            with trace("sweep_int8_tables.build"):
+                self._sweep_q = (lay, quantize_table_int8(lay.vectors))
+        return self._sweep_q[1]
+
+    def _list_tables(self):
+        """(starts, lengths) of the posting lists as device int64 tensors,
+        cached per layout."""
+        lay = self.layout
+        if self._lists is None or self._lists[0] is not lay:
+            self._lists = (lay, (
+                torch.as_tensor(lay.offsets[:-1].astype(np.int64), device=self.device),
+                torch.as_tensor(lay.lengths.astype(np.int64), device=self.device),
+            ))
+        return self._lists[1]
+
+    def _budget_for(self, n_probe: int) -> int:
+        """Packed-gather budget for n_probe: the sum of the n_probe longest
+        lists (never truncates), on the reference's shape grid; cached per
+        layout."""
+        lay = self.layout
+        if self._budgets is None or self._budgets[0] is not lay:
+            self._budgets = (lay, {})
+        cache = self._budgets[1]
+        if n_probe not in cache:
+            cache[n_probe] = candidate_budget(np.asarray(lay.lengths), n_probe)
+        return cache[n_probe]
+
     def choose_method(self, nq: int, n_probe: int) -> str:
         """Resolve 'auto' for this (nq, n_probe): the dense-vs-stream byte
         model (index/dispatch.py::choose_sweep_body), upgraded to the shared
@@ -330,12 +372,38 @@ class IvfIndex:
                 shared=dec.program == "stream_shared", t_cap=dec.t_cap,
                 rerank_from=(lay.vectors, lay.row_norms) if rerank else None,
             )
+        if dec.program in ("gather", "gather_dma"):
+            centroids, c_sq = self._device_tables()
+            starts, lengths = self._list_tables()
+            if dec.program == "gather":
+                return programs.gather_program(
+                    q, centroids, c_sq, lay.vectors, lay.row_norms, starts, lengths, k=k,
+                    n_probe=n_probe, budget=dec.budget, q_tile=dec.q_tile, metric=metric,
+                )
+            return programs.gather_dma_program(
+                q, centroids, c_sq, lay.vectors, starts, lengths, k=k, n_probe=n_probe,
+                max_len=lay.max_list_len, budget=dec.budget, q_tile=dec.q_tile, metric=metric,
+            )
+        if dec.program == "flat_torch":
+            return programs.flat_program(q, lay.vectors, lay.row_norms, k=k, q_tile=dec.q_tile,
+                                         metric=metric)
+        # The fused sweeps read the f32 table, or its int8 twin.
+        table, resid, scales = lay.vectors, None, None
+        if dec.precision != "highest":
+            table, resid, scales = self._sweep_int8_tables()
+            resid = resid if dec.precision == "int8" else None
+        if dec.program == "flat_fused":
+            w, _, c_groups = dec.plan
+            return programs.flat_fused_program(
+                q, table, lay.row_norms, resid, scales, k=k, w=w, c_groups=c_groups,
+                metric=metric, precision=dec.precision,
+            )
         block_run, c_ord, c_sq_ord = self._run_tables()
         if dec.program == "dense_fused":
             w, _, c_groups = dec.plan
             return programs.dense_fused_program(
-                q, c_ord, c_sq_ord, lay.vectors, lay.row_norms, block_run, n_probe,
-                k=k, w=w, c_groups=c_groups, metric=metric,
+                q, c_ord, c_sq_ord, table, lay.row_norms, block_run, n_probe, resid, scales,
+                k=k, w=w, c_groups=c_groups, metric=metric, precision=dec.precision,
             )
         return programs.dense_program(
             q, c_ord, c_sq_ord, lay.vectors, lay.row_norms, block_run, n_probe,

@@ -81,6 +81,7 @@ def offload_main_table(idx, stream_dtype=None, rerank: str = "host") -> None:
     lay.vectors = None
     lay.row_norms = None
     idx._runs = None
+    idx._sweep_q = None  # the int8 sweep tables of flat_int8 / dense_int8
     idx.offloaded = True
     log.info("offloaded main table: stream dtype %s, %d MB resident", idx.stream_dtype,
              st.nbytes >> 20)

@@ -13,10 +13,21 @@ lists were built by L2 assignment), whatever the ranking metric.
   ``_ivf_search_stream_program`` with the defaults of its
   ``_stream_rerank_wanted``;
 * ``dense_fused_program`` - the block probe mask and the fused masked
-  sweep (kernel K3), then a top-k over the fixed plane (the reference's
-  ``_ivf_search_dense_fused_program``);
+  sweep (kernel K3, f32 or int8), then a top-k over the fixed plane (the
+  reference's ``_ivf_search_dense_fused_program``);
 * ``dense_program`` - the plain masked full distance matrix + top-k, for
-  small tables and odd d (the reference's ``_ivf_search_dense_program``).
+  small tables and odd d (the reference's ``_ivf_search_dense_program``);
+* ``flat_fused_program`` - the unmasked fused sweep (K3, f32 or int8) and
+  the plane's top-k (the reference's ``_flat_search_fused_program``);
+* ``flat_program`` - the full distance matrix and an exact top-k (the
+  reference's ``_flat_search_program``, whose ``approx_min_k`` has no
+  Hopper counterpart; on the CPU the reference selects exactly too);
+* ``gather_program`` - coarse top-n_probe, the packed candidate rows of
+  the probed lists, a row gather and an exact f32 top-k (the reference's
+  ``_ivf_search_program``, plain XLA there, plain PyTorch here);
+* ``gather_dma_program`` - coarse top-n_probe, then kernel K6 writes the
+  probed lists' distances to packed slots, and a top-k (the reference's
+  ``gather_dma`` branch of ``search_batch_device``).
 """
 
 from __future__ import annotations
@@ -26,6 +37,8 @@ import torch
 from ..ops.block_stream import block_stream_search, block_stream_search_shared
 from ..ops.distance import score, sq_norms
 from ..ops.flat_sweep import S, flat_sweep_topk_plane
+from ..ops.gather import packed_candidate_rows
+from ..ops.ivf_gather import ivf_gather_distances
 from ..ops.topk import topk_smallest
 from ..storage.layout import ALIGN, SENTINEL_THRESHOLD
 
@@ -129,45 +142,120 @@ def _block_mask(queries, centroids_ord, c_sq_ord, block_run, n_probe: int):
     return mask & (block_run >= 0)[None, :]
 
 
+def _plane_topk(vals, rows, qt, k: int, metric: str):
+    """Top-k of a fused sweep's plane; |q|^2 is added after it (it is
+    constant per query), and sentinel rows never count as results."""
+    dv, pos = topk_smallest(vals, k)
+    rsel = torch.gather(rows.long(), 1, pos.clamp_min(0))
+    if metric == "l2":
+        dv = (dv + sq_norms(qt)[:, None]).clamp_min(0.0)
+    real = torch.isfinite(dv) & (dv < SENTINEL_THRESHOLD) & (pos >= 0)
+    return torch.where(real, dv, float("inf")), torch.where(real, rsel, torch.full_like(rsel, -1))
+
+
+def _real_topk(dist, k: int):
+    """Exact top-k of a distance matrix; sentinel rows never count."""
+    dv, rows = topk_smallest(dist, k)
+    real = torch.isfinite(dv) & (dv < SENTINEL_THRESHOLD)
+    return torch.where(real, dv, float("inf")), torch.where(real, rows, torch.full_like(rows, -1))
+
+
+def _cat(parts):
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
 def dense_fused_program(queries, centroids_ord, c_sq_ord, vectors, row_norms,
-                        block_run, n_probe: int, *, k: int, w: int, c_groups: int,
-                        metric: str):
-    """Masked dense sweep through kernel K3; |q|^2 is added after the
-    plane's top-k (it is constant per query)."""
+                        block_run, n_probe: int, vec_resid=None, scale_row=None, *, k: int,
+                        w: int, c_groups: int, metric: str, precision: str = "highest"):
+    """Masked dense sweep through kernel K3. ``precision`` 'int8' /
+    'int8x1' sweeps the int8 codes ``vectors`` with ``scale_row`` (and
+    ``vec_resid`` for 'int8'); norms stay the f32 table's."""
     n_pad = vectors.shape[0]
     nb = n_pad // ALIGN
     NB = S * w
     mcols = -(-n_pad // NB) * NB // ALIGN
-    dv_parts, row_parts = [], []
+    parts = []
     for s in range(0, queries.shape[0], SWEEP_Q_TILE):
         qt = queries[s : s + SWEEP_Q_TILE]
         mask = torch.zeros((qt.shape[0], mcols), dtype=torch.bool, device=qt.device)
         mask[:, :nb] = _block_mask(qt, centroids_ord, c_sq_ord, block_run, n_probe)
         vals, rows = flat_sweep_topk_plane(
-            qt, vectors, row_norms, mask, metric=metric, w=w, c_groups=c_groups
+            qt, vectors, row_norms, mask, vec_resid, scale_row, metric=metric, w=w,
+            c_groups=c_groups, precision=precision,
         )
-        dv, pos = topk_smallest(vals, k)
-        rsel = torch.gather(rows.long(), 1, pos.clamp_min(0))
-        if metric == "l2":
-            dv = (dv + sq_norms(qt)[:, None]).clamp_min(0.0)
-        real = torch.isfinite(dv) & (dv < SENTINEL_THRESHOLD) & (pos >= 0)
-        dv_parts.append(torch.where(real, dv, float("inf")))
-        row_parts.append(torch.where(real, rsel, torch.full_like(rsel, -1)))
-    return torch.cat(dv_parts), torch.cat(row_parts)
+        parts.append(_plane_topk(vals, rows, qt, k, metric))
+    return _cat(parts)
+
+
+def flat_fused_program(queries, vectors, row_norms, vec_resid=None, scale_row=None, *,
+                       k: int, w: int, c_groups: int, metric: str, precision: str = "highest"):
+    """Exhaustive sweep through kernel K3 (no mask), then the plane's
+    top-k; the int8 precisions as in ``dense_fused_program``."""
+    parts = []
+    for s in range(0, queries.shape[0], SWEEP_Q_TILE):
+        qt = queries[s : s + SWEEP_Q_TILE]
+        vals, rows = flat_sweep_topk_plane(
+            qt, vectors, row_norms, None, vec_resid, scale_row, metric=metric, w=w,
+            c_groups=c_groups, precision=precision,
+        )
+        parts.append(_plane_topk(vals, rows, qt, k, metric))
+    return _cat(parts)
 
 
 def dense_program(queries, centroids_ord, c_sq_ord, vectors, row_norms, block_run,
                   n_probe: int, *, k: int, q_tile: int, metric: str):
     """Plain masked dense search: full (q_tile, n) distance matrix, unprobed
     rows +inf, exact top-k; sentinel rows never count as results."""
-    dv_parts, row_parts = [], []
+    parts = []
     for s in range(0, queries.shape[0], q_tile):
         qt = queries[s : s + q_tile]
         mask = _block_mask(qt, centroids_ord, c_sq_ord, block_run, n_probe)
         dist = score(qt, vectors, row_norms, sq_norms(qt), metric)
         dist = torch.where(mask.repeat_interleave(ALIGN, dim=1), dist, float("inf"))
-        dv, rows = topk_smallest(dist, k)
-        real = torch.isfinite(dv) & (dv < SENTINEL_THRESHOLD)
-        dv_parts.append(torch.where(real, dv, float("inf")))
-        row_parts.append(torch.where(real, rows, torch.full_like(rows, -1)))
-    return torch.cat(dv_parts), torch.cat(row_parts)
+        parts.append(_real_topk(dist, k))
+    return _cat(parts)
+
+
+def flat_program(queries, vectors, row_norms, *, k: int, q_tile: int, metric: str):
+    """Plain exhaustive search: full (q_tile, n) distance matrix and an
+    exact top-k; sentinel rows never count as results."""
+    return _cat([_real_topk(score(queries[s : s + q_tile], vectors, row_norms,
+                                  sq_norms(queries[s : s + q_tile]), metric), k)
+                 for s in range(0, queries.shape[0], q_tile)])
+
+
+def gather_program(queries, centroids, c_sq, vectors, row_norms, starts, lengths, *, k: int,
+                   n_probe: int, budget: int, q_tile: int, metric: str):
+    """Exact packed gather: per tile, the coarse top-n_probe, the probed
+    lists' rows packed head to tail into ``budget`` slots, their exact f32
+    distances, and an exact top-k. ``starts`` / ``lengths``: (nlist,) list
+    start rows and lengths on the device."""
+    pad_row = vectors.shape[0] - 1  # a zero tail row; invalid slots are +inf anyway
+    parts = []
+    for s in range(0, queries.shape[0], q_tile):
+        qt = queries[s : s + q_tile]
+        probe = _probe(qt, centroids, c_sq, n_probe)
+        rows, valid = packed_candidate_rows(starts[probe], lengths[probe], budget, pad_row)
+        cross = torch.matmul(vectors[rows], qt[:, :, None])[..., 0]  # (q, budget)
+        norms_sel = row_norms[rows]
+        if metric == "l2":
+            dist = (sq_norms(qt)[:, None] - 2.0 * cross + norms_sel).clamp_min(0.0)
+        else:
+            dist = -cross + torch.where(norms_sel >= 1e29, norms_sel, torch.zeros_like(norms_sel))
+        parts.append(_narrow(torch.where(valid, dist, float("inf")), rows, k))
+    return _cat(parts)
+
+
+def gather_dma_program(queries, centroids, c_sq, vectors, starts, lengths, *, k: int,
+                       n_probe: int, max_len: int, budget: int, q_tile: int, metric: str):
+    """Range gather through kernel K6: per tile of ``q_tile`` queries (which
+    bounds the (q_tile, budget_pad) slot planes), the coarse top-n_probe,
+    K6's packed distances and an exact top-k."""
+    parts = []
+    for s in range(0, queries.shape[0], q_tile):
+        qt = queries[s : s + q_tile]
+        probe = _probe(qt, centroids, c_sq, n_probe)
+        dist, rows = ivf_gather_distances(qt, vectors, starts[probe], lengths[probe],
+                                          max_len=max(1, max_len), budget=budget, metric=metric)
+        parts.append(_narrow(dist, rows.long(), k))
+    return _cat(parts)

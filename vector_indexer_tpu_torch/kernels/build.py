@@ -17,7 +17,9 @@ library or a refused launch raises.
 Launch counters: each kernel wrapper calls ``launch`` exactly where it
 launches its kernel, which adds one to that kernel's count. The stream
 kernels count per table type, as ``name[bf16]``, ``name[int8]`` or
-``name[f32]``. A caller resets the counts before a run and reads them after
+``name[f32]``, and the fused sweep per int8 precision
+(``flat_sweep_topk_plane[int8]``, ``[int8x1]``; the f32 sweep keeps the
+plain name). A caller resets the counts before a run and reads them after
 it to prove which kernels (and modes) the run went through.
 """
 
@@ -67,10 +69,19 @@ _SIGNATURES = {
     "vitorch_stream_shared_plane": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
-    # q, x, norms, mask, nq, n_rows, d, w, c_groups, mcols, is_l2,
-    # v1, i1, v2, i2, stream
+    # q (or q8), qr8, sq, x (or x8), r8, scales, norms, mask, nq, n_rows, d,
+    # w, c_groups, mcols, is_l2, precision, v1, i1, v2, i2, stream
     "vitorch_flat_sweep_topk_plane": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+    ),
+    # q, x, norms, mask, nq, n_rows, d, w, mcols, is_l2, vals, rows, stream
+    "vitorch_flat_sweep_minreduce": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+    ),
+    # q, vectors, starts, lengths, offs, nq, p, d, max_len_pad, width,
+    # is_l2, dist, rows, stream
+    "vitorch_ivf_gather_distances": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
     ),
 }
 
@@ -94,6 +105,10 @@ _LAUNCHES: Dict[str, int] = {
     "stream_shared_plane[bf16]": 0,
     "stream_shared_plane[int8]": 0,
     "stream_shared_plane[f32]": 0,
+    "flat_sweep_topk_plane[int8]": 0,
+    "flat_sweep_topk_plane[int8x1]": 0,
+    "flat_sweep_minreduce": 0,
+    "ivf_gather_distances": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -36,6 +36,28 @@ def pairwise_sq_l2(
     return d.clamp_min_(0.0)
 
 
+def assign_chunked(x: torch.Tensor, c: torch.Tensor, chunk: int = 16384):
+    """Nearest-centroid assignment over tiles of ``chunk`` points, so the
+    (n, k) distance matrix is never whole: (labels int32 (n,), min squared
+    distance f32 (n,)); ties take the lower centroid id."""
+    c_sq = sq_norms(c)
+    labels, dists = [], []
+    for s in range(0, x.shape[0], chunk):
+        dmat = pairwise_sq_l2(x[s : s + chunk], c, c_sq=c_sq)
+        m, i = torch.min(dmat, dim=1)  # first index among equal minima
+        labels.append(i.to(torch.int32))
+        dists.append(m)
+    if not labels:
+        return x.new_zeros(0, dtype=torch.int32), x.new_zeros(0)
+    return torch.cat(labels), torch.cat(dists)
+
+
+def euclidean_distance_squared(a, b) -> torch.Tensor:
+    """Squared distance of one pair of vectors (a parity helper)."""
+    diff = torch.as_tensor(a) - torch.as_tensor(b)
+    return torch.sum(diff * diff)
+
+
 def score(qt, table, table_norms, q_sq, metric: str) -> torch.Tensor:
     """Batched 'distance' (smaller = better): exact squared L2 via the norm
     expansion, or the negated inner product for ip/cosine. Sentinel

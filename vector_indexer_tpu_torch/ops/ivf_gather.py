@@ -1,0 +1,137 @@
+"""K6: per-query distances to the rows of every probed posting list,
+written to packed candidate slots.
+
+Port of ``vector_indexer_tpu/ops/pallas/ivf_gather.py``
+(``ivf_gather_distances``). Each probed list is a contiguous row range of
+the layout table; probe j of a query owns the slots that start at the
+exclusive prefix sum of round_up(len, 128) over the earlier probes, and
+its rows ``start + i`` fill them. The output contract is the reference's,
+slot by slot:
+
+* width ``budget_pad = round_up(budget + p*128 + max_len_pad, 128)`` with
+  ``max_len_pad = round_up(max(max_len, 8), _chunk_for(max_len))``;
+* probe j's segment is max_len_pad slots at min(offset_j, budget_pad -
+  max_len_pad), written in probe order (a later probe overwrites an
+  earlier one's tail); slots no probe fills are holes, +inf / -1;
+* l2 is max(|q|^2 - 2 q.x + |x|^2, 0) with |x|^2 taken from the gathered
+  row itself; ip is -q.x (only real posting rows are gathered, so there is
+  no sentinel term).
+
+The TPU kernel copied every list into VMEM scratch with concurrent chunked
+DMAs, which is why its caller gated it on a scratch budget and on d % 128.
+The CUDA kernel reads the rows in place and has neither limit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import build as kb
+
+_DMA_CHUNK = 512  # the reference's rows per sub-DMA; it sets max_len_pad
+_MAX_D = 12288  # the kernel stages the query in <= 48 KB of shared memory
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _chunk_for(max_len: int) -> int:
+    return min(_DMA_CHUNK, _round_up(max(max_len, 8), 8))
+
+
+def max_len_pad(max_len: int) -> int:
+    """Slots of one probe's segment."""
+    return _round_up(max(max_len, 8), _chunk_for(max_len))
+
+
+def output_width(p: int, max_len: int, budget: int) -> int:
+    """budget_pad: slots per query."""
+    return _round_up(budget + p * 128 + max_len_pad(max_len), 128)
+
+
+def slot_offsets(lengths: torch.Tensor, max_len: int, budget: int) -> torch.Tensor:
+    """(nq, p) int64 first slot of each probe's segment: the exclusive prefix
+    sum of round_up(len, 128), clamped as the reference clamps it."""
+    lens_al = (lengths.long() + 127) // 128 * 128
+    offs = torch.cumsum(lens_al, dim=1) - lens_al
+    width = output_width(lengths.shape[1], max_len, budget)
+    return offs.clamp_max(width - max_len_pad(max_len))
+
+
+def _check(queries, vectors, starts, lengths):
+    if queries.dtype != torch.float32 or vectors.dtype != torch.float32:
+        raise TypeError("ivf_gather_distances takes f32 queries and table")
+    if queries.shape[1] != vectors.shape[1] or starts.shape != lengths.shape \
+            or starts.shape[0] != queries.shape[0]:
+        raise ValueError("ivf_gather_distances: shape mismatch")
+
+
+def ivf_gather_distances_reference(queries, vectors, starts, lengths, *, max_len: int,
+                                   budget: int, metric: str = "l2"):
+    """Plain version of K6: each slot takes the last probe whose segment
+    starts at or before it (the reference's write order), in tiles of
+    queries that bound the (tile, budget_pad, d) row gather."""
+    _check(queries, vectors, starts, lengths)
+    nq, d = queries.shape
+    p = starts.shape[1]
+    width = output_width(p, max_len, budget)
+    mlp = max_len_pad(max_len)
+    dist = torch.full((nq, width), float("inf"), device=queries.device)
+    rows = torch.full((nq, width), -1, dtype=torch.int32, device=queries.device)
+    if p == 0 or nq == 0:
+        return dist, rows
+    offs = slot_offsets(lengths, max_len, budget).contiguous()
+    slot = torch.arange(width, device=queries.device)
+    tile = max(1, (64 << 20) // (width * max(d, 1) * 4))
+    for s in range(0, nq, tile):
+        o = offs[s : s + tile]
+        seg = torch.searchsorted(o, slot.expand(o.shape[0], width).contiguous(), right=True) - 1
+        local = slot[None, :] - torch.gather(o, 1, seg)
+        valid = (local < torch.gather(lengths[s : s + tile].long(), 1, seg)) & (local < mlp)
+        r = torch.gather(starts[s : s + tile].long(), 1, seg) + local
+        r = torch.where(valid, r, torch.zeros_like(r))
+        x = vectors[r]  # (tile, width, d)
+        q = queries[s : s + tile]
+        cross = torch.matmul(x, q[:, :, None])[..., 0]
+        if metric == "l2":
+            dv = ((q * q).sum(1)[:, None] - 2.0 * cross + (x * x).sum(2)).clamp_min(0.0)
+        else:
+            dv = -cross
+        dist[s : s + tile] = torch.where(valid, dv, float("inf"))
+        rows[s : s + tile] = torch.where(valid, r, -1).to(torch.int32)
+    return dist, rows
+
+
+def ivf_gather_distances(queries, vectors, starts, lengths, *, max_len: int, budget: int,
+                         metric: str = "l2"):
+    """K6 -> (dist (nq, budget_pad) f32 +inf-padded, rows (nq, budget_pad)
+    int32 -1-padded): the distances of each query to the rows of its probed
+    lists (``starts``, ``lengths``: (nq, p)), in probe order at 128-aligned
+    slot offsets. CPU tensors -> plain version; CUDA tensors -> the
+    kernel."""
+    if queries.device.type == "cpu":
+        return ivf_gather_distances_reference(queries, vectors, starts, lengths,
+                                              max_len=max_len, budget=budget, metric=metric)
+    _check(queries, vectors, starts, lengths)
+    nq, d = queries.shape
+    p = starts.shape[1]
+    if d > _MAX_D:
+        raise ValueError(f"ivf_gather_distances kernel: d > {_MAX_D}")
+    width = output_width(p, max_len, budget)
+    if p == 0 or nq == 0:
+        return (torch.full((nq, width), float("inf"), device=queries.device),
+                torch.full((nq, width), -1, dtype=torch.int32, device=queries.device))
+    # The probes' segments partition [0, width): the kernel writes every slot.
+    dist = torch.empty((nq, width), dtype=torch.float32, device=queries.device)
+    rows = torch.empty((nq, width), dtype=torch.int32, device=queries.device)
+    ops = [queries.contiguous(), vectors.contiguous(), starts.to(torch.int32).contiguous(),
+           lengths.to(torch.int32).contiguous(),
+           slot_offsets(lengths, max_len, budget).to(torch.int32).contiguous()]
+    kb.require_cuda("ivf_gather_distances", *ops)
+    kb.launch(
+        "ivf_gather_distances", "vitorch_ivf_gather_distances",
+        *(kb.ptr(t) for t in ops), nq, p, d, max_len_pad(max_len), width,
+        int(metric == "l2"), kb.ptr(dist), kb.ptr(rows), kb.stream_of(dist),
+    )
+    return dist, rows
