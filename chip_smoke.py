@@ -15,14 +15,22 @@ Phases (each prints its own lines; any failure exits non-zero):
    flat_sweep_minreduce at w 32; K6 ivf_gather_distances at n_probe 32)
    vs its plain PyTorch version on the same device inputs at the paths'
    shapes, with the tolerance stated beside it; l2 timed with CUDA
-   events, ip checked.
+   events, ip checked. It first prints nvcc's register, shared-memory and
+   spill report for every instantiation of K3 and K4. Each kernel gets its
+   bound (the larger of the bytes it must move over 3.35 TB/s and its
+   operations over the peak of their type) and, where one PyTorch call
+   computes its product, that call's time (``library_ms``).
 4. Main path: ``bindings.build`` on a SIFT1M-shaped corpus (1M x 128 f32,
    clustered, seed 42), ``bindings.load``, then ``search_device`` with
    method 'auto' at the n_probe values whose resolved programs cover K2, K4
    and K3; recall and the share of the exact top-100 returned, against an
    exact ground truth computed on the card; a single-query
    ``VectorIndexer.search_sync`` self-hit; the peak device memory. The launch counters are reset just before this phase and read
-   just after it: every kernel must have run inside it. Then 200 of the
+   just after it: every kernel must have run inside it. Then K3 (f32 /
+   int8 / int8x1; masked at n_probe 128 with the dense program's query
+   order, and unmasked) and K4 (bf16 / int8, one query tile at n_probe 32)
+   are checked against their plain versions and timed at these shapes
+   (nq 1000 over the 1M table); the JSON line reports them. Then 200 of the
    queries are searched again on the CPU, where every kernel runs its
    plain version, at one n_probe per route and the largest: the card's
    results must agree rank by rank.
@@ -56,6 +64,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -94,6 +103,13 @@ OFFLOAD_KERNELS = ("stream_distances[int8]", "stream_distances[f32]", "stream_fu
 PHASE6_KERNELS = ("flat_sweep_topk_plane[int8]", "flat_sweep_topk_plane[int8x1]",
                   "ivf_gather_distances")
 RTOL = 1e-5  # of the magnitude of the terms each distance is summed from
+# Published peaks of one H100 SXM (dense, 700 W), for each kernel's bound:
+# the larger of its bytes over the memory rate and its operations over the
+# peak rate of their type (f32 outside the tensor cores; TF32 and s8 on them).
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12
+INT8_OP_S = 1979e12
 # Share of the exact top-k that the largest n_probe must return. There
 # 'auto' takes the fused dense sweep (K3), whose fixed plane keeps one row
 # per lane of each step's window: neighbours that sit in the same few
@@ -156,6 +172,55 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def bound(nbytes: float, ops: float, rate: float) -> dict:
+    """The least time the card could take for a function that must move
+    ``nbytes`` and do ``ops`` operations of a type peaking at ``rate``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / rate * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def stream_bound(q, table, grid, out_bytes: int) -> dict:
+    """K2 / K4: each probed block's valid rows (and norms) read once, the
+    queries, the outputs; 2 d operations per valid (query, row) pair."""
+    import torch
+
+    nval = grid["nval"].clamp_min(0)
+    used = nval > 0
+    rows = torch.zeros(table.vecs.shape[0] // table.chunk, dtype=torch.int64, device=q.device)
+    rows.scatter_(0, grid["blk"][used].long(), nval[used].long())  # a block's count is its own
+    d = q.shape[1]
+    nbytes = int(rows.sum()) * (d * table.vecs.element_size() + 4) + q.numel() * 4 + out_bytes
+    return bound(nbytes, 2.0 * float(nval.sum()) * d, F32_FLOP_S)
+
+
+def sweep_bound(q, n_rows: int, mask, precision: str, out_bytes: int) -> dict:
+    """K3 / K7: the probed rows (any query's mask block set; all rows when
+    unmasked) read once in the table's type (x8 + r8 for 'int8') with their
+    norms (and scales), the mask, the queries, the outputs; 2 d operations
+    per probed (query, row) pair, three products for f32 (3xTF32 on the
+    tensor cores, as the kernel computes it) and for 'int8' (s8)."""
+    nq, d = q.shape
+    if mask is None:
+        rows, pairs = n_rows, nq * n_rows
+    else:
+        m = mask[:, : -(-n_rows // 8)]
+        rows, pairs = 8 * int(m.any(dim=0).sum()), 8 * int(m.sum())
+    per_row = {"highest": 4 * d + 4, "int8": 2 * d + 8, "int8x1": d + 8}[precision]
+    nbytes = rows * per_row + (0 if mask is None else mask.numel()) + q.numel() * 4 + out_bytes
+    ops = (1 if precision == "int8x1" else 3) * 2.0 * pairs * d
+    return bound(nbytes, ops, TF32_FLOP_S if precision == "highest" else INT8_OP_S)
+
+
+def library(torch, fn, what: str) -> dict:
+    """One PyTorch call timed beside a kernel as a yardstick (never used by
+    the port): ``library_ms`` and what it computes; None where it fails."""
+    try:
+        return dict(library_ms=cuda_ms(torch, fn), library_call=what)
+    except (RuntimeError, TypeError) as e:
+        log(f"  library call {what} unavailable: {e}")
+        return dict(library_ms=None, library_call=None)
 
 
 def gpu_line() -> str:
@@ -442,6 +507,8 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
     from vector_indexer_tpu_torch.ops import ivf_gather as ig
     from vector_indexer_tpu_torch.storage.vector_store import VectorStore
 
+    for line in ptxas_lines(kb.build_info().get("log", "")):
+        log(f"  ptxas {line}")
     # K1 at the build's final-assignment shape: 65,536 points x 4,000 x 128.
     x = torch.as_tensor(xb[:65536], device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -450,11 +517,14 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
     ok, n_diff, err = check_k1(x, cent)
     check(ok, f"K1 assign_argmin vs plain: {n_diff} label differences, all near-ties "
               f"(|score gap| <= {RTOL:g}*(|x|^2+|c|^2)); max |dist err| {err:.3e}")
+    n1, k1, d1 = x.shape[0], cent.shape[0], x.shape[1]
     results["assign_argmin"] = dict(
         max_abs_err=err,
         ms=cuda_ms(torch, lambda: assign.assign_argmin(x, cent)),
         plain_ms=cuda_ms(torch, lambda: assign.assign_argmin_reference(x, cent)),
         shape=f"{x.shape[0]} x 4000 x 128",
+        **bound((n1 + k1) * d1 * 4 + n1 * 8, 2.0 * n1 * k1 * d1, F32_FLOP_S),
+        **library(torch, lambda: torch.matmul(x, cent.T), "torch.matmul(x, c.T), product only"),
     )
     del x, cent
 
@@ -506,9 +576,12 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
                 fn_k = lambda: bs.stream_fused_plane(*k4_args(q, tb, grid), **kw)
                 fn_p = lambda: bs.stream_fused_plane_reference(*k4_args(q, tb, grid), **kw)
             if metric == "l2":
+                out_bytes = nqk * (grid["t_fixed"] if kern == "K2" else
+                                   2 * bs.pick_stream_groups(tb.chunk)) * tb.chunk * (4 if kern == "K2" else 8)
                 results[name] = dict(
                     max_abs_err=err, ms=cuda_ms(torch, fn_k), plain_ms=cuda_ms(torch, fn_p),
                     shape=f"nq={nqk} t_fixed={grid['t_fixed']} chunk={tb.chunk} d=128",
+                    library_ms=None, library_call=None, **stream_bound(q, tb, grid, out_bytes),
                 )
 
     # K5 at the shape stream_params(shared=True) gives a 1024-query batch at
@@ -533,7 +606,15 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
                       f"used tasks; max |err| {err:.3e}")
             if metric == "l2":
                 kw = dict(chunk=tb.chunk, metric=metric)
+                used = tasks.blk >= 0
+                n_used = int(used.sum())
+                n_blocks = int(torch.unique(tasks.blk[used]).numel())
+                d = q.shape[1]
+                k5_bytes = (n_blocks * tb.chunk * (d * tb.vecs.element_size() + 4)
+                            + n_used * bs.Q_SHARE * d * 4 + tasks.qc.shape[0] * bs.Q_SHARE * tb.chunk * 4)
                 results[name] = dict(
+                    library_ms=None, library_call=None,
+                    **bound(k5_bytes, 2.0 * n_used * bs.Q_SHARE * tb.chunk * d, F32_FLOP_S),
                     max_abs_err=err,
                     ms=cuda_ms(torch, lambda: bs.stream_shared_plane(*k5_args(tb, tasks), **kw)),
                     plain_ms=cuda_ms(torch, lambda: bs.stream_shared_plane_reference(
@@ -566,9 +647,14 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
                         q, lay.vectors, lay.row_norms, m, **kw)),
                 )
                 log(f"  K3 {label}: kernel {times[label][0]:.3f} ms, plain {times[label][1]:.3f} ms")
+    cs_bytes = nqk * 2 * C * fs.S * 8
     results["flat_sweep_topk_plane"] = dict(
         max_abs_err=max(errs), ms=times["masked"][0], plain_ms=times["masked"][1],
+        flat_ms=times["flat"][0], flat_plain_ms=times["flat"][1],
         shape=f"nq={nqk} n_rows={n_rows} w={w} C={C} (ms: masked, n_probe=64)",
+        **sweep_bound(q, n_rows, mask, "highest", cs_bytes),
+        **library(torch, lambda: torch.matmul(q, lay.vectors.T),
+                  "torch.matmul(q, x.T), dense product only"),
     )
 
     # K3's int8 modes over the layout's int8 twin (quantized on the card),
@@ -597,9 +683,14 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
                     )
                     log(f"  K3 [{prec}] {label}: kernel {times[label][0]:.3f} ms, plain "
                         f"{times[label][1]:.3f} ms")
+        q8 = fs.quantize_queries_int8(q)[0]
         results[f"flat_sweep_topk_plane[{prec}]"] = dict(
             max_abs_err=max(errs), ms=times["masked"][0], plain_ms=times["masked"][1],
+            flat_ms=times["flat"][0], flat_plain_ms=times["flat"][1],
             shape=f"nq={nqk} n_rows={n_rows} w={wp} C={Cp} (ms: masked, n_probe=64)",
+            **sweep_bound(q, n_rows, mask_p, prec, nqk * 2 * Cp * fs.S * 8),
+            **library(torch, lambda: torch._int_mm(q8, tabs[0].T),
+                      "torch._int_mm(q8, x8.T), the q8.x8 product only"),
         )
     del tabs
 
@@ -616,7 +707,10 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
                       f"{n_mism} row differences all near-ties; max |err| {err:.3e}")
             errs.append(err)
     kw = dict(metric="l2", w=32)
+    nj32 = -(-n_rows // (fs.S * 32))
     results["flat_sweep_minreduce"] = dict(
+        **sweep_bound(q, n_rows, None, "highest", nqk * nj32 * fs.S * 8),
+        **library(torch, lambda: torch.matmul(q, lay.vectors.T), "torch.matmul(q, x.T), product only"),
         max_abs_err=max(errs),
         ms=cuda_ms(torch, lambda: fs.flat_sweep_minreduce(q, lay.vectors, lay.row_norms, **kw)),
         plain_ms=cuda_ms(torch, lambda: fs.flat_sweep_minreduce_reference(
@@ -636,7 +730,13 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
                   f"distances within {RTOL:g}*(terms); max |err| {err:.3e}")
         errs.append(err)
     kw = dict(max_len=max_len, budget=budget, metric="l2")
+    dk6, _ = ig.ivf_gather_distances(q, lay.vectors, starts, lengths, **kw)
+    list_rows = torch.zeros(n_rows + 1, dtype=torch.int64, device=q.device)
+    list_rows.scatter_(0, starts.flatten().long(), lengths.flatten().long())  # each list once
+    k6_bytes = int(list_rows.sum()) * q.shape[1] * 4 + q.numel() * 4 + dk6.numel() * 8
     results["ivf_gather_distances"] = dict(
+        **bound(k6_bytes, 2.0 * float(lengths.sum()) * q.shape[1], F32_FLOP_S),
+        library_ms=None, library_call=None,
         max_abs_err=max(errs),
         ms=cuda_ms(torch, lambda: ig.ivf_gather_distances(q, lay.vectors, starts, lengths, **kw)),
         plain_ms=cuda_ms(torch, lambda: ig.ivf_gather_distances_reference(
@@ -645,6 +745,126 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
     )
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms ({r['shape']})")
+
+
+def _template_args(mangled_tail: str) -> str:
+    """'ILb1ELb0ELi2ELb1EEEv...' -> '<true,false,2,true>' (the kernels' bool,
+    int and row-type template arguments)."""
+    body = mangled_tail[1:].split("EEv", 1)[0] + "E"
+    body = body.replace("13__nv_bfloat16", "bf16,").replace("Lb1E", "true,").replace("Lb0E", "false,")
+    body = re.sub(r"Li(\d+)E", r"\1,", body)
+    body = re.sub(r"(^|,)a", r"\1int8,", body)
+    return "<" + body.rstrip("E").rstrip(",") + ">"
+
+
+def ptxas_lines(log_text: str, kernels=("flat_sweep_kernel", "stream_fused_plane_kernel")):
+    """nvcc -Xptxas -v's register / shared-memory / spill report of each
+    instantiation of the named kernels, one line each."""
+    out, current, props = [], None, {}
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            current = line.split("Function properties for")[-1].strip()
+        elif current and "spill stores" in line:
+            props["spill"] = line.strip()
+        elif current and "Used" in line and "registers" in line:
+            if any(k in current for k in kernels):
+                name = next(k for k in kernels if k in current)
+                out.append(f"{name}{_template_args(current.split(name, 1)[1])}: "
+                           f"{line.split(':', 1)[1].strip()}; {props.get('spill', '')}")
+            current, props = None, {}
+    return out
+
+
+def main_shape_kernels(torch, vi, xq_dev, check, results):
+    """K3 (f32 / int8 / int8x1; masked at n_probe 128, its queries ordered by
+    nearest probe as the dense program orders them, and unmasked as 'flat'
+    runs it) and K4 (bf16 / int8, one query tile of the n_probe-32 stream
+    program) at the main path's own shapes on the 1M index, each against
+    its plain version and timed. These become the JSON line's numbers for
+    K3 and K4; phase 3's are kept beside them."""
+    from vector_indexer_tpu_torch.index import programs
+    from vector_indexer_tpu_torch.index.dispatch import resolve
+    from vector_indexer_tpu_torch.ops import block_stream as bs
+    from vector_indexer_tpu_torch.ops import flat_sweep as fs
+
+    idx = vi.index
+    lay = idx.layout
+    n_rows = lay.vectors.shape[0]
+    nq = xq_dev.shape[0]
+    n_probe = min(128, idx.num_clusters)
+    block_run, c_ord, c_sq_ord = idx._run_tables()
+    s_ord, nearest = programs._probe_sets(xq_dev, c_ord, c_sq_ord, n_probe)
+    perm = torch.argsort(nearest, stable=True)
+    qs = xq_dev[perm]
+    tabs = idx._sweep_int8_tables()
+    methods = {"highest": "dense_fused", "int8": "dense_int8", "int8x1": "dense_int8x1"}
+    for prec, method in methods.items():
+        w, _, C = resolve(idx, nq, n_probe, k=K, method=method).plan
+        mask = programs._sweep_mask(s_ord[perm], block_run, -(-n_rows // (fs.S * w)) * fs.S * w // 8)
+        name = "flat_sweep_topk_plane" + ("" if prec == "highest" else f"[{prec}]")
+        entry = dict(phase3=results[name])
+        for label, m in (("masked", mask), ("flat", None)):
+            args = (qs, lay.vectors, lay.row_norms, m) if prec == "highest" else (
+                qs, tabs[0], lay.row_norms, m, tabs[1] if prec == "int8" else None, tabs[2])
+            kw = dict(metric="l2", w=w, c_groups=C, precision=prec)
+            ok, n_mism, err = compare_planes(qs, lay.vectors, lay.row_norms,
+                                             fs.flat_sweep_topk_plane(*args, **kw),
+                                             fs.flat_sweep_topk_plane_reference(*args, **kw),
+                                             "l2", exact_ties=prec != "highest")
+            check(ok, f"K3 {name} vs plain at the main path's shape ({label}, nq={nq}, "
+                      f"n_rows={n_rows}, w={w}, C={C}{f', n_probe={n_probe}' if m is not None else ''}): "
+                      f"{n_mism} row differences, all {'at equal values' if prec != 'highest' else 'near-ties'}; "
+                      f"max |err| {err:.3e}")
+            ms = cuda_ms(torch, lambda: fs.flat_sweep_topk_plane(*args, **kw))
+            plain_ms = cuda_ms(torch, lambda: fs.flat_sweep_topk_plane_reference(*args, **kw), reps=2)
+            b = sweep_bound(qs, n_rows, m, prec, nq * 2 * C * fs.S * 8)
+            log(f"  K3 {name} main shape {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+            if label == "masked":
+                entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
+                             shape=f"nq={nq} n_rows={n_rows} w={w} C={C} masked at n_probe={n_probe} "
+                                   f"(queries ordered by nearest probe), 1 launch per batch")
+            else:
+                entry.update(flat_ms=ms, flat_plain_ms=plain_ms, flat_bound_ms=b["bound_ms"],
+                             max_abs_err=max(entry["max_abs_err"], err))
+        if prec == "highest":
+            entry.update(library(torch, lambda: torch.matmul(qs, lay.vectors.T),
+                                 "torch.matmul(q, x.T), dense product only"))
+        else:
+            q8 = fs.quantize_queries_int8(qs)[0]
+            entry.update(library(torch, lambda: torch._int_mm(q8, tabs[0].T),
+                                 "torch._int_mm(q8, x8.T), the q8.x8 product only"))
+        torch.cuda.empty_cache()
+        results[name] = entry
+    del tabs
+
+    # K4: one query tile of the n_probe-32 stream program, as it launches it.
+    c, c_sq = idx._device_tables()
+    dec = resolve(idx, nq, 32, k=K, method="stream")
+    qt = xq_dev[: dec.q_tile]
+    for mode, tb in (("bf16", idx._stream_table()),
+                     ("int8", bs.build_stream_table(lay, idx.centroids, torch.int8, chunk=dec.chunk))):
+        name = f"stream_fused_plane[{mode}]"
+        grid = stream_grid(qt, tb, c, c_sq, lay.lengths, 32, "l2")
+        ok, n_mism, err = check_k4(qt, tb, grid, "l2")
+        G = bs.pick_stream_groups(tb.chunk)
+        check(ok, f"K4 {name} vs plain at the main path's shape (q_tile={len(qt)} of nq={nq}, "
+                  f"n_probe=32, t_fixed={grid['t_fixed']}, chunk={tb.chunk}, G={G}): {n_mism} slot "
+                  f"differences, all near-ties; max |err| {err:.3e}")
+        kw = dict(chunk=tb.chunk, groups=G, metric="l2", scales=tb.scales)
+        b = stream_bound(qt, tb, grid, len(qt) * 2 * G * tb.chunk * 8)
+        results[name] = dict(
+            phase3=results[name], max_abs_err=err,
+            ms=cuda_ms(torch, lambda: bs.stream_fused_plane(*k4_args(qt, tb, grid), **kw)),
+            plain_ms=cuda_ms(torch, lambda: bs.stream_fused_plane_reference(*k4_args(qt, tb, grid), **kw),
+                             reps=2),
+            library_ms=None, library_call=None, **b,
+            shape=f"q_tile={len(qt)} t_fixed={grid['t_fixed']} chunk={tb.chunk} G={G} "
+                  f"(n_probe=32; {-(-nq // len(qt))} launches per batch of {nq})",
+        )
+        log(f"  K4 {name} main shape: kernel {results[name]['ms']:.3f} ms, plain "
+            f"{results[name]['plain_ms']:.3f} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}); "
+            f"{results[name]['shape']}")
 
 
 def shared_n_probe(lengths, nlist: int, chunk: int):
@@ -667,7 +887,7 @@ def shared_n_probe(lengths, nlist: int, chunk: int):
 # ---------------------------------------------------------------------------
 
 
-def main_phase(torch, np, xb, xq, check, dev, work):
+def main_phase(torch, np, xb, xq, check, dev, work, kernel_results):
     from vector_indexer_tpu_torch import bindings
     from vector_indexer_tpu_torch.api import SearchRequest
     from vector_indexer_tpu_torch.index.dispatch import resolve
@@ -750,6 +970,11 @@ def main_phase(torch, np, xb, xq, check, dev, work):
     log(f"  peak device memory (max_memory_allocated): {peak / 2**30:.3f} GiB")
     for name in MAIN_KERNELS:
         check(counts[name] > 0, f"{name} launched in the main path ({counts[name]}x)")
+
+    log("  -- K3 and K4 at the main path's shapes (after the launch counts were read)")
+    t0 = time.perf_counter()
+    main_shape_kernels(torch, vi, xq_dev, check, kernel_results)
+    log(f"  main-shape kernel checks: {time.perf_counter() - t0:.2f}s")
 
     # The same search on the CPU, where each kernel's wrapper runs its plain
     # version: the card's results (ranks 1..k) must be the plain path's.
@@ -1140,8 +1365,8 @@ def main() -> int:
     info = kb.build_info()
     log(f"  nvcc build {info.get('seconds', 0.0):.2f}s ({time.perf_counter() - t0:.2f}s with load): {path}")
     for line in info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"  ptxas: {line.strip()}")
+        if "warning" in line.lower() or "error" in line.lower():
+            log(f"  nvcc: {line.strip()}")
 
     ds = load_datasets()
     t0 = time.perf_counter()
@@ -1156,7 +1381,7 @@ def main() -> int:
     work = ROOT / "build" / "chip_smoke_work"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        counts, overlaps, gt = main_phase(torch, np, xb, xq, check, dev, work)
+        counts, overlaps, gt = main_phase(torch, np, xb, xq, check, dev, work, results)
         log("== 5. offload and the other stream methods")
         t0 = time.perf_counter()
         counts.update(offload_phase(torch, np, xb, xq, check, dev, work, overlaps))
@@ -1171,8 +1396,9 @@ def main() -> int:
     counts["flat_sweep_minreduce"] = results["flat_sweep_minreduce"]["launches"]  # phase 3
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
-             max_abs_err=results[name]["max_abs_err"], ms=results[name]["ms"],
-             plain_ms=results[name]["plain_ms"])
+             **{key: results[name][key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "library_call", "shape")})
         for name, (src, rep) in SOURCES.items()
     ]
     if check.failures:

@@ -175,6 +175,21 @@ def test_int8_methods_fall_back_where_no_plan_fits():
     assert td.resolve(core, 100, 8, k=10, method="dense_int8x1").program == "dense_torch"
 
 
+@pytest.mark.parametrize("method,d", [("flat", 384), ("flat_fused", 768), ("dense_fused", 512),
+                                      ("flat_int8", 2048), ("dense_int8", 1536),
+                                      ("dense_int8x1", 2048)])
+def test_resolve_keeps_the_fused_sweep_at_wide_rows(method, d):
+    """The fused sweep kernel takes any d (its query tile streams through
+    the ring where it does not stay resident), so wide rows resolve to the
+    reference's fused program and plan, not to the plain programs."""
+    ln = np.random.default_rng(3).integers(200, 300, SIZES["sift1m"])
+    core = _Core(ln, d=d)
+    dec = td.resolve(core, 1000, 32, k=100, method=method)
+    assert dec.program.endswith("_fused")
+    assert (dec.program, dec.plan, dec.precision, dec.budget) == _reference_decision(
+        ln, core.layout.vectors.shape[0], core.layout.n, method, 1000, 32, 100, d=d)
+
+
 @pytest.mark.parametrize("method", ["staged"])
 def test_unported_methods_raise(method):
     core = _Core(np.full(50, 100))

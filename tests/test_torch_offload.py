@@ -104,7 +104,7 @@ def test_device_table_build_matches(pair, mode):
 def test_host_table_build_matches(pair, mode):
     _, ref, _ = pair
     jlay, tlay = _host_layouts(ref)
-    tt = tbs.build_stream_table_host(tlay, ref.centroids, TORCH[mode])
+    tt = tbs.build_stream_table_host(tlay, ref.centroids, TORCH[mode], device="cpu")
     jt = jbs.build_stream_table_host(jlay, ref.centroids, JAX[mode])
     # The same numpy arithmetic on both sides: the norms agree to 1 ulp.
     _assert_tables_equal(tt, jt, max_ulp_norms=1)

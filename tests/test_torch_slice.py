@@ -164,7 +164,9 @@ def test_absent_card_is_refused_not_replaced(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         bindings.load("no_index", "no_shards", D, device="cuda")
-    assert resolve_device(None).type == "cpu"
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
 
 
 @pytest.mark.parametrize("metric", ["ip", "cosine"])

@@ -116,3 +116,35 @@ def reference_search(ref, program: str, xq, k: int, n_probe: int, precision: str
     else:
         raise ValueError(program)
     return tuple(np.asarray(a)[:nq] for a in out)
+
+
+def split_bounds(n_steps: int, split: int, splits: int):
+    """[m0, m1) of a group's ``n_steps`` steps that block ``split`` of the
+    fused sweep kernel (csrc/flat_sweep.cu) handles."""
+    return n_steps * split // splits, n_steps * (split + 1) // splits
+
+
+def split_planes_reference(queries, vectors, row_norms, mask_b=None, vec_resid=None,
+                           scale_row=None, *, metric: str = "l2", w: int = 8, c_groups: int = 8,
+                           precision: str = "highest", splits: int = 1):
+    """Plain model of the fused sweep kernel's split sweep: each group's
+    steps are cut into ``splits`` contiguous ranges (``split_bounds``, as
+    the kernel cuts them) and each range is folded on its own. -> [(vals,
+    rows)] per split, in split order; ``flat_sweep.merge_top2_planes`` of
+    them is the sweep's planes."""
+    from vector_indexer_tpu_torch.ops import flat_sweep as fs
+
+    fs._check(queries, vectors, row_norms, mask_b, vec_resid, scale_row, w, precision)
+    nj = -(-vectors.shape[0] // (fs.S * w))
+    parts = [fs._empty_planes(queries.shape[0], c_groups, queries.device) for _ in range(splits)]
+    for j0, wv, wrow in fs._window_minima(queries, vectors, row_norms, mask_b, vec_resid,
+                                          scale_row, metric=metric, w=w, precision=precision):
+        for jl in range(wv.shape[1]):
+            j = j0 + jl
+            g, m = j % c_groups, j // c_groups
+            n_steps = -(-(nj - g) // c_groups)
+            split = next(s for s in range(splits)
+                         if split_bounds(n_steps, s, splits)[0] <= m
+                         < split_bounds(n_steps, s, splits)[1])
+            fs._fold_minima(*parts[split], j, wv[:, jl], wrow[:, jl])
+    return [fs._planes_out(*p) for p in parts]

@@ -7,7 +7,8 @@ chip_smoke.py checks each kernel at the SIFT1M paths' shapes; this script
 runs the same checks (chip_smoke's ``check_k1`` .. ``check_k7``, same
 tolerances) over odd sizes, dimensions, chunks, table types (K2 bf16 /
 int8 / f32, K4 bf16 / int8, K5 bf16 / int8 / f32, K3 f32 / int8 /
-int8x1), windows, group counts, list lengths (K6: short and long lists,
+int8x1, at d on both sides of each kernel's mode changes), windows, group counts,
+list lengths (K6: short and long lists,
 empty probes) and both metrics, then searches one saved index on the card
 and on the CPU (where every kernel runs its plain version) for each search
 method of the port, and offloaded in each re-rank mode, for both metrics,
@@ -40,17 +41,23 @@ from chip_smoke import (  # noqa: E402
 )
 
 K1_SHAPES = ((1, 1, 8), (1000, 600, 64), (777, 3, 130), (5000, 513, 96), (64, 4000, 128))
-STREAM_DIMS = (32, 64, 96, 128)
+# K4 reads rows in 16-byte chunks: d 20 (bf16 rows of 40 B) takes its
+# element-wise path, d 512 / 1024 two and four chunks per lane, d > 1024 its
+# wide mode (bf16 and int8; d 1100: rows that are not 16-byte multiples).
+STREAM_DIMS = (20, 32, 64, 96, 128, 512, 1024, 1100, 1536, 2048)
 STREAM_CHUNKS = (256, 512, 1024)
 STREAM_PROBES = (1, 5, 17)
-QUANT_DIMS = (32, 96, 128)  # dims of the int8 / f32 tables and of K5
+QUANT_DIMS = (32, 96, 128, 1024)  # dims of the int8 / f32 tables and of K5
 SEARCH_METHODS = ("stream", "stream_exact", "stream_shared", "stream_shared_exact", "dense",
                   "dense_exact", "auto", "flat", "flat_exact", "flat_fused", "flat_int8",
                   "flat_int8x1", "dense_int8", "dense_int8x1", "gather", "gather_dma")
-SWEEP_DIMS = (16, 64, 128)
+# K3 f32 keeps the query tile resident up to d 320 and streams it beyond;
+# past d 128 it adds its partial sums every 128 dims.
+SWEEP_DIMS = (16, 64, 128, 320, 384, 768, 2048)
 SWEEP_WC = ((8, 1), (16, 2), (32, 8), (8, 8))  # (w, C)
 SWEEP_NQ = (1, 37, 300)
-INT8_DIMS = (128, 256)  # K3's int8 modes
+# K3's int8 modes and K7; 'int8' streams its query tile past d 1280.
+INT8_DIMS = (128, 256, 1280, 2048)
 K7_WINDOWS = (8, 16, 32)
 # K6: (d, max_len, probes per query, every how many lists is empty)
 K6_CASES = ((16, 40, 4, 3), (96, 300, 8, 5), (128, 700, 32, 4), (128, 2000, 6, 2))
@@ -92,7 +99,8 @@ def main() -> int:
         c, c_sq = idx._device_tables()
         q = torch.as_tensor(xq, device=dev)
         lengths = idx.layout.lengths
-        modes = (torch.bfloat16, torch.int8, torch.float32) if d in QUANT_DIMS else (torch.bfloat16,)
+        modes = ((torch.bfloat16, torch.int8, torch.float32) if d in QUANT_DIMS
+                 else (torch.bfloat16, torch.int8) if d > 1024 else (torch.bfloat16,))
         for chunk, dtype in itertools.product(STREAM_CHUNKS, modes):
             table = build_stream_table(idx.layout, idx.centroids, dtype, chunk=chunk)
             for n_probe, metric in itertools.product(STREAM_PROBES, ("l2", "ip")):

@@ -5,8 +5,8 @@ validation (reference src/api.rs): index_dir="index", shards_dir="shards",
 default_k=10, default_n_probe=20, max_k=10_000, max_n_probe=10_000; builds
 use the fixed seed 42; search clamps k/n_probe to the caps and validates the
 query dimension. The port adds ``device`` to the config: where the index
-lives and searches run (None: the first CUDA device if present, else the
-CPU; an explicit CUDA device that is absent raises).
+lives and searches run (None: the first CUDA device; with no CUDA device
+present that raises, and only ``device="cpu"`` runs on the CPU).
 """
 
 from __future__ import annotations

@@ -27,26 +27,34 @@
 //
 // K2 writes every task's chunk-wide distance row to out (nq, t_fixed,
 // chunk); lane masking and selection stay in PyTorch, as in the reference.
-// K4 keeps the selection on chip: one block per query walks the slots in
-// the reference's fold order (local slot u outer, fan f inner; slot
-// s = f * t_sub + u feeds group g = f % G) and folds each lane below the
-// slot's valid count into that (group, lane)'s best and second-best
-// (value, slot) pair in shared memory. Only the (2 G chunk)-wide planes
-// reach device memory. K4 takes bf16 and int8 tables (the f32 table serves
-// stream_exact, which never fuses).
-//
-// Both compute a row's dot with one warp: lanes stride over d (coalesced
+// K2 computes a row's dot with one warp: lanes stride over d (coalesced
 // reads of the row), then a shuffle sum.
 //
-// Bound on the H100: bytes. Each task reads chunk * d * itemsize bytes of
-// table (64 KB at chunk 256, d 128, bf16; 32 KB int8; 128 KB f32) for
-// 2 * chunk * d FLOPs - at most 2 FLOP/byte, far below the card's ~20
-// FLOP/byte f32 balance, so 3.35 TB/s is the roofline. The simple design
-// leaves on the table: TMA/cp.async prefetch of the next block while the
-// current one is scored, 16-byte vector loads (an int8 lane reads 1 byte),
-// dp4a for the int8 rows, several rows per warp to hide the shuffle, and
-// (for K4) more than one block per query so that small batches fill the
-// 132 SMs.
+// K4 keeps the selection on chip. The fold of the reference (local slot u
+// outer, fan f inner; slot s = f * t_sub + u feeds group g = f % G; each
+// lane below the slot's valid count enters that (group, lane)'s best and
+// second-best (value, slot) pair) is independent per (group, lane), so
+// one block per (query, group) folds the group's slots in the same order
+// and writes the same planes, bit for bit, with G times more blocks than
+// one block per query. Inside a block a producer warp prefetches the
+// slots' valid rows by cp.async.bulk (16 KB sub-blocks, 4-stage mbarrier
+// ring) while eight consumer warps score the staged rows with 16-byte
+// shared-memory reads (several rows per warp, q - c for the lane's chunks
+// in registers, computed once per slot) and fold them. Rows wider than
+// 1024 elements (the registers' limit) take a wide mode: one row per warp,
+// q - c in shared memory (double-buffered per slot), sub-blocks of as few
+// rows as keep the copies 16-byte multiples. Only the (2 G chunk)-wide
+// planes reach device memory. K4 takes bf16 and int8 tables (the f32 table
+// serves stream_exact, which never fuses) up to d = 12,288.
+//
+// Bound on the H100: bytes. A task reads at most chunk * d * itemsize bytes
+// of table (64 KB at chunk 256, d 128, bf16; 32 KB int8; 128 KB f32), K4
+// only its valid rows, for 2 FLOPs per element - at most 2 FLOP/byte, far
+// below the card's ~20 FLOP/byte f32 balance, so 3.35 TB/s is the
+// roofline. K2 keeps its first, simple design (no prefetch, 2-byte or
+// 1-byte lane reads).
+#include <numeric>
+
 #include "common.cuh"
 
 namespace {
@@ -102,26 +110,104 @@ __global__ void __launch_bounds__(THREADS) stream_distances_kernel(
   }
 }
 
-template <bool L2, typename T>
-__global__ void __launch_bounds__(THREADS) stream_fused_plane_kernel(
+// ---- K4 -------------------------------------------------------------------
+
+constexpr int K4_CONSUMERS = 256;              // 8 consumer warps
+constexpr int K4_THREADS = K4_CONSUMERS + 32;  // + one producer warp
+constexpr int K4_STAGE_TARGET = 16 * 1024;     // bytes per staged sub-block
+constexpr int K4_STAGES = 4;
+constexpr int K4_SMEM_LIMIT = 232448;          // a block's dynamic shared memory on sm_90
+
+// q_c . (the 16 stored bytes of chunk c of a row): 8 bf16 or 16 int8 values,
+// widened exactly, f32 FMAs in element order. VEC reads the chunk as one
+// 16-byte word (rows of a multiple of 16 bytes); otherwise element by
+// element, dropping elements past d.
+template <bool VEC>
+__device__ __forceinline__ float chunk_dot(const float (&qc)[8], const uint8_t* row, int c,
+                                           int d, __nv_bfloat16) {
+  float acc = 0.f;
+  if (VEC) {
+    const uint4 v = *reinterpret_cast<const uint4*>(row + c * 16);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc = fmaf(qc[2 * i], __uint_as_float(w[i] << 16), acc);
+      acc = fmaf(qc[2 * i + 1], __uint_as_float(w[i] & 0xffff0000u), acc);
+    }
+  } else {
+    const __nv_bfloat16* r = reinterpret_cast<const __nv_bfloat16*>(row);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (c * 8 + e < d) acc = fmaf(qc[e], vitorch::widen(r[c * 8 + e]), acc);
+  }
+  return acc;
+}
+
+template <bool VEC>
+__device__ __forceinline__ float chunk_dot(const float (&qc)[16], const uint8_t* row, int c,
+                                           int d, int8_t) {
+  float acc = 0.f;
+  if (VEC) {
+    const uint4 v = *reinterpret_cast<const uint4*>(row + c * 16);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        acc = fmaf(qc[4 * i + b],
+                   static_cast<float>(static_cast<int>(w[i] << (24 - 8 * b)) >> 24), acc);
+  } else {
+    const int8_t* r = reinterpret_cast<const int8_t*>(row);
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      if (c * 16 + e < d) acc = fmaf(qc[e], static_cast<float>(r[c * 16 + e]), acc);
+  }
+  return acc;
+}
+
+// One block per (query, group g): the group's slots s = f * t_sub + u
+// (f = g mod G) in the reference's order, u outer, f inner. A producer warp
+// streams each slot's valid rows (rounded up to `row_align`) in sub-blocks
+// of `sub_rows` rows by cp.async.bulk into a ring of K4_STAGES stages;
+// eight consumer warps score each staged sub-block, `lpr` lanes per row
+// (NCH 16-byte chunks of the row per lane, q - c for those chunks in
+// registers, computed once per slot; NCH = 0: the wide mode, every 32nd
+// chunk per lane, q - c read from shared memory), reduce each row's dot
+// across its lanes with shuffles, and the row's first lane folds the
+// distance into that lane's (best, second) pair in shared memory. A row
+// index always maps to the same thread, so the pairs need no barrier.
+template <bool L2, typename T, int NCH, bool VEC>
+__global__ void __launch_bounds__(K4_THREADS, NCH == 4 ? 1 : 2) stream_fused_plane_kernel(
     const float* __restrict__ queries, const float* __restrict__ cent,
     const int* __restrict__ cid2d, const int* __restrict__ blk2d,
     const int* __restrict__ nval2d, const float* __restrict__ bias2d,
     const T* __restrict__ vecs, const float* __restrict__ norms,
-    const float* __restrict__ scales, int t_fixed, int t_sub, int chunk, int groups,
-    int d, float* __restrict__ dist_plane, int* __restrict__ slot_plane) {
-  extern __shared__ float smem[];
-  const int width = groups * chunk;
-  float* qc_s = smem;               // d
-  float* dist_s = qc_s + d;         // chunk
-  float* best_v = dist_s + chunk;   // width
-  float* second_v = best_v + width; // width
-  int* best_s = reinterpret_cast<int*>(second_v + width);  // width
-  int* second_s = best_s + width;                           // width
+    const float* __restrict__ scales, int t_fixed, int t_sub, int chunk, int groups, int d,
+    int lpr, int sub_rows, int row_align, int stage_bytes, float* __restrict__ dist_plane,
+    int* __restrict__ slot_plane) {
+  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+  extern __shared__ __align__(128) uint8_t smem_k4[];
+  uint8_t* ring = smem_k4;
+  float* best_v = reinterpret_cast<float*>(ring + K4_STAGES * stage_bytes);  // chunk each
+  float* second_v = best_v + chunk;
+  int* best_s = reinterpret_cast<int*>(second_v + chunk);
+  int* second_s = best_s + chunk;
+  uint64_t* full = reinterpret_cast<uint64_t*>(second_s + chunk);
+  uint64_t* empty = full + K4_STAGES;
+  float* qc_s = reinterpret_cast<float*>(empty + K4_STAGES);  // wide: 2 x (cpr * EPC) floats
 
-  const int q = blockIdx.x;
+  const int q = blockIdx.x, g = blockIdx.y;
   const int fan = t_fixed / t_sub;
-  for (int e = threadIdx.x; e < width; e += blockDim.x) {
+  const size_t row_bytes = static_cast<size_t>(d) * sizeof(T);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    for (int s = 0; s < K4_STAGES; ++s) {
+      vitorch::mbar_init(&full[s], 1);
+      vitorch::mbar_init(&empty[s], K4_CONSUMERS / 32);
+    }
+    vitorch::mbar_init_fence();
+  }
+  for (int e = tid; e < chunk; e += K4_THREADS) {
     best_v[e] = vitorch::inf_f();
     second_v[e] = vitorch::inf_f();
     best_s[e] = -1;
@@ -129,53 +215,145 @@ __global__ void __launch_bounds__(THREADS) stream_fused_plane_kernel(
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp == K4_CONSUMERS / 32) {
+    // ---- producer: one thread streams the group's slots, in fold order ----
+    if (lane == 0) {
+      int n = 0;
+      for (int u = 0; u < t_sub; ++u) {
+        for (int f = g; f < fan; f += groups) {
+          const size_t task = static_cast<size_t>(q) * t_fixed + f * t_sub + u;
+          const int nval = nval2d[task];
+          if (nval <= 0) continue;  // an empty slot folds to nothing
+          // row_align rows are a 16-byte multiple; chunk % 16 == 0 keeps
+          // the rounded count inside the block.
+          const int rows_a = (nval + row_align - 1) / row_align * row_align;
+          const uint8_t* src = reinterpret_cast<const uint8_t*>(vecs) +
+                               static_cast<size_t>(blk2d[task]) * chunk * row_bytes;
+          for (int r0 = 0; r0 < nval; r0 += sub_rows, ++n) {
+            const int st = n % K4_STAGES;
+            if (n >= K4_STAGES) vitorch::mbar_wait(&empty[st], ((n / K4_STAGES) - 1) & 1);
+            const int nr = min(sub_rows, rows_a - r0);
+            const uint32_t bytes = static_cast<uint32_t>(nr * row_bytes);
+            vitorch::mbar_expect_tx(&full[st], bytes);
+            vitorch::bulk_copy_g2s(ring + st * stage_bytes, src + r0 * row_bytes, bytes, &full[st]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ------------------------------------------------------------
+  const int li = lane % lpr;                       // lane within the row's lanes
+  const int rpw = 32 / lpr;                        // rows per warp per pass
+  const int rpp = (K4_CONSUMERS / 32) * rpw;       // rows per pass
+  const int my_row = warp * rpw + lane / lpr;      // this lane's row within a pass
+  const int cpr = (d + EPC - 1) / EPC;             // 16-byte chunks per row
+  int n = 0, slots = 0;
   for (int u = 0; u < t_sub; ++u) {
-    for (int f = 0; f < fan; ++f) {
+    for (int f = g; f < fan; f += groups) {
       const int s = f * t_sub + u;
-      const size_t task = (size_t)q * t_fixed + s;
+      const size_t task = static_cast<size_t>(q) * t_fixed + s;
       const int nval = nval2d[task];
-      // Lanes at or past nval are +inf in the reference, and an inf never
-      // displaces a plane entry: an empty slot folds to nothing. (nval is
-      // uniform across the block, so every thread skips together.)
       if (nval <= 0) continue;
       const int cid = cid2d[task];
-      load_qc<L2>(qc_s, queries, cent, q, cid, d);
-      __syncthreads();
-      const size_t base = (size_t)blk2d[task] * chunk;
       const float bias = bias2d[task];
       const float scl = vitorch::row_scale<T>(scales, cid);
-      for (int l = warp; l < nval; l += THREADS / 32) {
-        const size_t srow = base + l;
-        const float dot = row_dot(qc_s, vecs + srow * d, d, lane) * scl;
-        if (lane == 0) dist_s[l] = task_distance<L2>(bias, dot, norms[srow]);
-      }
-      __syncthreads();
-      const int off = (f % groups) * chunk;
-      for (int l = threadIdx.x; l < nval; l += blockDim.x) {
-        const float dv = dist_s[l];
-        const int e = off + l;
-        const float b = best_v[e];
-        const int bi = best_s[e];
-        const bool better = dv < b;
-        const float disp = better ? b : dv;   // the displaced candidate
-        const int disp_i = better ? bi : s;
-        if (better) {
-          best_v[e] = dv;
-          best_s[e] = s;
+      const size_t base = static_cast<size_t>(blk2d[task]) * chunk;
+      float qc[NCH > 0 ? NCH : 1][EPC];  // q - c (l2) or q (ip) on this lane's chunks
+      // Wide mode: q - c of this slot in shared memory, one buffer per slot
+      // parity. A warp writes slot n's buffer only after every warp has
+      // passed slot n - 1's barrier, so none still reads slot n - 2's.
+      float* qcw = qc_s + (slots++ & 1) * (cpr * EPC);
+      if constexpr (NCH == 0) {
+        for (int k = tid; k < cpr * EPC; k += K4_CONSUMERS) {
+          float v = 0.f;
+          if (k < d) {
+            v = queries[static_cast<size_t>(q) * d + k];
+            if (L2) v -= cent[static_cast<size_t>(cid) * d + k];
+          }
+          qcw[k] = v;
         }
-        if (disp < second_v[e]) {
-          second_v[e] = disp;
-          second_s[e] = disp_i;
+        vitorch::named_bar_sync(1, K4_CONSUMERS);
+      } else {
+#pragma unroll
+        for (int m = 0; m < NCH; ++m) {
+          const int c = li + m * lpr;
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) {
+            const int k = c * EPC + e;
+            float v = 0.f;
+            if (c < cpr && k < d) {
+              v = queries[static_cast<size_t>(q) * d + k];
+              if (L2) v -= cent[static_cast<size_t>(cid) * d + k];
+            }
+            qc[m][e] = v;
+          }
         }
       }
-      __syncthreads();  // dist_s and qc_s are rewritten by the next task
+      for (int r0 = 0; r0 < nval; r0 += sub_rows, ++n) {
+        const int st = n % K4_STAGES;
+        vitorch::mbar_wait(&full[st], (n / K4_STAGES) & 1);
+        const uint8_t* buf = ring + st * stage_bytes;
+        const int nr = min(sub_rows, nval - r0);
+        for (int b = 0; b < nr; b += rpp) {  // uniform across the warp
+          const int rl = b + my_row;
+          const bool ok = rl < nr;
+          float dot = 0.f;
+          if (ok) {
+            const uint8_t* row = buf + rl * row_bytes;
+            if constexpr (NCH == 0) {
+              for (int c = li; c < cpr; c += lpr) {
+                float qv[EPC];
+#pragma unroll
+                for (int e = 0; e < EPC; e += 4) {
+                  const float4 f = *reinterpret_cast<const float4*>(qcw + c * EPC + e);
+                  qv[e] = f.x;
+                  qv[e + 1] = f.y;
+                  qv[e + 2] = f.z;
+                  qv[e + 3] = f.w;
+                }
+                dot += chunk_dot<VEC>(qv, row, c, d, T());
+              }
+            } else {
+#pragma unroll
+              for (int m = 0; m < NCH; ++m) {
+                const int c = li + m * lpr;
+                if (c < cpr) dot += chunk_dot<VEC>(qc[m], row, c, d, T());
+              }
+            }
+          }
+          for (int off = lpr >> 1; off > 0; off >>= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          if (ok && li == 0) {
+            const int l = r0 + rl;
+            const float dv = task_distance<L2>(bias, dot * scl, norms[base + l]);
+            const float bv = best_v[l];
+            const int bi = best_s[l];
+            const bool better = dv < bv;
+            const float disp = better ? bv : dv;  // the displaced candidate
+            const int disp_i = better ? bi : s;
+            if (better) {
+              best_v[l] = dv;
+              best_s[l] = s;
+            }
+            if (disp < second_v[l]) {
+              second_v[l] = disp;
+              second_s[l] = disp_i;
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) vitorch::mbar_arrive(&empty[st]);  // this warp is done with the stage
+      }
     }
   }
 
-  float* dp = dist_plane + (size_t)q * 2 * width;
-  int* sp = slot_plane + (size_t)q * 2 * width;
-  for (int e = threadIdx.x; e < width; e += blockDim.x) {
+  vitorch::named_bar_sync(1, K4_CONSUMERS);
+  const int width = groups * chunk;
+  float* dp = dist_plane + static_cast<size_t>(q) * 2 * width + static_cast<size_t>(g) * chunk;
+  int* sp = slot_plane + static_cast<size_t>(q) * 2 * width + static_cast<size_t>(g) * chunk;
+  for (int e = tid; e < chunk; e += K4_CONSUMERS) {
     dp[e] = best_v[e];
     dp[width + e] = second_v[e];
     sp[e] = best_s[e];
@@ -197,28 +375,76 @@ void launch_distances(const void* queries, const void* cent, const void* cid2d,
       d, static_cast<float*>(out));
 }
 
+template <bool L2, typename T, int NCH, bool VEC>
+int launch_fused_mode(dim3 grid, size_t smem, cudaStream_t st, const void* queries,
+                      const void* cent, const void* cid2d, const void* blk2d,
+                      const void* nval2d, const void* bias2d, const void* vecs,
+                      const void* norms, const void* scales, int t_fixed, int t_sub,
+                      int chunk, int groups, int d, int lpr, int sub_rows, int row_align,
+                      int stage_bytes, void* dist_plane, void* slot_plane) {
+  auto kern = stream_fused_plane_kernel<L2, T, NCH, VEC>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kern<<<grid, K4_THREADS, smem, st>>>(
+      static_cast<const float*>(queries), static_cast<const float*>(cent),
+      static_cast<const int*>(cid2d), static_cast<const int*>(blk2d),
+      static_cast<const int*>(nval2d), static_cast<const float*>(bias2d),
+      static_cast<const T*>(vecs), static_cast<const float*>(norms),
+      static_cast<const float*>(scales), t_fixed, t_sub, chunk, groups, d, lpr, sub_rows,
+      row_align, stage_bytes, static_cast<float*>(dist_plane), static_cast<int*>(slot_plane));
+  return 0;
+}
+
 template <bool L2, typename T>
 int launch_fused(const void* queries, const void* cent, const void* cid2d,
                  const void* blk2d, const void* nval2d, const void* bias2d,
                  const void* vecs, const void* norms, const void* scales, int nq,
                  int t_fixed, int t_sub, int chunk, int groups, int d, void* dist_plane,
                  void* slot_plane, cudaStream_t st) {
-  const int width = groups * chunk;
-  const size_t smem = sizeof(float) * ((size_t)d + chunk + 4 * (size_t)width);
-  auto kern = stream_fused_plane_kernel<L2, T>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int EPC = 16 / sizeof(T);
+  const int cpr = (d + EPC - 1) / EPC;
+  if (chunk % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // Up to 4 chunks per lane in registers for bf16 rows and 2 for int8 (16
+  // values each), d <= 1024 either way; wider rows take the wide mode (0).
+  const int nch = cpr <= 32 ? 1 : cpr <= 64 ? 2 : cpr <= 128 && sizeof(T) == 2 ? 4 : 0;
+  int lpr = 32;  // lanes per row: a power of two covering the row's chunks
+  if (nch > 0) {
+    lpr = 1;
+    while (lpr * nch < cpr) lpr <<= 1;
   }
-  kern<<<dim3(nq), THREADS, smem, st>>>(
-      static_cast<const float*>(queries), static_cast<const float*>(cent),
-      static_cast<const int*>(cid2d), static_cast<const int*>(blk2d),
-      static_cast<const int*>(nval2d), static_cast<const float*>(bias2d),
-      static_cast<const T*>(vecs), static_cast<const float*>(norms),
-      static_cast<const float*>(scales), t_fixed, t_sub, chunk, groups, d,
-      static_cast<float*>(dist_plane), static_cast<int*>(slot_plane));
-  return 0;
+  const size_t row_bytes = static_cast<size_t>(d) * sizeof(T);
+  // Sub-blocks of ~16 KB. Register modes: a multiple of 16 rows (a 16-byte
+  // multiple at any d). Wide mode: a multiple of the fewest rows that are.
+  int row_align = 16, sub_rows;
+  if (nch > 0) {
+    sub_rows = static_cast<int>(K4_STAGE_TARGET / row_bytes) & ~15;
+    sub_rows = sub_rows < 16 ? 16 : sub_rows;
+  } else {
+    row_align = static_cast<int>(16 / std::gcd(row_bytes, static_cast<size_t>(16)));
+    sub_rows = static_cast<int>(K4_STAGE_TARGET / row_bytes) / row_align * row_align;
+    sub_rows = sub_rows < row_align ? row_align : sub_rows;
+  }
+  sub_rows = sub_rows > chunk ? chunk : sub_rows;
+  const int stage_bytes = static_cast<int>((sub_rows * row_bytes + 127) & ~static_cast<size_t>(127));
+  const size_t smem = static_cast<size_t>(K4_STAGES) * stage_bytes + 16 * static_cast<size_t>(chunk) +
+                      2 * K4_STAGES * sizeof(uint64_t) +
+                      (nch > 0 ? 0 : 2 * sizeof(float) * static_cast<size_t>(cpr) * EPC);
+  if (smem > static_cast<size_t>(K4_SMEM_LIMIT)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = row_bytes % 16 == 0;
+  const dim3 grid(nq, groups);
+#define VITORCH_K4_MODE(NCH, VEC)                                                                \
+  launch_fused_mode<L2, T, NCH, VEC>(grid, smem, st, queries, cent, cid2d, blk2d, nval2d, bias2d, \
+                                     vecs, norms, scales, t_fixed, t_sub, chunk, groups, d, lpr, \
+                                     sub_rows, row_align, stage_bytes, dist_plane, slot_plane)
+  if (nch == 1) return vec ? VITORCH_K4_MODE(1, true) : VITORCH_K4_MODE(1, false);
+  if (nch == 2) return vec ? VITORCH_K4_MODE(2, true) : VITORCH_K4_MODE(2, false);
+  if (nch == 0) return vec ? VITORCH_K4_MODE(0, true) : VITORCH_K4_MODE(0, false);
+  if constexpr (sizeof(T) == 2) return vec ? VITORCH_K4_MODE(4, true) : VITORCH_K4_MODE(4, false);
+  return static_cast<int>(cudaErrorInvalidValue);
+#undef VITORCH_K4_MODE
 }
 
 }  // namespace

@@ -129,17 +129,37 @@ def stream_program(queries, centroids, c_sq, table, *, k: int, n_probe: int,
     return _narrow(dvals, rows, k)
 
 
-def _block_mask(queries, centroids_ord, c_sq_ord, block_run, n_probe: int):
-    """(q, n_blocks) bool probe mask over 8-row blocks. A cluster is probed
-    when its coarse distance is <= the n_probe-th smallest (ties all
-    probed); each block takes its run's membership. ``block_run`` maps a
-    block to the last run starting at or before it (-1: none), which is what
-    the reference's scattered run-start deltas + prefix sum evaluate to."""
+def _probe_sets(queries, centroids_ord, c_sq_ord, n_probe: int):
+    """(q, kc) bool probe sets in layout-run order, and each query's nearest
+    cluster (its run index). A cluster is probed when its coarse distance
+    is <= the n_probe-th smallest (ties all probed)."""
     dcoarse = score(queries, centroids_ord, c_sq_ord, sq_norms(queries), "l2")
     thresh = torch.kthvalue(dcoarse, n_probe, dim=1, keepdim=True).values
-    s_ord = dcoarse <= thresh  # (q, kc) in layout-run order
-    mask = s_ord[:, block_run.clamp_min(0)]
-    return mask & (block_run >= 0)[None, :]
+    return dcoarse <= thresh, torch.argmin(dcoarse, dim=1)
+
+
+def _expand_mask(s_ord, block_run):
+    """(q, n_blocks) bool mask over 8-row blocks: each block takes its run's
+    membership. ``block_run`` maps a block to the last run starting at or
+    before it (-1: none), which is what the reference's scattered run-start
+    deltas + prefix sum evaluate to."""
+    return s_ord[:, block_run.clamp_min(0)] & (block_run >= 0)[None, :]
+
+
+def _block_mask(queries, centroids_ord, c_sq_ord, block_run, n_probe: int):
+    """(q, n_blocks) bool probe mask over 8-row blocks."""
+    return _expand_mask(_probe_sets(queries, centroids_ord, c_sq_ord, n_probe)[0], block_run)
+
+
+def _sweep_mask(s_ord, block_run, mcols: int):
+    """``_expand_mask`` padded with unprobed blocks to ``mcols`` columns (the
+    sweep's whole steps), built by one gather: blocks of no run and the
+    padding read an appended all-False column."""
+    kc = s_ord.shape[1]
+    cols = torch.full((mcols,), kc, dtype=torch.long, device=s_ord.device)
+    nb = block_run.shape[0]
+    cols[:nb] = torch.where(block_run >= 0, block_run, kc)
+    return torch.cat([s_ord, s_ord.new_zeros((s_ord.shape[0], 1))], dim=1)[:, cols]
 
 
 def _plane_topk(vals, rows, qt, k: int, metric: str):
@@ -169,21 +189,29 @@ def dense_fused_program(queries, centroids_ord, c_sq_ord, vectors, row_norms,
                         w: int, c_groups: int, metric: str, precision: str = "highest"):
     """Masked dense sweep through kernel K3. ``precision`` 'int8' /
     'int8x1' sweeps the int8 codes ``vectors`` with ``scale_row`` (and
-    ``vec_resid`` for 'int8'); norms stay the f32 table's."""
-    n_pad = vectors.shape[0]
-    nb = n_pad // ALIGN
+    ``vec_resid`` for 'int8'); norms stay the f32 table's.
+
+    Each launch sweeps its queries sorted by their nearest probe (stable),
+    so that the queries of one 64-query kernel tile share probes and the
+    kernel skips the table tiles none of them probes; the results are put
+    back in arrival order. Each query's result depends only on its own row
+    and mask, so the output is the same as in arrival order."""
     NB = S * w
-    mcols = -(-n_pad // NB) * NB // ALIGN
+    mcols = -(-vectors.shape[0] // NB) * NB // ALIGN
     parts = []
     for s in range(0, queries.shape[0], SWEEP_Q_TILE):
         qt = queries[s : s + SWEEP_Q_TILE]
-        mask = torch.zeros((qt.shape[0], mcols), dtype=torch.bool, device=qt.device)
-        mask[:, :nb] = _block_mask(qt, centroids_ord, c_sq_ord, block_run, n_probe)
+        s_ord, nearest = _probe_sets(qt, centroids_ord, c_sq_ord, n_probe)
+        perm = torch.argsort(nearest, stable=True)
+        qt, s_ord = qt[perm], s_ord[perm]
+        mask = _sweep_mask(s_ord, block_run, mcols)
         vals, rows = flat_sweep_topk_plane(
             qt, vectors, row_norms, mask, vec_resid, scale_row, metric=metric, w=w,
             c_groups=c_groups, precision=precision,
         )
-        parts.append(_plane_topk(vals, rows, qt, k, metric))
+        dv, rv = _plane_topk(vals, rows, qt, k, metric)
+        parts.append((dv.new_empty(dv.shape).index_copy_(0, perm, dv),  # arrival order
+                      rv.new_empty(rv.shape).index_copy_(0, perm, rv)))
     return _cat(parts)
 
 

@@ -69,14 +69,17 @@ _SIGNATURES = {
     "vitorch_stream_shared_plane": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
-    # q (or q8), qr8, sq, x (or x8), r8, scales, norms, mask, nq, n_rows, d,
-    # w, c_groups, mcols, is_l2, precision, v1, i1, v2, i2, stream
+    # q (or q8), qr8, sq, x (or x8), r8, scales, norms, mask, tile_any, nq,
+    # n_rows, d, w, c_groups, splits, mcols, tcols, is_l2, precision, qsplit,
+    # part, vals, rows, stream
     "vitorch_flat_sweep_topk_plane": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P,
     ),
-    # q, x, norms, mask, nq, n_rows, d, w, mcols, is_l2, vals, rows, stream
+    # q, x, norms, mask, tile_any, nq, n_rows, d, w, mcols, tcols, is_l2,
+    # qsplit, vals, rows, stream
     "vitorch_flat_sweep_minreduce": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
     ),
     # q, vectors, starts, lengths, offs, nq, p, d, max_len_pad, width,
     # is_l2, dist, rows, stream

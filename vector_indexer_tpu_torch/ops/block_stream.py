@@ -40,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import build as kb
 from .gather import quantize_up
 from .topk import topk_smallest
@@ -223,7 +224,7 @@ def build_stream_table_host(layout, centroids, dtype: torch.dtype = torch.int8,
     summation order. (numpy has no bf16: that cast goes through a CPU
     tensor.)"""
     _check_dtype(dtype)
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = resolve_device(device)
     vecs_host = np.asarray(layout.vectors)
     d = layout.dim
     main_pad_row = vecs_host.shape[0] - 1
@@ -469,6 +470,12 @@ def stream_fused_plane_reference(queries, cent, cid2d, blk2d, nval2d, bias2d, ve
     )
 
 
+# K4's widest row (at chunk <= 1024): its shared memory holds a ring of
+# >= 16 KB sub-blocks and, past d 1024, q - c for two slots
+# (csrc/block_stream.cu).
+K4_MAX_D = 12288
+
+
 def stream_fused_plane(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms,
                        *, chunk: int, groups: int, metric: str, scales=None):
     """K4 (bf16 and int8 tables). CPU tensors -> plain version; CUDA
@@ -484,6 +491,8 @@ def stream_fused_plane(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms,
     if t_fixed % FAN:
         raise ValueError(f"stream_fused_plane: t_fixed must be a multiple of {FAN}")
     d = queries.shape[1]
+    if d > K4_MAX_D or chunk % 16:
+        raise ValueError(f"stream_fused_plane kernel: d <= {K4_MAX_D} and chunk % 16 == 0")
     i32 = torch.int32
     args = [queries.contiguous(), cent.contiguous(), cid2d.to(i32).contiguous(),
             blk2d.to(i32).contiguous(), nval2d.to(i32).contiguous(),

@@ -33,6 +33,14 @@ evaluates it on the CPU, bit for bit: ``/127`` is a multiplication by
 float32(1/127), and the residuals ``v - x8*s`` and ``q - q8*sq`` are one
 fused multiply-add (emulated exactly in float64 here).
 
+The kernel (``csrc/flat_sweep.cu``) runs the product on the tensor cores
+and spreads each group's steps over ``sweep_splits`` blocks; the splits'
+planes are merged in ascending split order (``merge_top2_planes`` is the
+plain version of that merge), which gives the sequential fold's planes.
+It takes any d whose rows are whole 16-byte units (f32 d % 4 == 0, int8
+d % 16 == 0): the query tile stays in shared memory where it fits and
+streams beside the table panels at larger d.
+
 ``plan_fused``, ``pick_window`` and ``pick_groups`` are the reference's
 sizing rules, copied unchanged (the VMEM budget in ``plan_fused`` decides
 whether the fused route is taken at all, so the port keeps it until the
@@ -56,6 +64,7 @@ SHIFT = 64
 INT8_MAX_D = 2048
 assert (SHIFT * 127 + 2 * (SHIFT // 2)) * 127 * INT8_MAX_D < 2**31
 _INV127 = float(np.float32(1.0 / 127.0))  # XLA's rewrite of '/ 127.0'
+_QT = 64  # queries per kernel block (the mask's tile OR)
 _QUANT_ROWS = 1 << 16  # table rows quantized per batch (bounds the f64 copy)
 
 
@@ -67,9 +76,11 @@ def _residual(v: torch.Tensor, x8: torch.Tensor, s: torch.Tensor) -> torch.Tenso
 
 def _scale(v: torch.Tensor) -> torch.Tensor:
     """Per-row symmetric int8 scale max|row| / 127 (1e-30 guard), as a
-    (rows, 1) f32 column."""
+    (rows, 1) f32 column. The factor is an f32 value, so the Python scalar
+    multiplies in f32 exactly as an f32 tensor would, without a host-to-
+    device copy (which would wait for the stream)."""
     ax = v.abs().amax(dim=1, keepdim=True)
-    return ax.clamp_min(1e-30) * torch.tensor(_INV127, dtype=torch.float32, device=v.device)
+    return ax.clamp_min(1e-30) * _INV127
 
 
 def quantize_table_int8(vectors: torch.Tensor):
@@ -156,6 +167,42 @@ def plan_fused(n_rows: int, d: int, nq: int, k: int, precision: str = "highest")
     return None
 
 
+def _kernel_rows_ok(d: int, precision: str) -> None:
+    """The kernel reads rows by TMA, whose row stride is a multiple of 16
+    bytes."""
+    if d <= 0 or d * (4 if precision == "highest" else 1) % 16:
+        raise ValueError(f"flat sweep kernel: d = {d} in precision {precision!r} is not a "
+                         "whole number of 16-byte units")
+
+
+def sweep_splits(nq: int, n_rows: int, w: int, c_groups: int, sms: int) -> int:
+    """Blocks per group over which the kernel spreads a group's steps: two
+    waves of one block per SM, at most one block per step. (At nq 256 this
+    makes the sweep ~3x faster than one block per group; at nq 1000 it is
+    within 2% either way; PERF.md.)"""
+    blocks = -(-nq // _QT) * c_groups
+    steps = -(-(-(-n_rows // (S * w))) // c_groups)  # steps of group 0, the most
+    return max(1, min(-(-2 * sms // blocks), steps))
+
+
+def merge_top2_planes(parts):
+    """Plain version of the kernel's merge: fold each later split's best,
+    then its second, into the first split's (best, second) pairs with
+    strict '<'. ``parts``: [(vals (nq, 2 cs), rows (nq, 2 cs)), ...] in
+    ascending split order. The fold keeps the two smallest values under
+    the order (value, position), and every split's positions precede the
+    next split's, so this equals the sequential fold over all steps, rows
+    included."""
+    vals, rows = parts[0]
+    cs = vals.shape[1] // 2
+    state = (vals[:, :cs], rows[:, :cs], vals[:, cs:], rows[:, cs:])
+    for pv, pr in parts[1:]:
+        state = _fold(*state, pv[:, :cs], pr[:, :cs])
+        state = _fold(*state, pv[:, cs:], pr[:, cs:])
+    b1, r1, b2, r2 = state
+    return torch.cat([b1, b2], dim=1), torch.cat([r1, r2], dim=1)
+
+
 def _check(queries, vectors, row_norms, mask_b, vec_resid, scale_row, w: int, precision: str):
     if precision not in PRECISIONS:
         raise ValueError(f"flat sweep precision must be one of {PRECISIONS}, got {precision!r}")
@@ -233,33 +280,50 @@ def _window_minima(queries, vectors, row_norms, mask_b, vec_resid, scale_row, *,
         yield j0, wv, base + wj.to(torch.int32) * S + lane
 
 
+def _fold(b1, r1, b2, r2, val, row):
+    """One fold step: candidates (val, row) enter the (best, second) pairs
+    (b1, r1), (b2, r2) with strict '<', the displaced best falling through
+    to second. -> the updated (b1, r1, b2, r2)."""
+    better = val < b1
+    lv = torch.where(better, b1, val)
+    li = torch.where(better, r1, row)
+    sec = lv < b2
+    return (torch.where(better, val, b1), torch.where(better, row, r1),
+            torch.where(sec, lv, b2), torch.where(sec, li, r2))
+
+
+def _fold_minima(v1, i1, v2, i2, j, val, row):
+    """Fold step j's window minima (val, row: (nq, 128)) into group planes
+    (v1, i1, v2, i2: (nq, C, 128)) in place."""
+    g = j % v1.shape[1]
+    v1[:, g], i1[:, g], v2[:, g], i2[:, g] = _fold(v1[:, g], i1[:, g], v2[:, g], i2[:, g],
+                                                   val, row)
+
+
+def _empty_planes(nq: int, c_groups: int, dev):
+    v1 = torch.full((nq, c_groups, S), float("inf"), device=dev)
+    i1 = torch.full((nq, c_groups, S), -1, dtype=torch.int32, device=dev)
+    return v1, i1, v1.clone(), i1.clone()
+
+
+def _planes_out(v1, i1, v2, i2):
+    nq = v1.shape[0]
+    return (torch.cat([v1.reshape(nq, -1), v2.reshape(nq, -1)], dim=1),
+            torch.cat([i1.reshape(nq, -1), i2.reshape(nq, -1)], dim=1))
+
+
 def flat_sweep_topk_plane_reference(queries, vectors, row_norms, mask_b=None, vec_resid=None,
                                     scale_row=None, *, metric: str = "l2", w: int = 8,
                                     c_groups: int = 8, precision: str = "highest"):
     """Plain version of K3: the window minima of ``_window_minima`` folded
     step by step in ascending j."""
     _check(queries, vectors, row_norms, mask_b, vec_resid, scale_row, w, precision)
-    nq = queries.shape[0]
-    dev = queries.device
-    v1 = torch.full((nq, c_groups, S), float("inf"), device=dev)
-    i1 = torch.full((nq, c_groups, S), -1, dtype=torch.int32, device=dev)
-    v2, i2 = v1.clone(), i1.clone()
+    planes = _empty_planes(queries.shape[0], c_groups, queries.device)
     for j0, wv, wrow in _window_minima(queries, vectors, row_norms, mask_b, vec_resid,
                                        scale_row, metric=metric, w=w, precision=precision):
         for jl in range(wv.shape[1]):
-            g = (j0 + jl) % c_groups
-            val, row = wv[:, jl], wrow[:, jl]
-            b1 = val < v1[:, g]
-            lv = torch.where(b1, v1[:, g], val)
-            li = torch.where(b1, i1[:, g], row)
-            v1[:, g] = torch.where(b1, val, v1[:, g])
-            i1[:, g] = torch.where(b1, row, i1[:, g])
-            b2 = lv < v2[:, g]
-            v2[:, g] = torch.where(b2, lv, v2[:, g])
-            i2[:, g] = torch.where(b2, li, i2[:, g])
-    vals = torch.cat([v1.reshape(nq, -1), v2.reshape(nq, -1)], dim=1)
-    rows = torch.cat([i1.reshape(nq, -1), i2.reshape(nq, -1)], dim=1)
-    return vals, rows
+            _fold_minima(*planes, j0 + jl, wv[:, jl], wrow[:, jl])
+    return _planes_out(*planes)
 
 
 def flat_sweep_topk_plane(queries, vectors, row_norms, mask_b=None, vec_resid=None,
@@ -279,13 +343,13 @@ def flat_sweep_topk_plane(queries, vectors, row_norms, mask_b=None, vec_resid=No
     _check(queries, vectors, row_norms, mask_b, vec_resid, scale_row, w, precision)
     nq, d = queries.shape
     n_rows = vectors.shape[0]
+    _kernel_rows_ok(d, precision)
     x, norms = vectors.contiguous(), row_norms.contiguous()
-    qr8 = sq = r8 = scales = None
+    qr8 = sq = r8 = scales = qsplit = None
     if precision == "highest":
         name, code, q = "flat_sweep_topk_plane", 0, queries.contiguous()
+        qsplit = torch.empty(2 * nq * d, dtype=torch.float32, device=q.device)
     else:
-        if d % 4:
-            raise ValueError("flat sweep int8 kernel: d must be a multiple of 4 (packed int8x4 dots)")
         name, code = f"flat_sweep_topk_plane[{precision}]", 1 if precision == "int8" else 2
         q, qr8, sq = quantize_queries_int8(queries)
         scales = scale_row.contiguous()
@@ -293,25 +357,53 @@ def flat_sweep_topk_plane(queries, vectors, row_norms, mask_b=None, vec_resid=No
             r8 = vec_resid.contiguous()
         else:
             qr8 = None
-    codes = [t for t in (q, x, qr8, r8) if t is not None and t.dtype == torch.int8]
-    if any(t.data_ptr() % 4 for t in codes):
-        raise ValueError("flat sweep int8 kernel: int8 rows must be 4-byte aligned")
-    mask = None if mask_b is None else mask_b.to(torch.bool).contiguous()
-    kb.require_cuda(name, *(t for t in (q, x, norms, qr8, sq, r8, scales, mask) if t is not None))
+    mask, tile_any = _masks(mask_b, nq, n_rows, w)
+    ops = [t for t in (q, x, norms, qr8, sq, r8, scales, mask, tile_any) if t is not None]
+    kb.require_cuda(name, *ops)
+    _check_aligned(q, x, qr8, r8, norms, scales, tile_any)
     cs = c_groups * S
     dev = queries.device
-    v1 = torch.empty((nq, cs), dtype=torch.float32, device=dev)
-    v2 = torch.empty_like(v1)
-    i1 = torch.empty((nq, cs), dtype=torch.int32, device=dev)
-    i2 = torch.empty_like(i1)
+    splits = sweep_splits(nq, n_rows, w, c_groups,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty(4 * splits * nq * cs, dtype=torch.int32, device=dev)
+    vals = torch.empty((nq, 2 * cs), dtype=torch.float32, device=dev)
+    rows = torch.empty((nq, 2 * cs), dtype=torch.int32, device=dev)
     kb.launch(
         name, "vitorch_flat_sweep_topk_plane",
         kb.ptr(q), kb.ptr(qr8), kb.ptr(sq), kb.ptr(x), kb.ptr(r8), kb.ptr(scales),
-        kb.ptr(norms), kb.ptr(mask), nq, n_rows, d, w, c_groups,
-        0 if mask is None else mask.shape[1], int(metric == "l2"), code,
-        kb.ptr(v1), kb.ptr(i1), kb.ptr(v2), kb.ptr(i2), kb.stream_of(v1),
+        kb.ptr(norms), kb.ptr(mask), kb.ptr(tile_any), nq, n_rows, d, w, c_groups, splits,
+        0 if mask is None else mask.shape[1], 0 if tile_any is None else tile_any.shape[1],
+        int(metric == "l2"), code, kb.ptr(qsplit), kb.ptr(part), kb.ptr(vals), kb.ptr(rows),
+        kb.stream_of(vals),
     )
-    return torch.cat([v1, v2], dim=1), torch.cat([i1, i2], dim=1)
+    return vals, rows
+
+
+def _check_aligned(*tensors):
+    """The operands the kernel reads by TMA or in 8- and 16-byte words."""
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError("flat sweep kernel: queries, table, norms, scales and tile mask "
+                         "must start 16-byte aligned")
+
+
+def _masks(mask_b, nq: int, n_rows: int, w: int):
+    """The kernel's masks: the (nq, mcols) byte mask, and its OR over each
+    64-query tile, (query tiles, nj * NB / 8) bytes, which lets the kernel
+    skip a table tile that no query of the block probes. (None, None) when
+    unmasked."""
+    if mask_b is None:
+        return None, None
+    mask = mask_b.to(torch.bool).contiguous()
+    if mask.shape[1] % 16 or mask.data_ptr() % 16:  # the kernel reads 8-byte words of rows
+        padded = mask.new_zeros((mask.shape[0], -(-mask.shape[1] // 16) * 16))
+        padded[:, : mask.shape[1]] = mask
+        mask = padded
+    cols = -(-n_rows // (S * w)) * S * w // MASK_ALIGN
+    nqt = -(-nq // _QT)
+    m = mask[:, :cols]
+    if nqt * _QT > nq:
+        m = torch.cat([m, m.new_zeros((nqt * _QT - nq, cols))])
+    return mask, m.reshape(nqt, _QT, cols).any(dim=1).to(torch.uint8).contiguous()
 
 
 def flat_sweep_minreduce_reference(queries, vectors, row_norms, mask_b=None, *,
@@ -333,8 +425,9 @@ def flat_sweep_minreduce_reference(queries, vectors, row_norms, mask_b=None, *,
 def flat_sweep_minreduce(queries, vectors, row_norms, mask_b=None, *, metric: str = "l2",
                          w: int = 8):
     """K7 -> (vals (nq, nj*128) f32, rows (nq, nj*128) int32): column
-    j*128 + c holds step j's window minimum of lane c (f32 table, exact
-    f32), +inf on masked and tail lanes. No serving path calls it (the
+    j*128 + c holds step j's window minimum of lane c (f32 table; the
+    kernel's cross term is 3xTF32, within the bound stated in
+    csrc/flat_sweep.cu of the f32 dot), +inf on masked and tail lanes. No serving path calls it (the
     reference keeps it for diagnostics); it is a mode of the K3 kernel
     that writes each step instead of folding it. CPU tensors -> plain
     version; CUDA tensors -> the kernel."""
@@ -344,19 +437,20 @@ def flat_sweep_minreduce(queries, vectors, row_norms, mask_b=None, *, metric: st
     _check(queries, vectors, row_norms, mask_b, None, None, w, "highest")
     nq, d = queries.shape
     n_rows = vectors.shape[0]
-    ops = [queries.contiguous(), vectors.contiguous(), row_norms.contiguous()]
-    mask = None
-    if mask_b is not None:
-        mask = mask_b.to(torch.bool).contiguous()
-        ops.append(mask)
+    _kernel_rows_ok(d, "highest")
+    q, x, norms = queries.contiguous(), vectors.contiguous(), row_norms.contiguous()
+    mask, tile_any = _masks(mask_b, nq, n_rows, w)
+    ops = [t for t in (q, x, norms, mask, tile_any) if t is not None]
     kb.require_cuda("flat_sweep_minreduce", *ops)
+    _check_aligned(q, x, norms, tile_any)
     width = -(-n_rows // (S * w)) * S
+    qsplit = torch.empty(2 * nq * d, dtype=torch.float32, device=queries.device)
     vals = torch.empty((nq, width), dtype=torch.float32, device=queries.device)
     rows = torch.empty((nq, width), dtype=torch.int32, device=queries.device)
     kb.launch(
         "flat_sweep_minreduce", "vitorch_flat_sweep_minreduce",
-        kb.ptr(ops[0]), kb.ptr(ops[1]), kb.ptr(ops[2]), kb.ptr(mask), nq, n_rows, d, w,
-        0 if mask is None else mask.shape[1], int(metric == "l2"),
-        kb.ptr(vals), kb.ptr(rows), kb.stream_of(vals),
+        kb.ptr(q), kb.ptr(x), kb.ptr(norms), kb.ptr(mask), kb.ptr(tile_any), nq, n_rows, d, w,
+        0 if mask is None else mask.shape[1], 0 if tile_any is None else tile_any.shape[1],
+        int(metric == "l2"), kb.ptr(qsplit), kb.ptr(vals), kb.ptr(rows), kb.stream_of(vals),
     )
     return vals, rows
