@@ -15,8 +15,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    flat_sweep_minreduce at w 32; K6 ivf_gather_distances at n_probe 32)
    vs its plain PyTorch version on the same device inputs at the paths'
    shapes, with the tolerance stated beside it; l2 timed with CUDA
-   events, ip checked. It first prints nvcc's register, shared-memory and
-   spill report for every instantiation of K3 and K4. Each kernel gets its
+   events (K1 and K2, whose wrappers take the host longer to issue than
+   the card to run, over a replayed CUDA graph of the calls, the event
+   loop beside it), ip checked; K2 with and without the slots' valid counts
+   (nval2d), K1 with at most 1e-3 of its labels different, each a
+   near-tie. It first prints nvcc's register, shared-memory and spill
+   report for every instantiation of K1, K2, K3 and K4. Each kernel gets its
    bound (the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type) and, where one PyTorch call
    computes its product, that call's time (``library_ms``).
@@ -26,11 +30,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    and K3; recall and the share of the exact top-100 returned, against an
    exact ground truth computed on the card; a single-query
    ``VectorIndexer.search_sync`` self-hit; the peak device memory. The launch counters are reset just before this phase and read
-   just after it: every kernel must have run inside it. Then K3 (f32 /
-   int8 / int8x1; masked at n_probe 128 with the dense program's query
-   order, and unmasked) and K4 (bf16 / int8, one query tile at n_probe 32)
-   are checked against their plain versions and timed at these shapes
-   (nq 1000 over the 1M table); the JSON line reports them. Then 200 of the
+   just after it: every kernel must have run inside it. Then K1 (the
+   build's final assignment, 1M x 4,000 x 128), K3 (f32 / int8 / int8x1;
+   masked at n_probe 128 with the dense program's query order, and
+   unmasked), K4 (bf16 / int8, one query tile at n_probe 32) and K2 bf16
+   (one query tile at n_probe 8, with and without nval2d) are checked
+   against their plain versions and timed at these shapes (nq 1000 over
+   the 1M table); the JSON line reports them. Then 200 of the
    queries are searched again on the CPU, where every kernel runs its
    plain version, at one n_probe per route and the largest: the card's
    results must agree rank by rank.
@@ -103,6 +109,12 @@ OFFLOAD_KERNELS = ("stream_distances[int8]", "stream_distances[f32]", "stream_fu
 PHASE6_KERNELS = ("flat_sweep_topk_plane[int8]", "flat_sweep_topk_plane[int8x1]",
                   "ivf_gather_distances")
 RTOL = 1e-5  # of the magnitude of the terms each distance is summed from
+# K1 (3xTF32): the share of points whose label may differ from the plain
+# version's exact f32 argmin (each one a near-tie, check_k1).
+K1_DIFF_SHARE = 1e-3
+# nvcc's register / spill report is printed for every instantiation of these.
+PTXAS_KERNELS = ("assign_argmin_kernel", "stream_distances_kernel", "flat_sweep_kernel",
+                 "stream_fused_plane_kernel")
 # Published peaks of one H100 SXM (dense, 700 W), for each kernel's bound:
 # the larger of its bytes over the memory rate and its operations over the
 # peak rate of their type (f32 outside the tensor cores; TF32 and s8 on them).
@@ -174,11 +186,43 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(torch, fn, reps: int = 20) -> float:
+    """Mean CUDA-event milliseconds of fn() over ``reps`` calls captured in
+    one CUDA graph and replayed (after one warm-up replay): the device time
+    of fn's launches without the host's time to issue them, which a loop
+    of calls measures instead once the host is the slower side."""
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s):
+            for _ in range(reps):
+                fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del g
+    return t0.elapsed_time(t1) / reps
+
+
 def bound(nbytes: float, ops: float, rate: float) -> dict:
     """The least time the card could take for a function that must move
     ``nbytes`` and do ``ops`` operations of a type peaking at ``rate``."""
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / rate * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def assign_bound(n: int, k: int, d: int) -> dict:
+    """K1: x and c read once, the (n,) scores and labels written; 2 n k d
+    operations three times over (3xTF32 on the tensor cores, as the kernel
+    computes them)."""
+    return bound((n + k) * d * 4 + n * 8, 3 * 2.0 * n * k * d, TF32_FLOP_S)
 
 
 def stream_bound(q, table, grid, out_bytes: int) -> dict:
@@ -308,19 +352,30 @@ def k4_args(q, table, grid):
             table.vecs, table.norms)
 
 
-def check_k2(q, table, grid, metric: str):
-    """K2 vs its plain version on the valid lanes. -> (ok, max |err|)."""
+def k2_kw(table, grid, metric: str, nval: bool) -> dict:
+    """K2's keywords; ``nval``: pass the slots' valid counts (the kernel
+    then reads only valid rows and writes +inf past them)."""
+    return dict(chunk=table.chunk, metric=metric, scales=table.scales,
+                nval2d=grid["nval"] if nval else None)
+
+
+def check_k2(q, table, grid, metric: str, nval: bool = False):
+    """K2 vs its plain version on the valid lanes (with ``nval``, also
+    +inf past each slot's valid count on both sides). -> (ok, max |err|)."""
     import torch
     from vector_indexer_tpu_torch.ops import block_stream as bs
 
     args = k2_args(q, table, grid)
-    kw = dict(chunk=table.chunk, metric=metric, scales=table.scales)
+    kw = k2_kw(table, grid, metric, nval)
     dist_k = bs.stream_distances(*args, **kw)
     dist_p = bs.stream_distances_reference(*args, **kw)
     torch.cuda.synchronize()
     valid = grid["valid"]
     err = (dist_k - dist_p).abs()[valid]
-    return bool((err <= RTOL * grid["term"][valid]).all()), float(err.max())
+    ok = bool((err <= RTOL * grid["term"][valid]).all())
+    if nval:
+        ok = ok and bool(torch.isinf(dist_k[~valid]).all()) and bool(torch.isinf(dist_p[~valid]).all())
+    return ok, float(err.max())
 
 
 def check_k4(q, table, grid, metric: str):
@@ -499,6 +554,35 @@ def sweep_mask(q, idx, n_probe: int, w: int):
     return mask
 
 
+def k1_entry(torch, x, cent, check, where: str) -> dict:
+    """K1 vs its plain version (check_k1, and at most K1_DIFF_SHARE of the
+    labels different), timed beside the plain version and torch.matmul's
+    product alone, in this order, in one run."""
+    from vector_indexer_tpu_torch.ops import assign
+
+    n, k, d = x.shape[0], cent.shape[0], x.shape[1]
+    ok, n_diff, err = check_k1(x, cent)
+    share = n_diff / n
+    check(ok and share <= K1_DIFF_SHARE,
+          f"K1 assign_argmin vs plain ({where}, {n} x {k} x {d}): {n_diff} label differences "
+          f"(share {share:.2e} <= {K1_DIFF_SHARE:g}), all near-ties (|score gap| <= "
+          f"{RTOL:g}*(|x|^2+|c|^2)); max |dist err| {err:.3e}")
+    reps = 20 if n * k <= 1 << 28 else 3
+    entry = dict(
+        max_abs_err=err, label_diffs=n_diff, label_diff_share=share,
+        ms=graph_ms(torch, lambda: assign.assign_argmin(x, cent), reps),
+        events_ms=cuda_ms(torch, lambda: assign.assign_argmin(x, cent)),
+        plain_ms=cuda_ms(torch, lambda: assign.assign_argmin_reference(x, cent), reps=2),
+        shape=f"{n} x {k} x {d}", **assign_bound(n, k, d),
+        **library(torch, lambda: torch.matmul(x, cent.T), "torch.matmul(x, c.T), product only"),
+    )
+    log(f"  K1 {where} {entry['shape']}: kernel {entry['ms']:.3f} ms (graph replay; event loop "
+        f"{entry['events_ms']:.3f}), plain {entry['plain_ms']:.3f} "
+        f"ms, torch.matmul {entry['library_ms']} ms, bound {entry['bound_ms']:.3f} ms "
+        f"({entry['bound_by']}); {n_diff} label differences ({share:.2e})")
+    return entry
+
+
 def kernel_phase(torch, np, xb, xq, check, results, dev):
     from vector_indexer_tpu_torch.index import dispatch
     from vector_indexer_tpu_torch.index.ivf import IvfIndex
@@ -507,25 +591,14 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
     from vector_indexer_tpu_torch.ops import ivf_gather as ig
     from vector_indexer_tpu_torch.storage.vector_store import VectorStore
 
-    for line in ptxas_lines(kb.build_info().get("log", "")):
+    for line in ptxas_lines(kb.build_info().get("log", ""), PTXAS_KERNELS):
         log(f"  ptxas {line}")
     # K1 at the build's final-assignment shape: 65,536 points x 4,000 x 128.
     x = torch.as_tensor(xb[:65536], device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
     cent = x[torch.randperm(x.shape[0], generator=g, device=dev)[:4000]]
     cent = cent + 0.1 * torch.randn(cent.shape, generator=g, device=dev)
-    ok, n_diff, err = check_k1(x, cent)
-    check(ok, f"K1 assign_argmin vs plain: {n_diff} label differences, all near-ties "
-              f"(|score gap| <= {RTOL:g}*(|x|^2+|c|^2)); max |dist err| {err:.3e}")
-    n1, k1, d1 = x.shape[0], cent.shape[0], x.shape[1]
-    results["assign_argmin"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: assign.assign_argmin(x, cent)),
-        plain_ms=cuda_ms(torch, lambda: assign.assign_argmin_reference(x, cent)),
-        shape=f"{x.shape[0]} x 4000 x 128",
-        **bound((n1 + k1) * d1 * 4 + n1 * 8, 2.0 * n1 * k1 * d1, F32_FLOP_S),
-        **library(torch, lambda: torch.matmul(x, cent.T), "torch.matmul(x, c.T), product only"),
-    )
+    results["assign_argmin"] = k1_entry(torch, x, cent, check, "phase 3")
     del x, cent
 
     # A 262,144-vector index gives K2/K4 a real stream table and K3 a real
@@ -559,12 +632,16 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
                     f"chunk={tb.chunk})")
             if kern == "K2":
                 name = f"stream_distances[{mode}]"
-                ok, err = check_k2(q, tb, grid, metric)
-                check(ok, f"K2 {name} vs plain {what}: |err| <= {RTOL:g}*(term "
-                          f"magnitude) on valid lanes; max |err| {err:.3e}")
-                kw = dict(chunk=tb.chunk, metric=metric, scales=tb.scales)
+                for nval in (False, True):
+                    ok, err = check_k2(q, tb, grid, metric, nval)
+                    check(ok, f"K2 {name} vs plain {what}, {'valid rows only (nval2d)' if nval else 'every lane'}: "
+                              f"|err| <= {RTOL:g}*(term magnitude) on valid lanes"
+                              f"{', +inf past nval' if nval else ''}; max |err| {err:.3e}")
+                kw = k2_kw(tb, grid, metric, True)
                 fn_k = lambda: bs.stream_distances(*k2_args(q, tb, grid), **kw)
                 fn_p = lambda: bs.stream_distances_reference(*k2_args(q, tb, grid), **kw)
+                kw_all = k2_kw(tb, grid, metric, False)
+                fn_all = lambda: bs.stream_distances(*k2_args(q, tb, grid), **kw_all)
             else:
                 name = f"stream_fused_plane[{mode}]"
                 ok, n_mism, err = check_k4(q, tb, grid, metric)
@@ -579,10 +656,14 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
                 out_bytes = nqk * (grid["t_fixed"] if kern == "K2" else
                                    2 * bs.pick_stream_groups(tb.chunk)) * tb.chunk * (4 if kern == "K2" else 8)
                 results[name] = dict(
-                    max_abs_err=err, ms=cuda_ms(torch, fn_k), plain_ms=cuda_ms(torch, fn_p),
-                    shape=f"nq={nqk} t_fixed={grid['t_fixed']} chunk={tb.chunk} d=128",
+                    max_abs_err=err, plain_ms=cuda_ms(torch, fn_p),
+                    ms=graph_ms(torch, fn_k) if kern == "K2" else cuda_ms(torch, fn_k),
+                    shape=f"nq={nqk} t_fixed={grid['t_fixed']} chunk={tb.chunk} d=128"
+                          + (" (ms: valid rows only, nval2d)" if kern == "K2" else ""),
                     library_ms=None, library_call=None, **stream_bound(q, tb, grid, out_bytes),
                 )
+                if kern == "K2":
+                    results[name].update(events_ms=cuda_ms(torch, fn_k), all_lanes_ms=graph_ms(torch, fn_all))
 
     # K5 at the shape stream_params(shared=True) gives a 1024-query batch at
     # the smallest power-of-two n_probe the shared gate passes on this index
@@ -744,7 +825,11 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
         shape=f"nq={nqk} n_probe=32 budget={budget} max_len={max_len} d=128",
     )
     for name, r in results.items():
-        log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms ({r['shape']})")
+        log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {r['library_ms']} ms"
+            + (f", every lane {r['all_lanes_ms']:.3f} ms" if "all_lanes_ms" in r else "")
+            + (f", event loop {r['events_ms']:.3f} ms" if "events_ms" in r else "")
+            + f" ({r['shape']})")
 
 
 def _template_args(mangled_tail: str) -> str:
@@ -752,8 +837,9 @@ def _template_args(mangled_tail: str) -> str:
     int and row-type template arguments)."""
     body = mangled_tail[1:].split("EEv", 1)[0] + "E"
     body = body.replace("13__nv_bfloat16", "bf16,").replace("Lb1E", "true,").replace("Lb0E", "false,")
+    body = re.sub(r"(^|,)([af])(?=Li|true|false|E|$)",
+                  lambda m: m.group(1) + {"a": "int8", "f": "f32"}[m.group(2)] + ",", body)
     body = re.sub(r"Li(\d+)E", r"\1,", body)
-    body = re.sub(r"(^|,)a", r"\1int8,", body)
     return "<" + body.rstrip("E").rstrip(",") + ">"
 
 
@@ -775,13 +861,16 @@ def ptxas_lines(log_text: str, kernels=("flat_sweep_kernel", "stream_fused_plane
     return out
 
 
-def main_shape_kernels(torch, vi, xq_dev, check, results):
-    """K3 (f32 / int8 / int8x1; masked at n_probe 128, its queries ordered by
-    nearest probe as the dense program orders them, and unmasked as 'flat'
-    runs it) and K4 (bf16 / int8, one query tile of the n_probe-32 stream
-    program) at the main path's own shapes on the 1M index, each against
-    its plain version and timed. These become the JSON line's numbers for
-    K3 and K4; phase 3's are kept beside them."""
+def main_shape_kernels(torch, vi, xb, xq_dev, check, results):
+    """K1 (the build's final assignment: the 1M corpus against the index's
+    4,000 centroids), K3 (f32 / int8 / int8x1; masked at n_probe 128, its
+    queries ordered by nearest probe as the dense program orders them, and
+    unmasked as 'flat' runs it), K4 (bf16 / int8, one query tile of the
+    n_probe-32 stream program) and K2 bf16 (one query tile of the
+    n_probe-8 stream program, with and without nval2d) at the main path's
+    own shapes on the 1M index, each against its plain version and timed.
+    These become the JSON line's numbers for K1-K4; phase 3's are kept
+    beside them."""
     from vector_indexer_tpu_torch.index import programs
     from vector_indexer_tpu_torch.index.dispatch import resolve
     from vector_indexer_tpu_torch.ops import block_stream as bs
@@ -791,6 +880,46 @@ def main_shape_kernels(torch, vi, xq_dev, check, results):
     lay = idx.layout
     n_rows = lay.vectors.shape[0]
     nq = xq_dev.shape[0]
+    c, c_sq = idx._device_tables()
+    x = torch.as_tensor(xb, device=xq_dev.device)
+    results["assign_argmin"] = dict(phase3=results["assign_argmin"],
+                                    **k1_entry(torch, x, c, check, "the build's final assignment"))
+    del x
+    torch.cuda.empty_cache()
+
+    # K2 bf16: one query tile of the n_probe-8 stream program, as it
+    # launches it (valid rows only), and every lane for comparison.
+    dec = resolve(idx, nq, 8, k=K, method="stream")
+    qt = xq_dev[: dec.q_tile]
+    tb = idx._stream_table()
+    grid = stream_grid(qt, tb, c, c_sq, lay.lengths, 8, "l2")
+    name = "stream_distances[bf16]"
+    entry = dict(phase3=results[name])
+    for nval in (False, True):
+        ok, err = check_k2(qt, tb, grid, "l2", nval)
+        check(ok, f"K2 {name} vs plain at the main path's shape (q_tile={len(qt)} of nq={nq}, "
+                  f"n_probe=8, t_fixed={grid['t_fixed']}, chunk={tb.chunk}, "
+                  f"{'valid rows only' if nval else 'every lane'}): max |err| {err:.3e}")
+        kw = k2_kw(tb, grid, "l2", nval)
+        ms = graph_ms(torch, lambda: bs.stream_distances(*k2_args(qt, tb, grid), **kw))
+        if nval:
+            entry.update(
+                max_abs_err=max(err, entry["max_abs_err"]), ms=ms,
+                events_ms=cuda_ms(torch, lambda: bs.stream_distances(*k2_args(qt, tb, grid), **kw)),
+                plain_ms=cuda_ms(torch, lambda: bs.stream_distances_reference(
+                    *k2_args(qt, tb, grid), **kw), reps=2),
+                library_ms=None, library_call=None,
+                **stream_bound(qt, tb, grid, len(qt) * grid["t_fixed"] * tb.chunk * 4),
+                shape=f"q_tile={len(qt)} t_fixed={grid['t_fixed']} chunk={tb.chunk} (n_probe=8; "
+                      f"{-(-nq // len(qt))} launches per batch of {nq}; ms: valid rows only)")
+        else:
+            entry.update(max_abs_err=err, all_lanes_ms=ms)
+    results[name] = entry
+    log(f"  K2 {name} main shape: kernel {entry['ms']:.3f} ms (graph replay; every lane "
+        f"{entry['all_lanes_ms']:.3f}; event loop {entry['events_ms']:.3f}), "
+        f"plain {entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}); "
+        f"{entry['shape']}")
+
     n_probe = min(128, idx.num_clusters)
     block_run, c_ord, c_sq_ord = idx._run_tables()
     s_ord, nearest = programs._probe_sets(xq_dev, c_ord, c_sq_ord, n_probe)
@@ -839,7 +968,6 @@ def main_shape_kernels(torch, vi, xq_dev, check, results):
     del tabs
 
     # K4: one query tile of the n_probe-32 stream program, as it launches it.
-    c, c_sq = idx._device_tables()
     dec = resolve(idx, nq, 32, k=K, method="stream")
     qt = xq_dev[: dec.q_tile]
     for mode, tb in (("bf16", idx._stream_table()),
@@ -971,9 +1099,9 @@ def main_phase(torch, np, xb, xq, check, dev, work, kernel_results):
     for name in MAIN_KERNELS:
         check(counts[name] > 0, f"{name} launched in the main path ({counts[name]}x)")
 
-    log("  -- K3 and K4 at the main path's shapes (after the launch counts were read)")
+    log("  -- K1-K4 at the main path's shapes (after the launch counts were read)")
     t0 = time.perf_counter()
-    main_shape_kernels(torch, vi, xq_dev, check, kernel_results)
+    main_shape_kernels(torch, vi, xb, xq_dev, check, kernel_results)
     log(f"  main-shape kernel checks: {time.perf_counter() - t0:.2f}s")
 
     # The same search on the CPU, where each kernel's wrapper runs its plain

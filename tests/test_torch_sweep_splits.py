@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import (CPU, reference_arrays, reference_search, set_overlap, split_bounds,
-                          split_planes_reference, t)
+                          split_planes_reference, t, tensor_core_cross, tf32_rna)
 
 from benchmarks.datasets import clustered
 from vector_indexer_tpu.index.ivf import IvfIndex as JaxIndex
@@ -125,49 +125,12 @@ def test_nearest_probe_order_groups_queries():
     assert s_ord.sum(1).tolist() == [2] * 5
 
 
-def _tf32_rna(a):
-    """cvt.rna.tf32.f32 on the f32 bits: keep 10 mantissa bits, rounding
-    the 13 dropped bits to nearest, ties away from zero."""
-    b = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
-    return ((b + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
-
-
-def _round_toward_zero(x):
-    """float64 -> float32 rounded toward zero (the tensor cores' f32
-    accumulation, as modelled here)."""
-    r = x.astype(np.float32)
-    away = np.abs(r.astype(np.float64)) > np.abs(x)
-    r[away] = np.nextafter(r[away], np.float32(0))
-    return r
-
-
-def _tensor_core_cross(qb, qs, xb, xs, promote_dims):
-    """The kernel's f32 cross term: per k8 step the products qb.xs, qs.xb,
-    qb.xb (in that order, each an exact sum of 8 products) enter an f32
-    accumulator that rounds toward zero; every ``promote_dims`` dims the
-    partial sum is added to the tile's sum in round-to-nearest f32, and the
-    last partial sum takes that sum at the end."""
-    f64 = np.float64
-    partials = []
-    for p0 in range(0, qb.shape[1], promote_dims):
-        acc = np.zeros((qb.shape[0], xb.shape[0]), np.float32)
-        for k0 in range(p0, min(p0 + promote_dims, qb.shape[1]), 8):
-            for a, b in ((qb, xs), (qs, xb), (qb, xb)):
-                acc = _round_toward_zero(acc.astype(f64)
-                                         + a[:, k0:k0 + 8].astype(f64) @ b[:, k0:k0 + 8].astype(f64).T)
-        partials.append(acc)
-    total = np.zeros_like(partials[0])
-    for part in partials[:-1]:
-        total = total + part
-    return partials[-1] + total if len(partials) > 1 else partials[-1]
-
-
 @pytest.mark.parametrize("seed,d", [(0, 128), (1, 128), (2, 2048)])
 def test_three_tf32_products_stay_inside_the_stated_bound(seed, d):
     q, x, _ = _inputs(300, 16, d, seed=seed, sentinel_every=10**9)
-    qb, xb = _tf32_rna(q), _tf32_rna(x)
-    qs, xs = _tf32_rna(q - qb), _tf32_rna(x - xb)  # q - qb is exact in f32
-    assert np.array_equal(_tf32_rna(qb), qb) and np.array_equal(_tf32_rna(qs), qs)
+    qb, xb = tf32_rna(q), tf32_rna(x)
+    qs, xs = tf32_rna(q - qb), tf32_rna(x - xb)  # q - qb is exact in f32
+    assert np.array_equal(tf32_rna(qb), qb) and np.array_equal(tf32_rna(qs), qs)
     f64 = np.float64
     exact = q.astype(f64) @ x.astype(f64).T
     # The split alone: products of tf32 values are exact, summed in f64.
@@ -181,14 +144,14 @@ def test_three_tf32_products_stay_inside_the_stated_bound(seed, d):
     # chunks, 128 dims): inside the stated total and inside the tolerance
     # the plain version is held to, 1e-5 of |x|^2 + 2|q||x| for the
     # distance |x|^2 - 2 q.x.
-    err = np.abs(_tensor_core_cross(qb, qs, xb, xs, 128).astype(f64) - exact)
+    err = np.abs(tensor_core_cross(qb, qs, xb, xs, 128).astype(f64) - exact)
     stated = 3 * 2.0**-22 * (1 + 2.0**-10) + 48 * 2.0**-23 + (d / 128) * 2.0**-24
     assert (err <= stated * mag).all()
     qn = np.linalg.norm(q.astype(f64), axis=1)[:, None]
     xn = np.linalg.norm(x.astype(f64), axis=1)[None, :]
     assert (2 * err <= 1e-5 * (xn * xn + 2 * qn * xn)).all()
     if d > 128:  # one chain over all of d errs more: why the kernel promotes
-        chained = np.abs(_tensor_core_cross(qb, qs, xb, xs, d).astype(f64) - exact)
+        chained = np.abs(tensor_core_cross(qb, qs, xb, xs, d).astype(f64) - exact)
         assert chained.max() > 2 * err.max()
 
 

@@ -148,3 +148,41 @@ def split_planes_reference(queries, vectors, row_norms, mask_b=None, vec_resid=N
                          < split_bounds(n_steps, s, splits)[1])
             fs._fold_minima(*parts[split], j, wv[:, jl], wrow[:, jl])
     return [fs._planes_out(*p) for p in parts]
+
+
+def tf32_rna(a):
+    """cvt.rna.tf32.f32 on the f32 bits: keep 10 mantissa bits, rounding
+    the 13 dropped bits to nearest, ties away from zero."""
+    b = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    return ((b + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def round_toward_zero(x):
+    """float64 -> float32 rounded toward zero (the tensor cores' f32
+    accumulation, as modelled here)."""
+    r = x.astype(np.float32)
+    away = np.abs(r.astype(np.float64)) > np.abs(x)
+    r[away] = np.nextafter(r[away], np.float32(0))
+    return r
+
+
+def tensor_core_cross(qb, qs, xb, xs, promote_dims):
+    """The 3xTF32 kernels' f32 cross term (K3's f32 mode and K1): per k8
+    step the products qb.xs, qs.xb, qb.xb (in that order, each an exact sum
+    of 8 products; K1 passes the points as q and the centroids as x) enter an f32
+    accumulator that rounds toward zero; every ``promote_dims`` dims the
+    partial sum is added to the tile's sum in round-to-nearest f32, and the
+    last partial sum takes that sum at the end."""
+    f64 = np.float64
+    partials = []
+    for p0 in range(0, qb.shape[1], promote_dims):
+        acc = np.zeros((qb.shape[0], xb.shape[0]), np.float32)
+        for k0 in range(p0, min(p0 + promote_dims, qb.shape[1]), 8):
+            for a, b in ((qb, xs), (qs, xb), (qb, xb)):
+                acc = round_toward_zero(acc.astype(f64)
+                                         + a[:, k0:k0 + 8].astype(f64) @ b[:, k0:k0 + 8].astype(f64).T)
+        partials.append(acc)
+    total = np.zeros_like(partials[0])
+    for part in partials[:-1]:
+        total = total + part
+    return partials[-1] + total if len(partials) > 1 else partials[-1]

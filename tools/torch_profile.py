@@ -22,7 +22,9 @@ chip_smoke.py's phase-3 shape (nq 256 over 269,848 random rows, w 16, C
 8). Last, the unmasked sweep at rows wide enough that its query tile
 streams through the ring (f32 d 384, 'int8' d 2048) beside the widest
 rows where it stays resident (d 320, 1280): nq 1000 over 262,144 random
-rows, w 32, C 8, ms and the product's rate.
+rows, w 32, C 8, ms and the product's rate, beside the bound
+(chip_smoke.sweep_bound), the plain version and one library call of the
+product alone (torch.matmul; torch._int_mm for 'int8').
 """
 
 from __future__ import annotations
@@ -131,15 +133,25 @@ def sweep_section(torch, vi, q) -> None:
         nrm = (x * x).sum(1)
         if prec == "highest":
             args = (qq, x, nrm, None)
+            lib = lambda: torch.matmul(qq, x.T)  # noqa: E731
         else:
             x8, r8, sx = fs.quantize_table_int8(x)
             args = (qq, x8, nrm, None, r8, sx)
-        ms = chip_smoke.cuda_ms(torch, lambda: fs.flat_sweep_topk_plane(
-            *args, metric="l2", w=32, c_groups=8, precision=prec))
+            q8 = fs.quantize_queries_int8(qq)[0]
+            lib = lambda: torch._int_mm(q8, x8.T)  # noqa: E731
+        kw = dict(metric="l2", w=32, c_groups=8, precision=prec)
+        ms = chip_smoke.cuda_ms(torch, lambda: fs.flat_sweep_topk_plane(*args, **kw))
+        plain_ms = chip_smoke.cuda_ms(torch, lambda: fs.flat_sweep_topk_plane_reference(*args, **kw),
+                                      reps=2)
+        lib_ms = chip_smoke.library(torch, lib, "product only")["library_ms"]
+        b = chip_smoke.sweep_bound(qq, x.shape[0], None, prec, 1000 * 2 * 8 * fs.S * 8)
         ops = 3 * 2.0 * 1000 * 262_144 * d  # three products in both precisions
         print(f"== K3 {prec} d {d} ({mode} query tile), nq 1000 x 262,144 rows, flat: "
-              f"{ms:.3f} ms, {ops / ms / 1e9:.1f} T(FL)OP/s", flush=True)
-        del x, qq, nrm, args
+              f"{ms:.3f} ms, {ops / ms / 1e9:.1f} T(FL)OP/s; bound {b['bound_ms']:.3f} ms "
+              f"({b['bound_by']}), plain {plain_ms:.3f} ms, library "
+              f"({'torch.matmul' if prec == 'highest' else 'torch._int_mm q8.x8'}) {lib_ms} ms",
+              flush=True)
+        del x, qq, nrm, args, lib
 
 
 def main() -> int:

@@ -5,7 +5,9 @@
 
 chip_smoke.py checks each kernel at the SIFT1M paths' shapes; this script
 runs the same checks (chip_smoke's ``check_k1`` .. ``check_k7``, same
-tolerances) over odd sizes, dimensions, chunks, table types (K2 bf16 /
+tolerances) over odd sizes (K1 also with every centroid duplicated, where
+the lower id must win each exact tie), dimensions, chunks, table types
+(K2 with and without the slots' valid counts; K2 bf16 /
 int8 / f32, K4 bf16 / int8, K5 bf16 / int8 / f32, K3 f32 / int8 /
 int8x1, at d on both sides of each kernel's mode changes), windows, group counts,
 list lengths (K6: short and long lists,
@@ -40,7 +42,12 @@ from chip_smoke import (  # noqa: E402
     stream_grid,
 )
 
-K1_SHAPES = ((1, 1, 8), (1000, 600, 64), (777, 3, 130), (5000, 513, 96), (64, 4000, 128))
+# K1 at ragged shapes: n past a 128-point tile, k past a 64-centroid tile
+# and below one, d not a multiple of 4 (padded) and past the resident point
+# tile (d > 160 streams it through the ring).
+K1_N = (1, 63, 65_537)
+K1_K = (1, 63, 513, 8192)
+K1_D = (20, 100, 128, 768)
 # K4 reads rows in 16-byte chunks: d 20 (bf16 rows of 40 B) takes its
 # element-wise path, d 512 / 1024 two and four chunks per lane, d > 1024 its
 # wide mode (bf16 and int8; d 1100: rows that are not 16-byte multiples).
@@ -85,11 +92,19 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(3)
 
     print("== K1 assign_argmin", flush=True)
-    for n, k, d in K1_SHAPES:
+    from vector_indexer_tpu_torch.ops.assign import assign_argmin
+
+    for n, k, d in itertools.product(K1_N, K1_K, K1_D):
         x = torch.randn((n, d), generator=g, device=dev)
         cent = torch.randn((k, d), generator=g, device=dev)
         ok, n_diff, err = check_k1(x, cent)
         check(ok, f"K1 n={n} k={k} d={d}: {n_diff} near-tie label differences, max |err| {err:.3e}")
+        if k > 1:  # centroid 2i + 1 repeats centroid 2i: the even id wins every tie
+            cent[1::2] = cent[0::2][: k // 2]
+            ok, n_diff, err = check_k1(x, cent)
+            even = bool((assign_argmin(x, cent)[0] % 2 == 0).all())
+            check(ok and even, f"K1 n={n} k={k} d={d}, duplicated centroids: {n_diff} near-tie "
+                               f"label differences, lower id on every tie {even}, max |err| {err:.3e}")
 
     print("== K2 stream_distances / K4 stream_fused_plane / K5 stream_shared_plane", flush=True)
     for d in STREAM_DIMS:
@@ -108,8 +123,9 @@ def main() -> int:
                 grid = stream_grid(q, table, c, c_sq, lengths, n_probe, metric, worst_case=exact)
                 what = (f"{dtype} d={d} chunk={chunk} n_probe={n_probe} "
                         f"t_fixed={grid['t_fixed']} {metric}")
-                ok, err = check_k2(q, table, grid, metric)
-                check(ok, f"K2 {what}: max |err| {err:.3e}")
+                for nval in (False, True):
+                    ok, err = check_k2(q, table, grid, metric, nval)
+                    check(ok, f"K2 {what}{' nval2d' if nval else ''}: max |err| {err:.3e}")
                 if not exact:
                     ok, n_mism, err = check_k4(q, table, grid, metric)
                     check(ok, f"K4 {what}: {n_mism} near-tie slot differences, max |err| {err:.3e}")

@@ -26,9 +26,15 @@
 // the distance exact to the quantized point.
 //
 // K2 writes every task's chunk-wide distance row to out (nq, t_fixed,
-// chunk); lane masking and selection stay in PyTorch, as in the reference.
-// K2 computes a row's dot with one warp: lanes stride over d (coalesced
-// reads of the row), then a shuffle sum.
+// chunk); selection stays in PyTorch, as in the reference. With nval2d it
+// reads only each task's valid rows (lanes >= nval hold +inf; a task with
+// nval 0 reads nothing), and without it every lane is computed. A block
+// takes a run of one query's slots, stages their q - c once in shared
+// memory, and walks the run's valid rows as one sequence with `lpr` lanes
+// per row and 16-byte reads, each lane keeping 8 words (and its rows'
+// norms) in flight instead of a copy ring: the rows are read once, so
+// direct loads need no staging, and the chain per pass is one load. The
+// distances are staged in shared memory and stored as 16-byte words.
 //
 // K4 keeps the selection on chip. The fold of the reference (local slot u
 // outer, fan f inner; slot s = f * t_sub + u feeds group g = f % G; each
@@ -47,27 +53,16 @@
 // planes reach device memory. K4 takes bf16 and int8 tables (the f32 table
 // serves stream_exact, which never fuses) up to d = 12,288.
 //
-// Bound on the H100: bytes. A task reads at most chunk * d * itemsize bytes
-// of table (64 KB at chunk 256, d 128, bf16; 32 KB int8; 128 KB f32), K4
-// only its valid rows, for 2 FLOPs per element - at most 2 FLOP/byte, far
-// below the card's ~20 FLOP/byte f32 balance, so 3.35 TB/s is the
-// roofline. K2 keeps its first, simple design (no prefetch, 2-byte or
-// 1-byte lane reads).
+// Bound on the H100: bytes. K2 with nval2d and K4 read only a task's valid
+// rows (at most chunk * d * itemsize bytes: 64 KB at chunk 256, d 128,
+// bf16; 32 KB int8; 128 KB f32), for 2 FLOPs per element - at most 2
+// FLOP/byte, far below the card's ~20 FLOP/byte f32 balance, so 3.35 TB/s
+// over the valid rows' bytes (and norms) is the roofline.
 #include <numeric>
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
-
-template <typename T>
-__device__ __forceinline__ float row_dot(const float* __restrict__ qc_s,
-                                         const T* __restrict__ row, int d, int lane) {
-  float acc = 0.f;
-  for (int t = lane; t < d; t += 32) acc = fmaf(qc_s[t], vitorch::widen(row[t]), acc);
-  return vitorch::warp_sum(acc);
-}
 
 template <bool L2>
 __device__ __forceinline__ float task_distance(float bias, float dot, float nrm) {
@@ -75,65 +70,49 @@ __device__ __forceinline__ float task_distance(float bias, float dot, float nrm)
   return bias - dot + (nrm >= VITORCH_SENTINEL ? nrm : 0.f);
 }
 
-// Stage the task's query-side row (q - c for l2, q for ip) in shared memory.
-template <bool L2>
-__device__ __forceinline__ void load_qc(float* qc_s, const float* __restrict__ queries,
-                                        const float* __restrict__ cent, int q, int cid,
-                                        int d) {
-  for (int t = threadIdx.x; t < d; t += blockDim.x) {
-    const float qv = queries[(size_t)q * d + t];
-    qc_s[t] = L2 ? qv - cent[(size_t)cid * d + t] : qv;
+// ---- 16-byte row chunks (K2 and K4) ------------------------------------------
+
+// q_c . (the 16 stored bytes of chunk c of a row): 8 bf16, 16 int8 or 4 f32
+// values, widened exactly, f32 FMAs in element order. word_dot takes the
+// chunk as one loaded 16-byte word; chunk_dot<VEC> loads it as one word
+// (rows of a multiple of 16 bytes) or element by element, dropping
+// elements past d.
+__device__ __forceinline__ float word_dot(const float (&qc)[8], uint4 v, __nv_bfloat16) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(qc[2 * i], __uint_as_float(w[i] << 16), acc);
+    acc = fmaf(qc[2 * i + 1], __uint_as_float(w[i] & 0xffff0000u), acc);
   }
+  return acc;
 }
 
-template <bool L2, typename T>
-__global__ void __launch_bounds__(THREADS) stream_distances_kernel(
-    const float* __restrict__ queries, const float* __restrict__ cent,
-    const int* __restrict__ cid2d, const int* __restrict__ blk2d,
-    const float* __restrict__ bias2d, const T* __restrict__ vecs,
-    const float* __restrict__ norms, const float* __restrict__ scales, int t_fixed,
-    int chunk, int d, float* __restrict__ out) {
-  extern __shared__ float qc_s[];  // d floats
-  const size_t task = blockIdx.x;  // q * t_fixed + s
-  const int q = static_cast<int>(task / t_fixed);
-  const int cid = cid2d[task];
-  load_qc<L2>(qc_s, queries, cent, q, cid, d);
-  __syncthreads();
-  const size_t base = (size_t)blk2d[task] * chunk;
-  const float bias = bias2d[task];
-  const float scl = vitorch::row_scale<T>(scales, cid);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int l = warp; l < chunk; l += THREADS / 32) {
-    const size_t srow = base + l;
-    const float dot = row_dot(qc_s, vecs + srow * d, d, lane) * scl;
-    if (lane == 0) out[task * chunk + l] = task_distance<L2>(bias, dot, norms[srow]);
-  }
+__device__ __forceinline__ float word_dot(const float (&qc)[16], uint4 v, int8_t) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      acc = fmaf(qc[4 * i + b], static_cast<float>(static_cast<int>(w[i] << (24 - 8 * b)) >> 24),
+                 acc);
+  return acc;
 }
 
-// ---- K4 -------------------------------------------------------------------
+__device__ __forceinline__ float word_dot(const float (&qc)[4], uint4 v, float) {
+  float acc = fmaf(qc[0], __uint_as_float(v.x), 0.f);
+  acc = fmaf(qc[1], __uint_as_float(v.y), acc);
+  acc = fmaf(qc[2], __uint_as_float(v.z), acc);
+  return fmaf(qc[3], __uint_as_float(v.w), acc);
+}
 
-constexpr int K4_CONSUMERS = 256;              // 8 consumer warps
-constexpr int K4_THREADS = K4_CONSUMERS + 32;  // + one producer warp
-constexpr int K4_STAGE_TARGET = 16 * 1024;     // bytes per staged sub-block
-constexpr int K4_STAGES = 4;
-constexpr int K4_SMEM_LIMIT = 232448;          // a block's dynamic shared memory on sm_90
-
-// q_c . (the 16 stored bytes of chunk c of a row): 8 bf16 or 16 int8 values,
-// widened exactly, f32 FMAs in element order. VEC reads the chunk as one
-// 16-byte word (rows of a multiple of 16 bytes); otherwise element by
-// element, dropping elements past d.
 template <bool VEC>
 __device__ __forceinline__ float chunk_dot(const float (&qc)[8], const uint8_t* row, int c,
                                            int d, __nv_bfloat16) {
   float acc = 0.f;
   if (VEC) {
-    const uint4 v = *reinterpret_cast<const uint4*>(row + c * 16);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc = fmaf(qc[2 * i], __uint_as_float(w[i] << 16), acc);
-      acc = fmaf(qc[2 * i + 1], __uint_as_float(w[i] & 0xffff0000u), acc);
-    }
+    acc = word_dot(qc, *reinterpret_cast<const uint4*>(row + c * 16), __nv_bfloat16());
   } else {
     const __nv_bfloat16* r = reinterpret_cast<const __nv_bfloat16*>(row);
 #pragma unroll
@@ -148,14 +127,7 @@ __device__ __forceinline__ float chunk_dot(const float (&qc)[16], const uint8_t*
                                            int d, int8_t) {
   float acc = 0.f;
   if (VEC) {
-    const uint4 v = *reinterpret_cast<const uint4*>(row + c * 16);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        acc = fmaf(qc[4 * i + b],
-                   static_cast<float>(static_cast<int>(w[i] << (24 - 8 * b)) >> 24), acc);
+    acc = word_dot(qc, *reinterpret_cast<const uint4*>(row + c * 16), int8_t());
   } else {
     const int8_t* r = reinterpret_cast<const int8_t*>(row);
 #pragma unroll
@@ -164,6 +136,214 @@ __device__ __forceinline__ float chunk_dot(const float (&qc)[16], const uint8_t*
   }
   return acc;
 }
+
+template <bool VEC>
+__device__ __forceinline__ float chunk_dot(const float (&qc)[4], const uint8_t* row, int c,
+                                           int d, float) {
+  if (VEC) return word_dot(qc, *reinterpret_cast<const uint4*>(row + c * 16), float());
+  const float* r = reinterpret_cast<const float*>(row);
+  float acc = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (c * 4 + e < d) acc = fmaf(qc[e], r[c * 4 + e], acc);
+  return acc;
+}
+
+// ---- K2 -------------------------------------------------------------------
+
+constexpr int K2_THREADS = 256;  // 8 warps
+constexpr int K2_WARPS = K2_THREADS / 32;
+constexpr int K2_MAX_SLOTS = 4;  // slots per block
+constexpr int K2_MAX_SMEM = 232448;
+
+// One block per (query, run of `spb` consecutive slots). q - c (l2) or q
+// (ip) of every slot of the run is staged once in shared memory; the
+// slots' valid rows (all `chunk` rows when nval2d is null) are then walked
+// as one sequence, `lpr` lanes per row and 32 / lpr rows per warp, each
+// lane keeping U rows' 16-byte words and norms in flight before it
+// multiplies them (VEC rows: NCH = 4 chunks per lane, or NCH = 0, the wide
+// mode, one row per warp striding over its chunks; other rows are read
+// element by element). A row's dot is summed across its lanes by shuffles and its
+// first lane writes the distance into the run's staging area in shared
+// memory, where lanes at or past nval hold +inf. At the end the block
+// stores the run's rows, contiguous in out, as 16-byte words.
+template <bool L2, typename T, int NCH, bool VEC>
+__global__ void __launch_bounds__(K2_THREADS, 2) stream_distances_kernel(
+    const float* __restrict__ queries, const float* __restrict__ cent,
+    const int* __restrict__ cid2d, const int* __restrict__ blk2d,
+    const int* __restrict__ nval2d, const float* __restrict__ bias2d,
+    const T* __restrict__ vecs, const float* __restrict__ norms,
+    const float* __restrict__ scales, int t_fixed, int chunk, int d, int lpr, int spb,
+    float* __restrict__ out) {
+  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+  // Rows per lane kept in flight per pass: 8 16-byte words (the wide and
+  // element-wise modes: 4 rows).
+  constexpr int U = VEC && NCH > 0 ? 8 / NCH : 4;
+  extern __shared__ __align__(16) float smem_k2[];
+  __shared__ int s_start[K2_MAX_SLOTS + 1];  // first flattened row of each slot
+  __shared__ size_t s_base[K2_MAX_SLOTS];    // its block's first table row
+  __shared__ float s_bias[K2_MAX_SLOTS], s_scl[K2_MAX_SLOTS];
+  __shared__ int s_cid[K2_MAX_SLOTS];
+  const int cpr = (d + EPC - 1) / EPC;       // 16-byte chunks per row
+  const int width = cpr * EPC;
+  float* qc_s = smem_k2;                     // spb x width: q - c per slot, zero past d
+  float* out_s = qc_s + spb * width;         // spb x chunk distances
+
+  const int nsg = (t_fixed + spb - 1) / spb;
+  const int q = blockIdx.x / nsg;
+  const int s0 = (blockIdx.x % nsg) * spb;
+  const int ns = min(spb, t_fixed - s0);
+  const size_t task0 = static_cast<size_t>(q) * t_fixed + s0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    int start = 0;
+    for (int s = 0; s < ns; ++s) {
+      s_start[s] = start;
+      start += nval2d == nullptr ? chunk : min(max(nval2d[task0 + s], 0), chunk);
+    }
+    s_start[ns] = start;
+  }
+  if (tid < ns) {
+    const int cid = cid2d[task0 + tid];
+    s_cid[tid] = cid;
+    s_base[tid] = static_cast<size_t>(blk2d[task0 + tid]) * chunk;
+    s_bias[tid] = bias2d[task0 + tid];
+    s_scl[tid] = vitorch::row_scale<T>(scales, cid);
+  }
+  __syncthreads();
+  for (int e = tid; e < ns * width; e += K2_THREADS) {
+    const int s = e / width, k = e % width;
+    float v = 0.f;
+    if (k < d) {
+      v = queries[static_cast<size_t>(q) * d + k];
+      if (L2) v -= cent[static_cast<size_t>(s_cid[s]) * d + k];
+    }
+    qc_s[e] = v;
+  }
+  for (int e = tid; e < ns * chunk; e += K2_THREADS) {  // lanes past nval: +inf
+    const int s = e / chunk;
+    if (e % chunk >= s_start[s + 1] - s_start[s]) out_s[e] = vitorch::inf_f();
+  }
+  __syncthreads();
+
+  const int li = lane % lpr;                 // lane within the row's lanes
+  const int rpp = K2_WARPS * (32 / lpr);     // rows per pass of the block
+  const int my_row = warp * (32 / lpr) + lane / lpr;
+  const size_t row_bytes = static_cast<size_t>(d) * sizeof(T);
+  const uint8_t* table = reinterpret_cast<const uint8_t*>(vecs);
+  int start[K2_MAX_SLOTS + 1];  // the slots' first flattened rows, in registers
+#pragma unroll
+  for (int j = 0; j <= K2_MAX_SLOTS; ++j) start[j] = j <= ns ? s_start[j] : 0;
+  const int total = s_start[ns];
+  for (int r0 = 0; r0 < total; r0 += U * rpp) {  // uniform across the block
+    int sl[U], rw[U];
+    float nrm[U], dot[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {  // flattened row -> (slot, row), its norm
+      const int f = r0 + u * rpp + my_row;
+      int s = 0, s_first = 0;
+#pragma unroll
+      for (int j = 1; j < K2_MAX_SLOTS; ++j) {
+        if (j < ns && f >= start[j]) {
+          s = j;
+          s_first = start[j];
+        }
+      }
+      sl[u] = s;
+      rw[u] = f < total ? f - s_first : -1;
+      nrm[u] = rw[u] >= 0 && li == 0 ? norms[s_base[s] + rw[u]] : 0.f;
+      dot[u] = 0.f;
+    }
+    if constexpr (VEC && NCH > 0) {
+      uint4 w[U][NCH];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const uint4* row =
+            reinterpret_cast<const uint4*>(table + (s_base[sl[u]] + max(rw[u], 0)) * row_bytes);
+#pragma unroll
+        for (int m = 0; m < NCH; ++m) {
+          const int c = li + m * lpr;
+          w[u][m] = rw[u] >= 0 && c < cpr ? __ldg(row + c) : make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int m = 0; m < NCH; ++m) {
+          const int c = li + m * lpr;
+          if (c < cpr) {
+            float qv[EPC];
+            const float4* qp = reinterpret_cast<const float4*>(qc_s + sl[u] * width + c * EPC);
+#pragma unroll
+            for (int e = 0; e < EPC / 4; ++e) {
+              const float4 f = qp[e];
+              qv[4 * e] = f.x;
+              qv[4 * e + 1] = f.y;
+              qv[4 * e + 2] = f.z;
+              qv[4 * e + 3] = f.w;
+            }
+            dot[u] += word_dot(qv, w[u][m], T());
+          }
+        }
+      }
+    } else {
+      for (int c = li; c < cpr; c += lpr) {
+        uint4 w[U];
+        if constexpr (VEC) {  // the wide mode: one word per row in flight
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            w[u] = rw[u] >= 0 ? __ldg(reinterpret_cast<const uint4*>(
+                                          table + (s_base[sl[u]] + rw[u]) * row_bytes) + c)
+                              : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (rw[u] < 0) continue;
+          float qv[EPC];
+          const float4* qp = reinterpret_cast<const float4*>(qc_s + sl[u] * width + c * EPC);
+#pragma unroll
+          for (int e = 0; e < EPC / 4; ++e) {
+            const float4 f = qp[e];
+            qv[4 * e] = f.x;
+            qv[4 * e + 1] = f.y;
+            qv[4 * e + 2] = f.z;
+            qv[4 * e + 3] = f.w;
+          }
+          if constexpr (VEC)
+            dot[u] += word_dot(qv, w[u], T());
+          else
+            dot[u] += chunk_dot<false>(qv, table + (s_base[sl[u]] + rw[u]) * row_bytes, c, d, T());
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)  // across the row's lpr lanes
+        if (off < lpr) dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], off);
+      if (rw[u] >= 0 && li == 0)
+        out_s[sl[u] * chunk + rw[u]] =
+            task_distance<L2>(s_bias[sl[u]], dot[u] * s_scl[sl[u]], nrm[u]);
+    }
+  }
+  __syncthreads();
+  float* dst = out + task0 * chunk;
+  const int n_out = ns * chunk;
+  if (n_out % 4 == 0 && (reinterpret_cast<uintptr_t>(dst) & 15u) == 0) {
+    for (int e = tid; e < n_out / 4; e += K2_THREADS)
+      reinterpret_cast<float4*>(dst)[e] = reinterpret_cast<const float4*>(out_s)[e];
+  } else {
+    for (int e = tid; e < n_out; e += K2_THREADS) dst[e] = out_s[e];
+  }
+}
+
+// ---- K4 -------------------------------------------------------------------
+
+constexpr int K4_CONSUMERS = 256;              // 8 consumer warps
+constexpr int K4_THREADS = K4_CONSUMERS + 32;  // + one producer warp
+constexpr int K4_STAGE_TARGET = 16 * 1024;     // bytes per staged sub-block
+constexpr int K4_STAGES = 4;
+constexpr int K4_SMEM_LIMIT = 232448;          // a block's dynamic shared memory on sm_90
 
 // One block per (query, group g): the group's slots s = f * t_sub + u
 // (f = g mod G) in the reference's order, u outer, f inner. A producer warp
@@ -361,18 +541,54 @@ __global__ void __launch_bounds__(K4_THREADS, NCH == 4 ? 1 : 2) stream_fused_pla
   }
 }
 
-template <bool L2, typename T>
-void launch_distances(const void* queries, const void* cent, const void* cid2d,
-                      const void* blk2d, const void* bias2d, const void* vecs,
-                      const void* norms, const void* scales, size_t tasks, int t_fixed,
-                      int chunk, int d, void* out, cudaStream_t st) {
-  stream_distances_kernel<L2, T><<<dim3(static_cast<unsigned>(tasks)), THREADS,
-                                   sizeof(float) * d, st>>>(
+template <bool L2, typename T, int NCH, bool VEC>
+int launch_distances_mode(const void* queries, const void* cent, const void* cid2d,
+                          const void* blk2d, const void* nval2d, const void* bias2d,
+                          const void* vecs, const void* norms, const void* scales, int nq,
+                          int t_fixed, int chunk, int d, int lpr, int spb, void* out,
+                          cudaStream_t st) {
+  constexpr int EPC = 16 / sizeof(T);
+  const int width = (d + EPC - 1) / EPC * EPC;
+  const size_t smem = sizeof(float) * static_cast<size_t>(spb) * (width + chunk);
+  if (smem > static_cast<size_t>(K2_MAX_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = stream_distances_kernel<L2, T, NCH, VEC>;
+  if (smem > 40 * 1024) {  // past 48 KB with the static arrays: opt in
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const size_t blocks = static_cast<size_t>(nq) * ((t_fixed + spb - 1) / spb);
+  kern<<<dim3(static_cast<unsigned>(blocks)), K2_THREADS, smem, st>>>(
       static_cast<const float*>(queries), static_cast<const float*>(cent),
       static_cast<const int*>(cid2d), static_cast<const int*>(blk2d),
-      static_cast<const float*>(bias2d), static_cast<const T*>(vecs),
-      static_cast<const float*>(norms), static_cast<const float*>(scales), t_fixed, chunk,
-      d, static_cast<float*>(out));
+      static_cast<const int*>(nval2d), static_cast<const float*>(bias2d),
+      static_cast<const T*>(vecs), static_cast<const float*>(norms),
+      static_cast<const float*>(scales), t_fixed, chunk, d, lpr, spb,
+      static_cast<float*>(out));
+  return 0;
+}
+
+// The plan (nch 4 or 0, lpr, spb) comes from the wrapper
+// (ops/block_stream.py::stream_distances_plan); it is checked here. Rows
+// that are not 16-byte multiples take the element-wise mode whatever nch is.
+template <bool L2, typename T>
+int launch_distances(const void* queries, const void* cent, const void* cid2d,
+                     const void* blk2d, const void* nval2d, const void* bias2d,
+                     const void* vecs, const void* norms, const void* scales, int nq,
+                     int t_fixed, int chunk, int d, int nch, int lpr, int spb, void* out,
+                     cudaStream_t st) {
+  constexpr int EPC = 16 / sizeof(T);
+  const int cpr = (d + EPC - 1) / EPC;
+  const bool lpr_ok = lpr >= 1 && lpr <= 32 && (lpr & (lpr - 1)) == 0;
+  if (!lpr_ok || spb < 1 || spb > K2_MAX_SLOTS || (nch != 0 && nch != 4) ||
+      (nch == 0 && lpr != 32) || (nch == 4 && lpr * nch < cpr))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define VITORCH_K2_MODE(NCH, VEC)                                                              \
+  launch_distances_mode<L2, T, NCH, VEC>(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs,    \
+                                         norms, scales, nq, t_fixed, chunk, d, lpr, spb, out, st)
+  if ((static_cast<size_t>(d) * sizeof(T)) % 16 != 0) return VITORCH_K2_MODE(0, false);
+  return nch == 4 ? VITORCH_K2_MODE(4, true) : VITORCH_K2_MODE(0, true);
+#undef VITORCH_K2_MODE
 }
 
 template <bool L2, typename T, int NCH, bool VEC>
@@ -449,16 +665,19 @@ int launch_fused(const void* queries, const void* cent, const void* cid2d,
 
 }  // namespace
 
+// nval2d may be null (every lane computed); nch / lpr / spb: the wrapper's
+// plan (chunks per lane, lanes per row, slots per block).
 VITORCH_API int vitorch_stream_distances(
     const void* queries, const void* cent, const void* cid2d, const void* blk2d,
-    const void* bias2d, const void* vecs, const void* norms, const void* scales, int nq,
-    int t_fixed, int chunk, int d, int is_l2, int row_type, void* out, void* stream) {
-  const size_t tasks = (size_t)nq * t_fixed;
-  if (tasks == 0) return static_cast<int>(cudaGetLastError());
+    const void* nval2d, const void* bias2d, const void* vecs, const void* norms,
+    const void* scales, int nq, int t_fixed, int chunk, int d, int is_l2, int row_type, int nch,
+    int lpr, int spb, void* out, void* stream) {
+  if (static_cast<size_t>(nq) * t_fixed == 0) return static_cast<int>(cudaGetLastError());
   auto st = static_cast<cudaStream_t>(stream);
-#define VITORCH_K2(L2, T)                                                               \
-  launch_distances<L2, T>(queries, cent, cid2d, blk2d, bias2d, vecs, norms, scales, tasks, \
-                          t_fixed, chunk, d, out, st)
+  int rc = 0;
+#define VITORCH_K2(L2, T)                                                                      \
+  rc = launch_distances<L2, T>(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms, scales, \
+                               nq, t_fixed, chunk, d, nch, lpr, spb, out, st)
   switch (row_type) {
     case vitorch::ROW_BF16:
       if (is_l2) VITORCH_K2(true, __nv_bfloat16); else VITORCH_K2(false, __nv_bfloat16);
@@ -473,6 +692,7 @@ VITORCH_API int vitorch_stream_distances(
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef VITORCH_K2
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -86,11 +86,21 @@
 // tensor cores three times over for f32: 495 TFLOP/s; s8 at 1,979 TOP/s,
 // three products for 'int8'); in masked mode the probed rows' bytes or
 // operations, whichever is larger, counted for the probed pairs only.
-#include <cuda.h>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using vitorch::fence_regs;
+using vitorch::gmma_desc;
+using vitorch::make_panel_map;
+using vitorch::split_tf32;
+using vitorch::swizzled;
+using vitorch::tma_load_2d;
+using vitorch::wgmma_commit;
+using vitorch::wgmma_fence;
+using vitorch::wgmma_s8;
+using vitorch::wgmma_tf32;
+using vitorch::wgmma_wait;
 
 constexpr int S = 128;                 // lanes per grid step = rows per tile
 constexpr int QT = 64;                 // queries per block (the wgmma M)
@@ -104,11 +114,12 @@ constexpr int THREADS = (CONSUMER_WGS + 1) * WG_THREADS;
 constexpr int PRODUCER_WARP = CONSUMER_WGS * WG_THREADS / 32;
 constexpr int PRODUCER_REGS = 56;
 constexpr int CONSUMER_REGS = 224;
-constexpr int SPAN = 128;                  // bytes of K per panel (the 128B swizzle span)
+constexpr int SPAN = vitorch::GMMA_SPAN;    // bytes of K per panel (the 128B swizzle span)
 constexpr int TILE_PANEL = S * SPAN;       // 16 KB: one K panel of a 128-row table tile
 constexpr int Q_PANEL = QT * SPAN;         // 8 KB: one K panel of the query tile
 constexpr int WG_PANEL = N_WG * SPAN;      // 8 KB: a warpgroup's half of a table panel
-constexpr int NACC = QT * N_WG / WG_THREADS;  // 32 accumulator elements per thread
+constexpr int NACC = vitorch::GMMA_NACC;   // 32 accumulator elements per thread
+static_assert(NACC == QT * N_WG / WG_THREADS, "one m64n64 product per consumer warpgroup");
 constexpr int MASK_ALIGN = 8;              // rows per mask element
 constexpr int SHIFT = 64;                  // int8 residual scale = main scale / SHIFT
 constexpr int MAX_STAGES = 8;
@@ -139,106 +150,6 @@ struct Args {
   // streams through the ring instead of staying resident.
   int q_panels, panels, stages, stage_bytes, q_stream;
 };
-
-// ---- wgmma (PTX) ----------------------------------------------------------
-
-// Shared-memory matrix descriptor, K-major, 128-byte swizzle: 8-row groups
-// 1024 B apart (SBO), the leading offset unused for this layout.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed wgmma groups are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous product's issue and wait.
-__device__ __forceinline__ void fence_regs(float (&r)[NACC]) {
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-__device__ __forceinline__ void fence_regs(int (&r)[NACC]) {
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define VITORCH_ACC32(C, A)                                                                      \
-  C(A[0]), C(A[1]), C(A[2]), C(A[3]), C(A[4]), C(A[5]), C(A[6]), C(A[7]), C(A[8]), C(A[9]),      \
-      C(A[10]), C(A[11]), C(A[12]), C(A[13]), C(A[14]), C(A[15]), C(A[16]), C(A[17]), C(A[18]),  \
-      C(A[19]), C(A[20]), C(A[21]), C(A[22]), C(A[23]), C(A[24]), C(A[25]), C(A[26]), C(A[27]),  \
-      C(A[28]), C(A[29]), C(A[30]), C(A[31])
-#define VITORCH_F(x) "+f"(x)
-#define VITORCH_R(x) "+r"(x)
-#define VITORCH_OPS32                                                                      \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-
-// d (64 x 64 f32) (+)= A (64 x 8 tf32) . B (64 x 8 tf32)^T
-__device__ __forceinline__ void wgmma_tf32(float (&d)[NACC], uint64_t da, uint64_t db,
-                                           int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " VITORCH_OPS32
-      "%32, %33, p, 1, 1;\n"
-      "}\n"
-      : VITORCH_ACC32(VITORCH_F, d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64 s32) (+)= A (64 x 32 s8) . B (64 x 32 s8)^T
-__device__ __forceinline__ void wgmma_s8(int (&d)[NACC], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " VITORCH_OPS32
-      "%32, %33, p;\n"
-      "}\n"
-      : VITORCH_ACC32(VITORCH_R, d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(vitorch::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(vitorch::smem_u32(bar))
-      : "memory");
-}
-
-// a = big + small with big = tf32(a), small = tf32(a - big), both rounded to
-// nearest (their low 13 mantissa bits are zero, so the tensor cores read
-// them exactly).
-__device__ __forceinline__ float tf32_rna(float a) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
-  return __uint_as_float(r);
-}
-__device__ __forceinline__ void split_tf32(float4 v, float4& big, float4& small) {
-  big = make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z), tf32_rna(v.w));
-  small = make_float4(tf32_rna(v.x - big.x), tf32_rna(v.y - big.y), tf32_rna(v.z - big.z),
-                      tf32_rna(v.w - big.w));
-}
-
-// Byte offset of 16-byte chunk `kc` (along K) of row `r` in a K-major,
-// 128B-swizzled operand whose panels hold `rows` rows.
-__device__ __forceinline__ int swizzled(int r, int kc, int panel_bytes) {
-  return (kc >> 3) * panel_bytes + r * SPAN + (((kc & 7) ^ (r & 7)) << 4);
-}
 
 // Whether the block's query tile has work in the 128-row tile at row0.
 template <bool MASKED>
@@ -654,46 +565,6 @@ __global__ void __launch_bounds__(MERGE_THREADS)
 
 // ---- host side --------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (so the
-// library links against no driver stub).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2D map over a K-major (rows, d) operand whose box is one panel: `box_rows`
-// rows x 128 bytes, 128B-swizzled; rows past the operand and columns past d
-// read as zeros.
-bool make_panel_map(CUtensorMap* map, const void* base, bool f32, int d, int rows, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const int esize = f32 ? 4 : 1;
-  cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows > 0 ? rows : 1)};
-  cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * esize};
-  cuuint32_t box[2] = {static_cast<cuuint32_t>(SPAN / esize), static_cast<cuuint32_t>(box_rows)};
-  cuuint32_t estr[2] = {1, 1};
-  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-            const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <bool L2, bool MASKED, int P, bool FOLD>
 cudaError_t launch_one(dim3 grid, size_t smem, cudaStream_t st, const CUtensorMap (&maps)[4],
                        const Args& a) {
@@ -765,25 +636,14 @@ int launch_sweep(Args a, const void* x, const void* r8, bool l2, bool masked, in
   return static_cast<int>(err);
 }
 
-// f32 queries (n floats, n % 4 == 0) -> their tf32 big and small parts.
-__global__ void split_queries_kernel(const float4* __restrict__ q, size_t n4,
-                                     float4* __restrict__ big, float4* __restrict__ small) {
-  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; e < n4;
-       e += static_cast<size_t>(gridDim.x) * blockDim.x)
-    split_tf32(q[e], big[e], small[e]);
-}
-
 // Split the f32 queries into `qsplit` (big parts, then small parts, each
 // nq * d floats) and point a.qa / a.qb at them.
 int split_queries(Args* a, const void* q, void* qsplit, cudaStream_t st) {
-  const size_t n4 = static_cast<size_t>(a->nq) * a->d / 4;
-  float4* big = static_cast<float4*>(qsplit);
-  const size_t blocks = (n4 + 255) / 256;
-  split_queries_kernel<<<blocks < 4096 ? static_cast<unsigned>(blocks) : 4096u, 256, 0, st>>>(
-      static_cast<const float4*>(q), n4, big, big + n4);
+  const size_t n = static_cast<size_t>(a->nq) * a->d;
+  float* big = static_cast<float*>(qsplit);
   a->qa = reinterpret_cast<const uint8_t*>(big);
-  a->qb = reinterpret_cast<const uint8_t*>(big + n4);
-  return static_cast<int>(cudaGetLastError());
+  a->qb = reinterpret_cast<const uint8_t*>(big + n);
+  return static_cast<int>(vitorch::split_tf32_rows(q, n, big, big + n, st));
 }
 
 }  // namespace

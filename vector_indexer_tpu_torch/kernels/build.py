@@ -50,12 +50,13 @@ _I = ctypes.c_int
 
 # C entry point -> argument types (pointers and the stream as void*).
 _SIGNATURES = {
-    # x, c, c_sq, n, k, d, best_score, best_idx, stream
-    "vitorch_assign_argmin": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
-    # queries, cent, cid2d, blk2d, bias2d, vecs, norms, scales, nq,
-    # t_fixed, chunk, d, is_l2, row_type, out, stream
+    # x, c, c_sq, n, k, d, csplit, best_score, best_idx, stream
+    "vitorch_assign_argmin": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # queries, cent, cid2d, blk2d, nval2d (or null), bias2d, vecs, norms,
+    # scales, nq, t_fixed, chunk, d, is_l2, row_type, nch, lpr, spb, out,
+    # stream
     "vitorch_stream_distances": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
     # queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms, scales, nq,
     # t_fixed, t_sub, chunk, groups, d, is_l2, row_type, dist_plane,

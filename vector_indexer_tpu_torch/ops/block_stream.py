@@ -14,9 +14,9 @@ Port of ``vector_indexer_tpu/ops/pallas/block_stream.py``.
 * Each probed list becomes ceil(len / chunk) **tasks**; every query gets
   ``t_fixed`` task slots, nearest probes first (chunks past ``t_fixed`` are
   dropped, a recall trade sized by ``per_query_slots``).
-* **K2** (``stream_distances``) scores every task's block into an
-  (nq, t_fixed, chunk) plane; lanes past a list's end are masked here in
-  PyTorch before a top-k. **K4** (``stream_fused_plane``) keeps the
+* **K2** (``stream_distances``) scores every task's valid rows into an
+  (nq, t_fixed, chunk) plane, lanes past a list's end +inf (given
+  ``nval2d``), before a top-k. **K4** (``stream_fused_plane``) keeps the
   selection on chip and returns per-(group, lane) best/second planes with
   their slot ids; it engages once a query's task plane is wide
   (``fused_engages``), as in the reference.
@@ -361,11 +361,12 @@ def _slot_scales(scales, cid2d, vecs):
 
 
 def stream_distances_reference(queries, cent, cid2d, blk2d, bias2d, vecs, norms,
-                               *, chunk: int, metric: str, scales=None):
+                               *, chunk: int, metric: str, scales=None, nval2d=None):
     """Plain version of K2: (nq, t_fixed, chunk) f32 distances of every
-    task's block (every lane, including lanes past the list's end). int8
-    rows are widened exactly and the dot is scaled by the slot's cluster
-    scale ``scales[cid]``."""
+    task's block. int8 rows are widened exactly and the dot is scaled by
+    the slot's cluster scale ``scales[cid]``. Without ``nval2d`` every lane
+    is computed, including lanes past the list's end; with it, lanes at or
+    past the slot's valid count are +inf."""
     nq, t = blk2d.shape
     d = queries.shape[1]
     blocks = vecs.view(-1, chunk, d)
@@ -388,7 +389,39 @@ def stream_distances_reference(queries, cent, cid2d, blk2d, bias2d, vecs, norms,
             out[s:e] = bias - 2.0 * cross + nrm
         else:
             out[s:e] = bias - cross + torch.where(nrm >= 1e29, nrm, torch.zeros_like(nrm))
+    if nval2d is not None:
+        lane = torch.arange(chunk, device=out.device)
+        out = torch.where(lane[None, None, :] < nval2d[:, :, None], out, float("inf"))
     return out
+
+
+# K2's launch plan: at most this many consecutive slots of one query per
+# block, as shared memory allows (q - c and the distances of each).
+K2_SLOTS_PER_BLOCK = 4
+_K2_SMEM = 200 << 10
+
+
+def stream_distances_plan(d: int, itemsize: int, t_fixed: int, chunk: int):
+    """(chunks per lane, lanes per row, slots per block) of K2 for rows of d
+    elements of ``itemsize`` bytes (csrc/block_stream.cu checks it). A lane
+    reads 4 16-byte chunks of a row (fewer where the row is shorter), so a
+    row takes few lanes and its dot few shuffles; rows of more than 128
+    chunks take the wide mode (0 chunks, 32 lanes per row striding over
+    the row). Lanes per row: the fewest (a power of two) that cover the
+    row's chunks, so narrow rows share a warp. Slots per block: up to
+    K2_SLOTS_PER_BLOCK whose q - c and distance rows fit in shared
+    memory."""
+    epc = 16 // itemsize
+    cpr = -(-d // epc)
+    nch = 4
+    lpr = 1
+    while lpr * nch < cpr:
+        lpr <<= 1
+    if lpr > 32:
+        nch, lpr = 0, 32
+    per_slot = 4 * (cpr * epc + chunk)
+    spb = max(1, min(K2_SLOTS_PER_BLOCK, t_fixed, _K2_SMEM // per_slot))
+    return nch, lpr, spb
 
 
 def _row_type(name: str, vecs, scales, allowed=STREAM_DTYPES):
@@ -404,24 +437,31 @@ def _row_type(name: str, vecs, scales, allowed=STREAM_DTYPES):
 
 
 def stream_distances(queries, cent, cid2d, blk2d, bias2d, vecs, norms,
-                     *, chunk: int, metric: str, scales=None):
-    """K2. CPU tensors -> plain version; CUDA tensors -> the kernel."""
+                     *, chunk: int, metric: str, scales=None, nval2d=None):
+    """K2. CPU tensors -> plain version; CUDA tensors -> the kernel. With
+    ``nval2d`` the kernel reads only each slot's valid rows and the lanes
+    past them are +inf."""
     if queries.device.type == "cpu":
         return stream_distances_reference(
             queries, cent, cid2d, blk2d, bias2d, vecs, norms, chunk=chunk, metric=metric,
-            scales=scales,
+            scales=scales, nval2d=nval2d,
         )
     code, label, scl = _row_type("stream_distances", vecs, scales)
     nq, t = blk2d.shape
     d = queries.shape[1]
-    args = [queries.contiguous(), cent.contiguous(), cid2d.to(torch.int32).contiguous(),
-            blk2d.to(torch.int32).contiguous(), bias2d.contiguous(), vecs, norms]
-    kb.require_cuda("stream_distances", *args, *([scl] if scl is not None else []))
+    i32 = torch.int32
+    args = [queries.contiguous(), cent.contiguous(), cid2d.to(i32).contiguous(),
+            blk2d.to(i32).contiguous()]
+    nval = None if nval2d is None else nval2d.to(i32).contiguous()
+    rest = [bias2d.contiguous(), vecs, norms]
+    kb.require_cuda("stream_distances", *args, *rest,
+                    *[x for x in (nval, scl) if x is not None])
+    nch, lpr, spb = stream_distances_plan(d, vecs.element_size(), t, chunk)
     out = torch.empty((nq, t, chunk), dtype=torch.float32, device=queries.device)
     kb.launch(
         f"stream_distances[{label}]", "vitorch_stream_distances",
-        *map(kb.ptr, args), kb.ptr(scl), nq, t, chunk, d, int(metric == "l2"), code,
-        kb.ptr(out), kb.stream_of(out),
+        *map(kb.ptr, args), kb.ptr(nval), *map(kb.ptr, rest), kb.ptr(scl), nq, t, chunk, d,
+        int(metric == "l2"), code, nch, lpr, spb, kb.ptr(out), kb.stream_of(out),
     )
     return out
 
@@ -442,10 +482,8 @@ def stream_fused_plane_reference(queries, cent, cid2d, blk2d, nval2d, bias2d, ve
     t_sub = t_fixed // FAN
     dist = stream_distances_reference(
         queries, cent, cid2d, blk2d, bias2d, vecs, norms, chunk=chunk, metric=metric,
-        scales=scales,
+        scales=scales, nval2d=nval2d,
     )
-    lane = torch.arange(chunk, device=dist.device)
-    dist = torch.where(lane[None, None, :] < nval2d[:, :, None], dist, float("inf"))
     inf = float("inf")
     bv = torch.full((nq, groups, chunk), inf, device=dist.device)
     bs = torch.full((nq, groups, chunk), -1, dtype=torch.int32, device=dist.device)
@@ -560,10 +598,8 @@ def block_stream_search(queries, table: StreamTable, probe, k: int, *,
         return _rows_of(dvals, ci, blk2d, table)
     dist = stream_distances(
         queries, table.cent, cid2d, blk2d, bias2d, table.vecs, table.norms,
-        chunk=chunk, metric=metric, scales=table.scales,
+        chunk=chunk, metric=metric, scales=table.scales, nval2d=nval2d,
     )
-    lane = torch.arange(chunk, device=dist.device)
-    dist = torch.where(lane[None, None, :] < nval2d[:, :, None], dist, float("inf"))
     dvals, ci = topk_smallest(dist.reshape(nq, t_fixed * chunk), k)
     return _rows_of(dvals, ci, blk2d, table)
 
