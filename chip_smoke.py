@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py            # on the first CUDA device
+    python3 chip_smoke.py                  # on the first CUDA device
+    python3 chip_smoke.py --kernels-only   # phases 1-3 only
+
+``--kernels-only`` stops after phase 3 and prints no JSON lines. Copied into
+the root of another checkout (an unpacked earlier commit), the script
+builds, checks and times that checkout's kernels with this script's code:
+the way two kernel designs are compared in one call.
 
 Phases (each prints its own lines; any failure exits non-zero):
 
@@ -15,12 +21,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    flat_sweep_minreduce at w 32; K6 ivf_gather_distances at n_probe 32)
    vs its plain PyTorch version on the same device inputs at the paths'
    shapes, with the tolerance stated beside it; l2 timed with CUDA
-   events (K1 and K2, whose wrappers take the host longer to issue than
-   the card to run, over a replayed CUDA graph of the calls, the event
-   loop beside it), ip checked; K2 with and without the slots' valid counts
-   (nval2d), K1 with at most 1e-3 of its labels different, each a
-   near-tie. It first prints nvcc's register, shared-memory and spill
-   report for every instantiation of K1, K2, K3 and K4. Each kernel gets its
+   events (K1, K2, K5 and K6, whose wrappers can take the host longer to
+   issue than the card to run, over a replayed CUDA graph of the calls,
+   the event loop beside it), ip checked; K2 with and without the slots'
+   valid counts (nval2d), K1 with at most 1e-3 of its labels different,
+   each a near-tie; K6 with the sharing factor of its probed lists. It
+   first prints nvcc's register, shared-memory and spill report for every
+   instantiation of K1-K6. Each kernel gets its
    bound (the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type) and, where one PyTorch call
    computes its product, that call's time (``library_ms``).
@@ -30,7 +37,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    and K3; recall and the share of the exact top-100 returned, against an
    exact ground truth computed on the card; a single-query
    ``VectorIndexer.search_sync`` self-hit; the peak device memory. The launch counters are reset just before this phase and read
-   just after it: every kernel must have run inside it. Then K1 (the
+   just after it: every kernel must have run inside it. Then the
+   hierarchical assignment (the build's route past nlist 8192) is timed
+   beside K1 at 1M x 16,384 x 128 with their label agreement, and K1 (the
    build's final assignment, 1M x 4,000 x 128), K3 (f32 / int8 / int8x1;
    masked at n_probe 128 with the dense program's query order, and
    unmasked), K4 (bf16 / int8, one query tile at n_probe 32) and K2 bf16
@@ -114,7 +123,7 @@ RTOL = 1e-5  # of the magnitude of the terms each distance is summed from
 K1_DIFF_SHARE = 1e-3
 # nvcc's register / spill report is printed for every instantiation of these.
 PTXAS_KERNELS = ("assign_argmin_kernel", "stream_distances_kernel", "flat_sweep_kernel",
-                 "stream_fused_plane_kernel")
+                 "stream_fused_plane_kernel", "stream_shared_plane_kernel", "ivf_gather_kernel")
 # Published peaks of one H100 SXM (dense, 700 W), for each kernel's bound:
 # the larger of its bytes over the memory rate and its operations over the
 # peak rate of their type (f32 outside the tensor cores; TF32 and s8 on them).
@@ -255,6 +264,25 @@ def sweep_bound(q, n_rows: int, mask, precision: str, out_bytes: int) -> dict:
     nbytes = rows * per_row + (0 if mask is None else mask.numel()) + q.numel() * 4 + out_bytes
     ops = (1 if precision == "int8x1" else 3) * 2.0 * pairs * d
     return bound(nbytes, ops, TF32_FLOP_S if precision == "highest" else INT8_OP_S)
+
+
+def shared_bound(table, tasks) -> dict:
+    """K5: each distinct block of the used tasks read once (rows and
+    norms), the used tasks' query rows, the whole plane written; per used
+    task 8 queries x chunk rows x d, as TF32 products on the tensor cores:
+    two (bf16 / int8 rows are exact in TF32 against the split query),
+    three for f32 rows (3xTF32)."""
+    import torch
+
+    q_share, d = tasks.qc.shape[1], tasks.qc.shape[2]
+    used = tasks.blk >= 0
+    n_used = int(used.sum())
+    n_blocks = int(torch.unique(tasks.blk[used]).numel())
+    item = table.vecs.element_size()
+    nbytes = (n_blocks * table.chunk * (d * item + 4) + n_used * q_share * d * 4
+              + tasks.qc.shape[0] * q_share * table.chunk * 4)
+    ops = (3 if item == 4 else 2) * 2.0 * n_used * q_share * table.chunk * d
+    return bound(nbytes, ops, TF32_FLOP_S)
 
 
 def library(torch, fn, what: str) -> dict:
@@ -588,7 +616,6 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
     from vector_indexer_tpu_torch.index.ivf import IvfIndex
     from vector_indexer_tpu_torch.kernels import build as kb
     from vector_indexer_tpu_torch.ops import assign, block_stream as bs, flat_sweep as fs
-    from vector_indexer_tpu_torch.ops import ivf_gather as ig
     from vector_indexer_tpu_torch.storage.vector_store import VectorStore
 
     for line in ptxas_lines(kb.build_info().get("log", ""), PTXAS_KERNELS):
@@ -687,20 +714,17 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
                       f"used tasks; max |err| {err:.3e}")
             if metric == "l2":
                 kw = dict(chunk=tb.chunk, metric=metric)
+                fn_k5 = lambda: bs.stream_shared_plane(*k5_args(tb, tasks), **kw)
                 used = tasks.blk >= 0
                 n_used = int(used.sum())
                 n_blocks = int(torch.unique(tasks.blk[used]).numel())
-                d = q.shape[1]
-                k5_bytes = (n_blocks * tb.chunk * (d * tb.vecs.element_size() + 4)
-                            + n_used * bs.Q_SHARE * d * 4 + tasks.qc.shape[0] * bs.Q_SHARE * tb.chunk * 4)
                 results[name] = dict(
-                    library_ms=None, library_call=None,
-                    **bound(k5_bytes, 2.0 * n_used * bs.Q_SHARE * tb.chunk * d, F32_FLOP_S),
-                    max_abs_err=err,
-                    ms=cuda_ms(torch, lambda: bs.stream_shared_plane(*k5_args(tb, tasks), **kw)),
+                    library_ms=None, library_call=None, **shared_bound(tb, tasks),
+                    max_abs_err=err, ms=graph_ms(torch, fn_k5), events_ms=cuda_ms(torch, fn_k5),
                     plain_ms=cuda_ms(torch, lambda: bs.stream_shared_plane_reference(
                         *k5_args(tb, tasks), **kw)),
-                    shape=f"t_cap={t_cap} (q_tile={q_tile}, n_probe={n_probe}) chunk={tb.chunk} d=128",
+                    shape=f"t_cap={t_cap} (q_tile={q_tile}, n_probe={n_probe}) chunk={tb.chunk} "
+                          f"d=128, {n_used} used tasks over {n_blocks} blocks",
                 )
     del tables
 
@@ -810,26 +834,77 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
                   f"max_len={max_len}, budget={budget}): equal rows and holes in every slot, "
                   f"distances within {RTOL:g}*(terms); max |err| {err:.3e}")
         errs.append(err)
-    kw = dict(max_len=max_len, budget=budget, metric="l2")
-    dk6, _ = ig.ivf_gather_distances(q, lay.vectors, starts, lengths, **kw)
-    list_rows = torch.zeros(n_rows + 1, dtype=torch.int64, device=q.device)
-    list_rows.scatter_(0, starts.flatten().long(), lengths.flatten().long())  # each list once
-    k6_bytes = int(list_rows.sum()) * q.shape[1] * 4 + q.numel() * 4 + dk6.numel() * 8
-    results["ivf_gather_distances"] = dict(
-        **bound(k6_bytes, 2.0 * float(lengths.sum()) * q.shape[1], F32_FLOP_S),
-        library_ms=None, library_call=None,
-        max_abs_err=max(errs),
-        ms=cuda_ms(torch, lambda: ig.ivf_gather_distances(q, lay.vectors, starts, lengths, **kw)),
-        plain_ms=cuda_ms(torch, lambda: ig.ivf_gather_distances_reference(
-            q, lay.vectors, starts, lengths, **kw)),
-        shape=f"nq={nqk} n_probe=32 budget={budget} max_len={max_len} d=128",
-    )
+    results["ivf_gather_distances"] = k6_entry(torch, q, lay.vectors, starts, lengths, max_len,
+                                               budget, max(errs))
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {r['library_ms']} ms"
             + (f", every lane {r['all_lanes_ms']:.3f} ms" if "all_lanes_ms" in r else "")
             + (f", event loop {r['events_ms']:.3f} ms" if "events_ms" in r else "")
             + f" ({r['shape']})")
+
+
+def k6_entry(torch, q, vectors, starts, lengths, max_len: int, budget: int, err: float) -> dict:
+    """K6 (l2) timed over a replayed CUDA graph of the whole wrapper (the
+    task inversion included), the event loop and the plain version beside
+    it; its bound counts each probed list once. The sharing factor is the
+    probed rows over the distinct lists' rows: how many queries read a list
+    on average."""
+    from vector_indexer_tpu_torch.ops import ivf_gather as ig
+
+    kw = dict(max_len=max_len, budget=budget, metric="l2")
+    fn = lambda: ig.ivf_gather_distances(q, vectors, starts, lengths, **kw)
+    dk6, _ = fn()
+    list_rows = torch.zeros(vectors.shape[0] + 1, dtype=torch.int64, device=q.device)
+    list_rows.scatter_(0, starts.flatten().long(), lengths.flatten().long())  # each list once
+    distinct = int(list_rows.sum())
+    k6_bytes = distinct * q.shape[1] * 4 + q.numel() * 4 + dk6.numel() * 8
+    sharing = float(lengths.sum()) / max(distinct, 1)
+    return dict(
+        **bound(k6_bytes, 2.0 * float(lengths.sum()) * q.shape[1], F32_FLOP_S),
+        library_ms=None, library_call=None, max_abs_err=err,
+        ms=graph_ms(torch, fn), events_ms=cuda_ms(torch, fn),
+        plain_ms=cuda_ms(torch, lambda: ig.ivf_gather_distances_reference(
+            q, vectors, starts, lengths, **kw)),
+        sharing=sharing,
+        shape=f"nq={q.shape[0]} n_probe={starts.shape[1]} budget={budget} max_len={max_len} "
+              f"d={q.shape[1]}, sharing factor {sharing:.2f}",
+    )
+
+
+def hierarchical_vs_k1(torch, xb_dev, check, n: int = N, k: int = 16_384):
+    """The build's assignment past nlist 8192 (``assign_points(method=
+    'hierarchical')``) beside K1 on n points x k centroids (random points
+    of the corpus, jittered): both times, their label agreement, and the
+    hierarchical labels' distances, which are never below K1's exact argmin
+    beyond rounding (RTOL of |x|^2 + |c|^2)."""
+    from vector_indexer_tpu_torch.kernels import build as kb
+    from vector_indexer_tpu_torch.models import kmeans
+    from vector_indexer_tpu_torch.ops import assign
+
+    x = xb_dev[:n]
+    g = torch.Generator(device=x.device).manual_seed(2)
+    cent = x[torch.randperm(x.shape[0], generator=g, device=x.device)[:k]]
+    cent = cent + 0.1 * torch.randn(cent.shape, generator=g, device=x.device)
+    kmeans.assign_points(x[:65536], cent, method="hierarchical")  # warm-up
+    torch.cuda.synchronize()
+    before = kb.launch_counts()["assign_argmin"]
+    t0 = time.perf_counter()
+    hl, hd = kmeans.assign_points(x, cent, method="hierarchical")
+    torch.cuda.synchronize()
+    h_ms = (time.perf_counter() - t0) * 1e3
+    k1_calls = kb.launch_counts()["assign_argmin"] - before
+    kl, kd = assign.assign_argmin(x, cent)
+    k_ms = cuda_ms(torch, lambda: assign.assign_argmin(x, cent), reps=3)
+    agree = float((hl == kl).float().mean())
+    terms = (x * x).sum(1) + (cent * cent).sum(1)[kl.long()]
+    ok = (bool(torch.isfinite(hd).all()) and k1_calls == 0
+          and bool((hd >= kd - RTOL * terms).all()))
+    check(ok, f"hierarchical assignment {n} x {k} x {x.shape[1]}: {h_ms:.1f} ms (host clock, "
+              f"meta Lloyd included; K1 not launched: {k1_calls == 0}) beside K1 {k_ms:.3f} ms; "
+              f"label agreement {agree:.4f}; no distance below K1's exact argmin beyond "
+              f"{RTOL:g}*(|x|^2+|c|^2)")
+    return dict(hierarchical_ms=h_ms, k1_ms=k_ms, agreement=agree)
 
 
 def _template_args(mangled_tail: str) -> str:
@@ -1103,6 +1178,7 @@ def main_phase(torch, np, xb, xq, check, dev, work, kernel_results):
     t0 = time.perf_counter()
     main_shape_kernels(torch, vi, xb, xq_dev, check, kernel_results)
     log(f"  main-shape kernel checks: {time.perf_counter() - t0:.2f}s")
+    hierarchical_vs_k1(torch, torch.as_tensor(xb, device=dev), check)
 
     # The same search on the CPU, where each kernel's wrapper runs its plain
     # version: the card's results (ranks 1..k) must be the plain path's.
@@ -1466,6 +1542,11 @@ def flat_gather_phase(torch, np, xb, xq, check, dev, work, gt):
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true", help="stop after phase 3")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -1504,6 +1585,10 @@ def main() -> int:
     log("== 3. kernels vs plain versions")
     results = {}
     kernel_phase(torch, np, xb, xq, check, results, dev)
+    if args.kernels_only:
+        if check.failures:
+            log(f"FAILED: {len(check.failures)} check(s): {check.failures}")
+        return 1 if check.failures else 0
 
     log("== 4. main path")
     work = ROOT / "build" / "chip_smoke_work"

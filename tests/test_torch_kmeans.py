@@ -112,4 +112,4 @@ def test_unported_trainers_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tk.run_kmeans_mini_batch(torch.zeros(4, 2), 2, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.assign_points(torch.zeros(4, 2), torch.zeros(9000, 2))
+        tk.run_kmeans_lloyd_host(torch.zeros(4, 2), 2, 1)

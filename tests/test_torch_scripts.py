@@ -43,3 +43,14 @@ def test_script_refuses_without_a_card(script):
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
     assert "no CUDA device" in res.stderr
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the no-card refusal")
+def test_smoke_kernels_only_refuses_without_a_card():
+    res = subprocess.run(
+        [sys.executable, "chip_smoke.py", "--kernels-only"], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert res.returncode != 0
+    assert "{" not in res.stdout
+    assert "no CUDA device" in res.stderr

@@ -57,3 +57,21 @@ def test_ptxas_report_names_each_instantiation():
     assert lines[0].startswith("flat_sweep_kernel<true,false,2,true>: Used 162 registers")
     assert lines[1].startswith("stream_fused_plane_kernel<false,int8,1,true>: Used 72 registers")
     assert "4 bytes spill stores" in lines[1]
+
+
+@pytest.mark.parametrize("dtype, products", [(torch.bfloat16, 2), (torch.int8, 2),
+                                             (torch.float32, 3)])
+def test_shared_bound_counts_distinct_blocks_and_tf32_products(dtype, products):
+    from types import SimpleNamespace
+
+    chunk, d, t_cap = 256, 128, 6
+    table = SimpleNamespace(chunk=chunk, vecs=torch.zeros((10 * chunk, d), dtype=dtype))
+    # Four used tasks over blocks 3, 3, 7 and 1; two unused tasks at the end.
+    tasks = SimpleNamespace(qc=torch.zeros((t_cap, 8, d)),
+                            blk=torch.tensor([3, 3, 7, 1, -1, -1], dtype=torch.int32))
+    item = table.vecs.element_size()
+    nbytes = 3 * chunk * (d * item + 4) + 4 * 8 * d * 4 + t_cap * 8 * chunk * 4
+    ops = products * 2.0 * 4 * 8 * chunk * d
+    b = cs.shared_bound(table, tasks)
+    assert b["bound_ms"] == pytest.approx(max(nbytes / cs.HBM_BYTES_S, ops / cs.TF32_FLOP_S) * 1e3)
+    assert b["bound_by"] == "bytes"  # at d 128 the tensor cores outrun the plane's bytes

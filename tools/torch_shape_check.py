@@ -8,7 +8,9 @@ runs the same checks (chip_smoke's ``check_k1`` .. ``check_k7``, same
 tolerances) over odd sizes (K1 also with every centroid duplicated, where
 the lower id must win each exact tie), dimensions, chunks, table types
 (K2 with and without the slots' valid counts; K2 bf16 /
-int8 / f32, K4 bf16 / int8, K5 bf16 / int8 / f32, K3 f32 / int8 /
+int8 / f32, K4 bf16 / int8, K5 bf16 / int8 / f32 at every stream d, with
+rows that are not 16-byte multiples and panels of 16 rows, and K5 alone on
+rows too wide for its 16-row ring (8- and 4-row panels), K3 f32 / int8 /
 int8x1, at d on both sides of each kernel's mode changes), windows, group counts,
 list lengths (K6: short and long lists,
 empty probes) and both metrics, then searches one saved index on the card
@@ -54,7 +56,12 @@ K1_D = (20, 100, 128, 768)
 STREAM_DIMS = (20, 32, 64, 96, 128, 512, 1024, 1100, 1536, 2048)
 STREAM_CHUNKS = (256, 512, 1024)
 STREAM_PROBES = (1, 5, 17)
-QUANT_DIMS = (32, 96, 128, 1024)  # dims of the int8 / f32 tables and of K5
+QUANT_DIMS = (32, 96, 128, 1024)  # dims of the int8 / f32 tables (K5 runs at every d)
+# K5 alone on rows whose two 16-row stages pass the 227 KB of shared memory
+# (f32 past d ~1800, bf16 past ~3600, int8 past ~7200): (d, table types).
+# f32 d 7200 takes one 8-row stage, d 10,000 one 4-row stage.
+K5_WIDE = ((2048, ("f32",)), (4096, ("bf16", "f32")), (7200, ("bf16", "int8", "f32")),
+           (10_000, ("f32",)))
 SEARCH_METHODS = ("stream", "stream_exact", "stream_shared", "stream_shared_exact", "dense",
                   "dense_exact", "auto", "flat", "flat_exact", "flat_fused", "flat_int8",
                   "flat_int8x1", "dense_int8", "dense_int8x1", "gather", "gather_dma")
@@ -129,13 +136,32 @@ def main() -> int:
                 if not exact:
                     ok, n_mism, err = check_k4(q, table, grid, metric)
                     check(ok, f"K4 {what}: {n_mism} near-tie slot differences, max |err| {err:.3e}")
-                if d in QUANT_DIMS:
-                    t_cap = bs.shared_task_cap(lengths, n_probe, len(q), grid["t_fixed"],
-                                               worst_case=exact, chunk=chunk)
-                    tasks = shared_tasks(q, table, c, c_sq, lengths, n_probe, grid["t_fixed"],
-                                         t_cap, metric)
-                    ok, err = check_k5(table, tasks, metric)
-                    check(ok, f"K5 {what} t_cap={t_cap}: max |err| {err:.3e}")
+                t_cap = bs.shared_task_cap(lengths, n_probe, len(q), grid["t_fixed"],
+                                           worst_case=exact, chunk=chunk)
+                tasks = shared_tasks(q, table, c, c_sq, lengths, n_probe, grid["t_fixed"],
+                                     t_cap, metric)
+                ok, err = check_k5(table, tasks, metric)
+                check(ok, f"K5 {what} t_cap={t_cap}: max |err| {err:.3e}")
+
+    dtypes = {"bf16": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}
+    for d, types in K5_WIDE:
+        xb, xq = ds.clustered(8192, d, 16, seed=d)
+        store = VectorStore(external_ids=np.arange(len(xb), dtype=np.uint64), vectors=xb)
+        idx = IvfIndex.fit(store, seed=1, nlist=16, max_iters=3, device=dev)
+        c, c_sq = idx._device_tables()
+        q = torch.as_tensor(xq, device=dev)
+        lengths = idx.layout.lengths
+        for chunk, mode, metric in itertools.product((256, 1024), types, ("l2", "ip")):
+            table = build_stream_table(idx.layout, idx.centroids, dtypes[mode], chunk=chunk)
+            exact = mode == "f32"
+            grid = stream_grid(q, table, c, c_sq, lengths, 5, metric, worst_case=exact)
+            t_cap = bs.shared_task_cap(lengths, 5, len(q), grid["t_fixed"], worst_case=exact,
+                                       chunk=chunk)
+            tasks = shared_tasks(q, table, c, c_sq, lengths, 5, grid["t_fixed"], t_cap, metric)
+            ok, err = check_k5(table, tasks, metric)
+            check(ok, f"K5 wide rows {mode} d={d} chunk={chunk} n_probe=5 {metric} t_cap={t_cap}: "
+                      f"max |err| {err:.3e}")
+    del xb, xq, idx, table, tasks
 
     print("== K3 flat_sweep_topk_plane", flush=True)
     for d in SWEEP_DIMS:

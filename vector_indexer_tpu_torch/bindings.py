@@ -15,8 +15,9 @@ bindings/python/src/lib.rs):
   * ``VectorIndex.offload(stream_dtype, rerank)``: free a loaded index's f32
     table and serve from the compact stream table.
 
-Both ``build`` and ``load`` take ``device`` (default: the first CUDA device
-if present, else the CPU).
+Both ``build`` and ``load`` take ``device``. ``None`` (the default) means
+``cuda:0`` and raises when there is no card; the CPU runs only when the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations

@@ -52,6 +52,7 @@ from .dispatch import (
     resolve,
     shared_gate,
     stream_itemsize,
+    stream_params,
 )
 
 log = logging.getLogger("vector_indexer_tpu_torch")
@@ -363,13 +364,23 @@ class IvfIndex:
         if dec.program in ("stream", "stream_shared"):
             centroids, c_sq = self._device_tables()
             st = self._stream_table(torch.float32 if dec.exact else self.stream_dtype)
+            t_fixed, q_tile, t_cap = dec.t_fixed, dec.q_tile, dec.t_cap
+            if st.chunk != dec.chunk:
+                # The Decision sizes against the chunk pick_chunk gives; a
+                # table built with another chunk is re-sized to its own
+                # blocks (reference ivf.py:1321-1330).
+                _, t_fixed, q_tile, t_cap = stream_params(
+                    np.asarray(lay.lengths), self.dimension, st.vecs.element_size(), nq,
+                    n_probe, exact=dec.exact, shared=dec.program == "stream_shared",
+                    chunk=st.chunk,
+                )
             # int8 on a device-resident index: exact f32 re-rank of the
             # shortlist (an offloaded index re-ranks in index/offload.py).
             rerank = st.dtype == torch.int8 and not self.offloaded
             return programs.stream_program(
-                q, centroids, c_sq, st, k=k, n_probe=n_probe, t_fixed=dec.t_fixed,
-                q_tile=dec.q_tile, metric=metric, approx=not dec.exact,
-                shared=dec.program == "stream_shared", t_cap=dec.t_cap,
+                q, centroids, c_sq, st, k=k, n_probe=n_probe, t_fixed=t_fixed,
+                q_tile=q_tile, metric=metric, approx=not dec.exact,
+                shared=dec.program == "stream_shared", t_cap=t_cap,
                 rerank_from=(lay.vectors, lay.row_norms) if rerank else None,
             )
         if dec.program in ("gather", "gather_dma"):

@@ -12,20 +12,23 @@ Port of the Lloyd slice of ``vector_indexer_tpu/models/kmeans.py``:
   one-hot matmul: the same sums in another order);
 * empty clusters are re-seeded from random points every iteration and the
   loop stops when the RMS centroid move falls below ``tol``;
-* the final assignment of all points goes through kernel K1 at large n*k.
+* the final assignment of all points goes through kernel K1 at large n*k,
+  and through the two-level (hierarchical) assignment past k = 8192, as in
+  the reference (kmeans.py:187-305).
 
 Random draws come from a ``torch.Generator`` seeded from ``seed``. They
 differ from the reference's jax.random streams by design, so the seeded
 steps are held to the reference statistically (inertia, recovery) and the
 Lloyd iterations from a shared init.
 
-The mini-batch, balanced, sampled, host-resident and hierarchical trainers
-are not ported yet (ROADMAP Queue 1 item 14) and raise.
+The mini-batch, balanced, sampled and host-resident trainers are not
+ported yet (ROADMAP Queue 1 item 6) and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -37,6 +40,10 @@ _SAMPLE_THRESHOLD = 50_000  # exact vs sampled k-means++ switch
 _DEFAULT_TOL = 1e-4
 _ASSIGN_CHUNK = 8192
 _HIERARCHICAL_K_THRESHOLD = 8192
+# The hierarchical assignment bounds its (chunk, probes * g_max, d)
+# candidate gather to about this many bytes (two copies, as the reference
+# counts them).
+_HIERARCHICAL_TILE_CAP = 2 << 30
 
 
 @dataclasses.dataclass
@@ -145,7 +152,8 @@ def _assign_dense(data, centroids, chunk: int = _ASSIGN_CHUNK):
 def assign_points(data, centroids, method: str = "auto", chunk: int = _ASSIGN_CHUNK):
     """labels (int32), sq_dists = nearest centroid per point.
 
-    ``auto`` takes kernel K1 when the (n, k) score plane is large
+    ``auto`` takes the two-level assignment past k = 8192 (the reference's
+    threshold), else kernel K1 when the (n, k) score plane is large
     (n*k >= 2^26 and k >= 512, the reference's gate) and the tiled
     matmul + argmin otherwise. On a CPU tensor K1's wrapper runs its plain
     version."""
@@ -163,11 +171,77 @@ def assign_points(data, centroids, method: str = "auto", chunk: int = _ASSIGN_CH
     if method == "kernel":
         return assign_argmin(data, centroids)
     if method == "hierarchical":
-        raise NotImplementedError(
-            "hierarchical assignment (k > 8192) is not ported yet "
-            "(ROADMAP Queue 1 item 14)"
-        )
+        return assign_points_hierarchical(data, centroids, chunk=chunk)
     raise ValueError(f"unknown assignment method: {method}")
+
+
+def assign_points_hierarchical(data, centroids, seed: int = 42, probes: int = 3,
+                               chunk: int = _ASSIGN_CHUNK):
+    """Two-level assignment: each point probes its ``probes`` nearest meta
+    centroids and takes the argmin over their member centroids only.
+
+    The reference's parameters (models/kmeans.py:223-276): meta_k =
+    clamp(sqrt(k), 2, k/2); the meta clustering is 5 Lloyd iterations over
+    the centroid table with seed ``seed*17+42``; the member table is padded
+    to (meta_k, g_max) with -1 holes; the (chunk, probes*g_max, d) candidate
+    gather is capped near 2 GiB (the chunk rounded down to 256). A point's
+    label can differ from the exact argmin where its nearest centroid sits
+    in a group it did not probe."""
+    data = _check_data(data)
+    centroids = centroids.to(torch.float32)
+    k = centroids.shape[0]
+    meta_k = max(2, min(int(math.sqrt(k)), k // 2))
+    probes = min(probes, meta_k)
+    meta = run_kmeans_lloyd(centroids, meta_k, max_iters=5, seed=seed * 17 + 42,
+                            early_stop_threshold=0.0)
+    table = member_table(meta.labels, meta_k)
+    per_point = 2 * probes * table.shape[1] * data.shape[1] * 4
+    if chunk * per_point > _HIERARCHICAL_TILE_CAP:
+        chunk = max(256, _HIERARCHICAL_TILE_CAP // per_point // 256 * 256)
+    return _assign_hierarchical(data, centroids, meta.centroids, table, probes=probes,
+                                chunk=chunk)
+
+
+def member_table(meta_labels: torch.Tensor, meta_k: int) -> torch.Tensor:
+    """(meta_k, g_max) int64 centroid ids of each meta group in id order,
+    -1 past a group's end."""
+    lbl = meta_labels.long()
+    counts = torch.bincount(lbl, minlength=meta_k)
+    g_max = max(1, int(counts.max()))
+    order = torch.argsort(lbl, stable=True)  # ids grouped, ascending within a group
+    first = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(lbl.shape[0], device=lbl.device) - first[lbl[order]]
+    table = torch.full((meta_k, g_max), -1, dtype=torch.int64, device=lbl.device)
+    table[lbl[order], slot] = order
+    return table
+
+
+def _assign_hierarchical(data, centroids, meta_centroids, table, *, probes: int, chunk: int):
+    """The deterministic half of ``assign_points_hierarchical`` (the
+    reference's ``_assign_hierarchical_jit``): per tile of ``chunk`` points,
+    the ``probes`` nearest meta centroids (ties to the lower id), the
+    candidates of their groups, and the argmin (first candidate on a tie)
+    of |x|^2 - 2 x.c + |c|^2 clamped at 0 (+inf on holes). The cross term
+    is one batched f32 product (TF32 stays off, PyTorch's default: the
+    reference's HIGHEST precision). -> (labels int32, dists f32)."""
+    table = table.to(device=data.device, dtype=torch.int64)
+    c_sq = sq_norms(centroids)
+    m_sq = sq_norms(meta_centroids)
+    labels, dists = [], []
+    for s in range(0, data.shape[0], chunk):
+        xt = data[s : s + chunk]
+        dmeta = pairwise_sq_l2(xt, meta_centroids, c_sq=m_sq)
+        top = torch.topk(dmeta, probes, dim=1, largest=False, sorted=True).indices
+        cand = table[top].reshape(xt.shape[0], -1)  # (chunk, probes * g_max)
+        valid = cand >= 0
+        cand = cand.clamp_min(0)
+        cross = torch.bmm(centroids[cand], xt[:, :, None])[:, :, 0]
+        dist = sq_norms(xt)[:, None] - 2.0 * cross + c_sq[cand]
+        dist = torch.where(valid, dist.clamp_min(0.0), float("inf"))
+        m, best = torch.min(dist, dim=1)  # first index among equal minima
+        labels.append(cand.gather(1, best[:, None])[:, 0].to(torch.int32))
+        dists.append(m)
+    return torch.cat(labels), torch.cat(dists)
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +341,7 @@ def compute_inertia(data, centroids, labels) -> float:
 def _not_ported(name: str):
     def fn(*args, **kwargs):
         raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP Queue 1 item 14)"
+            f"{name} is not ported yet (ROADMAP Queue 1 item 6)"
         )
 
     fn.__name__ = name
@@ -278,4 +352,3 @@ run_kmeans_mini_batch = _not_ported("run_kmeans_mini_batch")
 run_kmeans_balanced = _not_ported("run_kmeans_balanced")
 run_kmeans_lloyd_sampled = _not_ported("run_kmeans_lloyd_sampled")
 run_kmeans_lloyd_host = _not_ported("run_kmeans_lloyd_host")
-assign_points_hierarchical = _not_ported("assign_points_hierarchical")
