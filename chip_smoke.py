@@ -70,9 +70,32 @@ Phases (each prints its own lines; any failure exits non-zero):
    launch check on the phase's counters (every new mode but K7, which no
    serving path runs), and 200 queries again on the CPU for 'flat',
    'flat_int8', 'dense_int8' and 'gather_dma'.
+7. Spill (on phase 4's corpus): ``bindings.build(xb, spill=1)`` (build
+   seconds; 2n posting entries), the secondary cells of 1,024 sampled
+   points against an f64 SOAR argmin on the card (near-ties aside),
+   ``auto`` at n_probe 8 / 32 / 128 (the (1+spill)k-wide routes; QPS by
+   CUDA events, R@1/10/100 against phase 4's ground truth, no repeated id
+   in a row, R@10 at n_probe 8 >= phase 4's unspilled R@10 - 0.01), K3
+   on the doubled table (``dense_fused`` at k 50: at k 100 the 200-wide
+   shortlist has no fused plan in either package), the peak device memory,
+   the saved index loaded back (the same results), offloaded with the
+   host and device re-ranks (phase 5's gates, no repeated id) and with
+   none, a launch check (K1, K2 bf16 / int8, K4 bf16 / int8, K3) and 200
+   queries again on the CPU.
+8. Host residency (same corpus): ``IvfIndex.fit(resident='host',
+   train_sample=500,000)`` (fit seconds, peak device memory; afterwards
+   the device holds < 1/4 of the f32 table's bytes; K1 launched in the
+   fit), the saved index loaded with ``resident='host'`` and served
+   ``staged`` in f32 at n_probe 8 / 32, nq 1000 and 16 (QPS by host clock,
+   packing included; staged MiB per batch), held to the device-resident
+   exact dense program's sets (>= 0.99 of queries, distances within
+   RTOL), bf16 and int8 staging (>= 0.99 top-100 overlap with f32 after
+   the exact host re-rank), phase 7's spilled index staged (no repeated
+   id) and 200 queries again on the CPU.
 
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object describing each kernel (its
+``launches`` from the phase that must launch it, and ``launches_by_phase``
+for phases 4-8); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -171,6 +194,23 @@ PHASE6_RUNS = (("flat", 1), ("flat_exact", 1), ("flat_int8", 1), ("flat_int8x1",
                ("gather_dma", 8), ("gather_dma", 32))
 PHASE6_TWINS = (("flat", 1), ("flat_int8", 1), ("flat_int8x1", 1), ("dense_int8", 128),
                 ("dense_int8x1", 128), ("gather_dma", 32))
+# Phase 7 (spill): the n_probe values of 'auto', the spill check's sample,
+# how far the spilled R@10 at n_probe 8 may trail the unspilled one, and the
+# k at which the masked sweep (K3) runs on the doubled table (at k 100 the
+# widened shortlist of 200 has no fused plan, in either package).
+SPILL_N_PROBES = (8, 32, 128)
+SOAR_POINTS = 1024
+SPILL_R10_SLACK = 0.01
+SPILL_K3_K = 50
+SPILL_KERNELS = ("assign_argmin", "stream_distances[bf16]", "stream_distances[int8]",
+                 "stream_fused_plane[bf16]", "stream_fused_plane[int8]", "flat_sweep_topk_plane")
+# Phase 8 (host residency): the host fit's training sample; staged f32 must
+# return the device-resident exact dense program's sets on this share of
+# queries, and bf16 / int8 staging (after the exact host re-rank) this
+# top-100 overlap with f32 staging.
+HOST_TRAIN_SAMPLE = 500_000
+STAGED_SAME_FLOOR = 0.99
+STAGED_QUANT_FLOOR = 0.99
 FLAT_EXACT_FLOOR = 0.999
 FLAT_R1_FLOOR = 0.99
 INT8_TOP10_FLOORS = {"flat_int8": 0.97, "flat_int8x1": 0.85}
@@ -1206,7 +1246,8 @@ def main_phase(torch, np, xb, xq, check, dev, work, kernel_results):
               f"{float(err.max()):.3e}); equal top-{k} row sets on {same:.4f} of queries "
               f"(>= {TWIN_SAME_FLOOR})")
     log(f"  CPU comparison: {time.perf_counter() - t0:.2f}s")
-    return counts, {n_probe: overlap for n_probe, _, _, _, overlap in table}, gt
+    return counts, {n_probe: overlap for n_probe, _, _, _, overlap in table}, gt, \
+        {n_probe: rec[10] for n_probe, _, _, rec, _ in table}
 
 
 # ---------------------------------------------------------------------------
@@ -1459,7 +1500,7 @@ def offload_phase(torch, np, xb, xq, check, dev, work, p4_overlap):
                   f"{NQ_TWIN} queries: every rank within {RTOL:g}*(|q|^2+max|x|^2) (max |err| "
                   f"{float(err.max()):.3e}); equal top-{k} sets on {same:.4f} (>= {TWIN_SAME_FLOOR})")
     log(f"  CPU comparison: {time.perf_counter() - t0:.2f}s")
-    return {name: counts[name] for name in OFFLOAD_KERNELS}
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1538,7 +1579,392 @@ def flat_gather_phase(torch, np, xb, xq, check, dev, work, gt):
               f"{float(err.max()):.3e}); equal top-{k} row sets on {same:.4f} of queries "
               f"(>= {TWIN_SAME_FLOOR})")
     log(f"  CPU comparison: {time.perf_counter() - t0:.2f}s")
-    return {name: counts[name] for name in PHASE6_KERNELS}
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: a spilled (SOAR) index
+# ---------------------------------------------------------------------------
+
+
+def no_dup_rows(np, I) -> bool:
+    """No row of an (nq, k) id array repeats an id (-1 holes aside)."""
+    s = np.sort(I, axis=1)
+    return not bool(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any())
+
+
+def soar_check(torch, np, xb, idx, check, dev, npts: int = SOAR_POINTS):
+    """The spill cells of ``npts`` sampled points against an f64 SOAR argmin
+    on the card. A point's two cells come from the layout; its primary is
+    the one nearer in f64 (the build's K1 label, up to a near-tie)."""
+    lay = idx.layout
+    sample = np.random.default_rng(7).choice(xb.shape[0], npts, replace=False)
+    lengths = lay.lengths.astype(np.int64)
+    first_entry = np.cumsum(lengths) - lengths
+    rows = np.repeat(lay.offsets[:-1] - first_entry, lengths) + np.arange(int(lengths.sum()))
+    cells_of_entry = np.repeat(np.arange(len(lengths)), lengths)
+    ids = lay.perm[rows]
+    where = {int(i): [] for i in sample}
+    for e in np.flatnonzero(np.isin(ids, sample)):
+        where[int(ids[e])].append(int(cells_of_entry[e]))
+    two = all(len(v) == 2 and v[0] != v[1] for v in where.values())
+    check(two, f"spill: each of {npts} sampled points sits in two different cells")
+    if not two:
+        return
+    x = torch.as_tensor(xb[sample], device=dev, dtype=torch.float64)
+    c = torch.as_tensor(idx.centroids, device=dev, dtype=torch.float64)
+    # f64 expansion: its rounding (~1e-12 of the terms) is far below RTOL.
+    d = (x * x).sum(1)[:, None] - 2.0 * (x @ c.T) + (c * c).sum(1)[None, :]  # (npts, kc)
+    cells = torch.as_tensor(np.array([where[int(i)] for i in sample]), device=dev)
+    dp = d.gather(1, cells)
+    first = dp[:, 0] <= dp[:, 1]
+    prim = torch.where(first, cells[:, 0], cells[:, 1])
+    sec = torch.where(first, cells[:, 1], cells[:, 0])
+    r = x - c[prim]
+    proj = (x * r).sum(1)[:, None] - r @ c.T
+    lam = 1.0  # the build's spill_lambda
+    score = d + lam * proj * proj / (r * r).sum(1).clamp_min(1e-12)[:, None]
+    score[torch.arange(npts, device=dev), prim] = float("inf")
+    best = score.argmin(1)
+    scale = (x * x).sum(1) + (c * c).sum(1).max()  # the terms' magnitude
+    gap_p = dp.min(1).values - d.min(1).values
+    gap_s = score.gather(1, sec[:, None])[:, 0] - score.gather(1, best[:, None])[:, 0]
+    tie = RTOL * scale
+    agree = int((best == sec).sum())
+    bad = int(((gap_p > tie) | ((best != sec) & (gap_s > tie))).sum())
+    log(f"  SOAR check on {npts} points (f64 on the card): secondary = f64 SOAR argmin on "
+        f"{agree}, near-ties (score gap <= {RTOL:g}*(|x|^2+max|c|^2)) on {npts - agree - bad}")
+    check(bad == 0, f"spill: every secondary differs from its primary and is the f64 SOAR "
+                    f"argmin but for near-ties ({bad} not)")
+
+
+def spill_phase(torch, np, xb, xq, check, dev, work, p4):
+    """Phase 7: ``bindings.build(xb, spill=1)`` on phase 4's corpus, then
+    ``auto`` at n_probe 8 / 32 / 128 and K3 on the doubled table, the save
+    / load round trip, the offloaded re-ranks, the launch check and a CPU
+    twin. Returns the phase's launch counts; the index stays in ``work``
+    for phase 8."""
+    from vector_indexer_tpu_torch import bindings
+    from vector_indexer_tpu_torch.index.dispatch import resolve
+    from vector_indexer_tpu_torch.index.ivf import load_index_from
+    from vector_indexer_tpu_torch.index.programs import shortlist_k
+    from vector_indexer_tpu_torch.kernels import build as kb
+    from vector_indexer_tpu_torch.ops.block_stream import fused_engages
+    from vector_indexer_tpu_torch.utils import tracing
+
+    k, d, nq, n = K, xb.shape[1], xq.shape[0], xb.shape[0]
+    gt = p4["gt"]
+    idx_dir, sh_dir = str(work / "index"), str(work / "shards")
+    gc_collect(torch)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tracing.reset_phases()
+    kb.reset_launch_counts()  # counts from here on belong to phase 7
+
+    t0 = time.perf_counter()
+    vi = bindings.build(xb, str(work), spill=1, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ph = {p: v["total_s"] for p, v in tracing.phase_report().items()}
+    ix = vi.index
+    lay = ix.layout
+    log(f"  spilled build: {build_s:.2f}s total; fit.kmeans {ph.get('fit.kmeans', 0):.2f}s, "
+        f"fit.spill {ph.get('fit.spill', 0):.2f}s, fit.layout {ph.get('fit.layout', 0):.2f}s, "
+        f"save.shards {ph.get('save.shards', 0):.2f}s; nlist={ix.num_clusters}; "
+        f"{int(lay.lengths.sum())} posting entries, {lay.vectors.shape[0]} table rows, "
+        f"max list {lay.max_list_len}")
+    check(int(lay.lengths.sum()) == 2 * n and lay.n == n,
+          f"spill: {int(lay.lengths.sum())} posting entries = 2n = {2 * n}")
+    soar_check(torch, np, xb, ix, check, dev)
+
+    xq_dev = torch.as_tensor(xq, device=dev)
+    max_norm = float(np.max(np.sum(xb * xb, axis=1)))
+    scale = np.sum(xq * xq, axis=1) + max_norm
+    res = {}
+    for n_probe in SPILL_N_PROBES:
+        dec = resolve(ix, nq, n_probe, k=2 * k)
+        if dec.program == "stream":
+            kk = shortlist_k(2 * k, dec.t_fixed, dec.chunk)
+            route = "stream/K4" if fused_engages(dec.t_fixed, dec.chunk, kk) else "stream/K2"
+        else:
+            route = dec.program + ("/K3" if dec.program == "dense_fused" else "")
+        D, R = vi.search_device(xq_dev, k, n_probe)  # warm-up (builds the bf16 table once)
+        torch.cuda.synchronize()
+        ms = cuda_ms(torch, lambda: vi.search_device(xq_dev, k, n_probe), reps=3)
+        Dn, Rn = D.cpu().numpy(), R.cpu().numpy()
+        I = vi.rows_to_external(Rn)
+        r1, r10, r100, ov = quality(np, I, gt, k)
+        res[n_probe] = (Dn, Rn, r10, ov)
+        log(f"  spilled auto n_probe={n_probe:4d} (kk {2 * k}) program={dec.program:11s} "
+            f"route={route:16s} batch {ms:8.3f} ms  QPS {nq / ms * 1e3:10.1f}  R@1 {r1:.4f} "
+            f"R@10 {r10:.4f} R@100 {r100:.4f} top-{k} overlap {ov:.4f}  (unspilled R@10 "
+            f"{p4['r10'].get(n_probe, float('nan')):.4f}, overlap "
+            f"{p4['overlap'].get(n_probe, float('nan')):.4f})"
+            + (f"  t_fixed={dec.t_fixed}" if dec.program == "stream" else ""))
+        check(bool(np.isfinite(Dn).all()) and Dn.shape == (nq, k) and no_dup_rows(np, I),
+              f"spilled n_probe={n_probe}: finite ({nq}, {k}) result, no repeated id in a row")
+    r10_8, base_8 = res[8][2], p4["r10"][8]
+    check(r10_8 >= base_8 - SPILL_R10_SLACK,
+          f"spilled R@10 at n_probe 8 {r10_8:.4f} >= unspilled {base_8:.4f} - {SPILL_R10_SLACK}")
+    # R@10 is 1.0 unspilled on this corpus; the top-100 overlap at n_probe
+    # 32 is where the secondary cells show.
+    ov_32, base_ov_32 = res[32][3], p4["overlap"][32]
+    check(ov_32 >= base_ov_32,
+          f"spilled top-{k} overlap at n_probe 32 {ov_32:.4f} >= unspilled {base_ov_32:.4f}")
+
+    # K3 on the doubled table. At k 100 the widened shortlist (200) has no
+    # fused plan in either package (the plane's tail-loss bound fails at
+    # C 8), so 'auto' takes K3 only at k <= 50; the masked f32 sweep runs
+    # here at k 50 (kk 100) through the same entry point.
+    k3 = SPILL_K3_K
+    dec3 = resolve(ix, nq, 128, k=2 * k3, method="dense_fused")
+    D3, R3 = vi.search_device(xq_dev, k3, 128, method="dense_fused")
+    torch.cuda.synchronize()
+    ms3 = cuda_ms(torch, lambda: vi.search_device(xq_dev, k3, 128, method="dense_fused"), reps=3)
+    D3n, R3n = D3.cpu().numpy(), R3.cpu().numpy()
+    I3 = vi.rows_to_external(R3n)
+    ov3 = float(np.mean([len(np.intersect1d(a, b[:k3])) for a, b in zip(I3, gt)]) / k3)
+    log(f"  spilled dense_fused n_probe=128 k={k3} (kk {2 * k3}) program={dec3.program} "
+        f"plan(w,_,C)={dec3.plan}: batch {ms3:8.3f} ms  QPS {nq / ms3 * 1e3:10.1f}  top-{k3} "
+        f"overlap {ov3:.4f}")
+    check(dec3.program == "dense_fused" and bool(np.isfinite(D3n).all()) and no_dup_rows(np, I3)
+          and ov3 >= OVERLAP_FLOOR,
+          f"spilled K3 (masked, {lay.vectors.shape[0]} rows): finite, no repeated id, top-{k3} "
+          f"overlap {ov3:.4f} >= {OVERLAP_FLOOR}")
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    log(f"  peak device memory (max_memory_allocated) over the spilled build and searches: "
+        f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held at the phase's start "
+        f"(the f32 table alone: {lay.vectors.shape[0] * d * 4 / 2**30:.3f} GiB)")
+
+    # Save (the build did) and load back: the same results.
+    vl = bindings.load(idx_dir, sh_dir, d, device=dev)
+    check(vl.index.spill == 1 and int(vl.index.layout.lengths.sum()) == 2 * n,
+          "spilled load: spill 1 and 2n posting entries")
+    for n_probe in (8, 32):
+        D, R = vl.search_device(xq_dev, k, n_probe)
+        Dn, In = D.cpu().numpy(), vl.rows_to_external(R)
+        Ib = vi.rows_to_external(res[n_probe][1])
+        same = float((np.sort(In, 1) == np.sort(Ib, 1)).all(axis=1).mean())
+        err = float(np.abs(Dn - res[n_probe][0]).max())
+        check(same >= GATHER_SAME_FLOOR and err <= RTOL * float(scale.min()),
+              f"spilled load n_probe={n_probe}: the built index's sets on {same:.4f} of queries "
+              f"(>= {GATHER_SAME_FLOOR}), max |dD| {err:.3e}")
+    del vl
+
+    # Offloaded: host and device re-ranks (K2 int8: the (1+spill) x 400-row
+    # shortlist is past K4's groups), then 'none' (K2 / K4 int8).
+    host_ov, off_twin = {}, {}
+    for rerank in ("host", "device"):
+        ixo = load_index_from(idx_dir, sh_dir, resident="offload", device=dev,
+                              offload_rerank=rerank)
+        for n_probe in (8, 32):
+            ms = host_ms(torch, lambda: ixo.search_batch(xq, k, n_probe))
+            D, Ii = ixo.search_batch(xq, k, n_probe)
+            I = np.where(Ii >= 0, ixo.external_ids[np.clip(Ii, 0, None)].astype(np.int64), -1)
+            r1, r10, r100, ov = quality(np, I, gt, k)
+            ex = exact_dist(np, xb, xq, I)
+            err = np.abs(D.astype(np.float64) - ex)
+            rel = float(np.nanpercentile(err / np.maximum(ex, 1e-12), 99))
+            log(f"  spilled offload {rerank:6s} n_probe={n_probe:3d}: {ms:8.3f} ms/batch host "
+                f"clock, QPS {nq / ms * 1e3:9.1f}  R@10 {r10:.4f} top-{k} overlap {ov:.4f} "
+                f"(device-resident {res[n_probe][3]:.4f}); p99 relative error {rel:.3e}")
+            # Phase 5's gates: the host re-rank is exact and keeps the
+            # device-resident overlap; the device re-rank is within its p99
+            # error and keeps the host re-rank's overlap.
+            if rerank == "host":
+                host_ov[n_probe] = ov
+                off_twin[("host", n_probe)] = (D[:NQ_TWIN], Ii[:NQ_TWIN])
+                dist_ok = bool((err <= RTOL * scale[:, None]).all())
+                what = f"exact distances, overlap {ov:.4f} >= device-resident"
+                ov_ref = res[n_probe][3]
+            else:
+                dist_ok = rel <= DEVICE_RERANK_P99_REL
+                what = (f"p99 relative error <= {DEVICE_RERANK_P99_REL:g}, overlap {ov:.4f} "
+                        ">= host re-rank")
+                ov_ref = host_ov[n_probe]
+            check(no_dup_rows(np, I) and dist_ok and ov >= ov_ref - OFFLOAD_OVERLAP_SLACK,
+                  f"spilled offload {rerank} n_probe={n_probe}: no repeated id, {what} "
+                  f"{ov_ref:.4f} - {OFFLOAD_OVERLAP_SLACK}")
+        del ixo
+    ixn = load_index_from(idx_dir, sh_dir, resident="offload", device=dev,
+                          offload_rerank="none")
+    for n_probe in (8, 32):
+        _, Ii = ixn.search_batch(xq, k, n_probe)
+        I = np.where(Ii >= 0, ixn.external_ids[np.clip(Ii, 0, None)].astype(np.int64), -1)
+        r10 = quality(np, I, gt, k)[1]
+        check(no_dup_rows(np, I) and r10 >= NONE_R10_FLOOR,
+              f"spilled offload none n_probe={n_probe}: no repeated id, R@10 {r10:.4f} >= "
+              f"{NONE_R10_FLOOR}")
+        Dc, Rc = ixn.search_batch_device(xq[:NQ_TWIN], k, n_probe)
+        off_twin[("none", n_probe)] = (Dc.cpu().numpy(), ixn.rows_to_internal(Rc.cpu().numpy()))
+    del ixn
+    torch.cuda.synchronize()
+    counts = kb.launch_counts()
+    log(f"  launch counts in phase 7: {counts}")
+    for name in SPILL_KERNELS:
+        check(counts[name] > 0, f"{name} launched in phase 7 ({counts[name]}x)")
+
+    # The same searches on the CPU (plain versions), rank by rank.
+    t0 = time.perf_counter()
+    vc = bindings.load(idx_dir, sh_dir, d, device="cpu")
+    qs = xq[:NQ_TWIN]
+    runs = [(n_probe, k, "auto", res[n_probe][:2]) for n_probe in (8, 32)]
+    runs.append((128, k3, "dense_fused", (D3n, R3n)))
+    for n_probe, kq, method, (Dc, Rc) in runs:
+        Dp, Rp = (a.numpy() for a in vc.index.search_batch_device(qs, kq, n_probe,
+                                                                  method=method))
+        Dc, Rc = Dc[:NQ_TWIN], Rc[:NQ_TWIN]
+        err = np.abs(Dc - Dp)
+        # Ids, not rows: a vector's two rows score within rounding of each
+        # other, so the card and the CPU may keep different copies.
+        Ic, Ip = ix.rows_to_internal(Rc), vc.index.rows_to_internal(Rp)
+        same = (np.sort(Ic, 1) == np.sort(Ip, 1)).all(axis=1).mean()
+        check(bool(np.isfinite(Dp).all()) and bool((err <= RTOL * scale[:NQ_TWIN, None]).all())
+              and same >= TWIN_SAME_FLOOR,
+              f"spilled {method} n_probe={n_probe} k={kq}: card vs plain versions on the CPU, "
+              f"{NQ_TWIN} queries: every rank within {RTOL:g}*(|q|^2+max|x|^2) (max |err| "
+              f"{float(err.max()):.3e}); equal sets on {same:.4f} (>= {TWIN_SAME_FLOOR})")
+    del vc
+    # The offloaded index: 'host' (search_batch) and 'none' (the int8
+    # sweep's own ranking, search_batch_device), as in phase 5.
+    vco = load_index_from(idx_dir, sh_dir, resident="offload", device="cpu")
+    for (mode, n_probe), (Dc, Ic) in off_twin.items():
+        if mode == "host":
+            Dp, Ip = vco.search_batch(qs, k, n_probe)
+        else:
+            Dp, Rp = vco.search_batch_device(qs, k, n_probe)
+            Dp, Ip = Dp.numpy(), vco.rows_to_internal(Rp.numpy())
+        err = np.abs(Dc - Dp)
+        same = (np.sort(Ic, 1) == np.sort(Ip, 1)).all(axis=1).mean()
+        check(bool(np.isfinite(Dp).all()) and bool((err <= RTOL * scale[:NQ_TWIN, None]).all())
+              and same >= TWIN_SAME_FLOOR and no_dup_rows(np, Ip),
+              f"spilled offload {mode} n_probe={n_probe}: card vs plain versions on the CPU, "
+              f"{NQ_TWIN} queries: every rank within {RTOL:g}*(|q|^2+max|x|^2) (max |err| "
+              f"{float(err.max()):.3e}); equal id sets on {same:.4f} (>= {TWIN_SAME_FLOOR}); no "
+              f"repeated id")
+    del vco
+    log(f"  CPU comparison: {time.perf_counter() - t0:.2f}s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the host-resident build and staged serving
+# ---------------------------------------------------------------------------
+
+
+def host_phase(torch, np, xb, xq, check, dev, work, spill_work, gt):
+    """Phase 8: ``IvfIndex.fit(resident='host', train_sample=...)`` with its
+    device memory, then staged serving of the saved index (f32, bf16,
+    int8) against the device-resident exact dense program, phase 7's
+    spilled index staged, and a CPU twin. Returns the phase's counts."""
+    from vector_indexer_tpu_torch import bindings
+    from vector_indexer_tpu_torch.index.ivf import IvfIndex
+    from vector_indexer_tpu_torch.kernels import build as kb
+    from vector_indexer_tpu_torch.storage.vector_store import VectorStore
+
+    k, d, n = K, xb.shape[1], xb.shape[0]
+    idx_dir, sh_dir = str(work / "index"), str(work / "shards")
+    gc_collect(torch)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kb.reset_launch_counts()  # counts from here on belong to phase 8
+
+    store = VectorStore(external_ids=np.arange(n, dtype=np.uint64), vectors=xb)
+    t0 = time.perf_counter()
+    hix = IvfIndex.fit(store, resident="host", train_sample=HOST_TRAIN_SAMPLE, device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    gc_collect(torch)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    held = torch.cuda.memory_allocated(dev) - base
+    table = hix.layout.vectors.shape[0] * d * 4
+    k1 = kb.launch_counts()["assign_argmin"]
+    log(f"  host fit: {fit_s:.2f}s (train_sample {HOST_TRAIN_SAMPLE}); nlist={hix.num_clusters}; "
+        f"peak device memory over the fit {peak / 2**20:.1f} MiB, held after it "
+        f"{held / 2**20:.1f} MiB; the f32 table {table / 2**20:.1f} MiB stays on the host; "
+        f"K1 launched {k1}x")
+    check(hix.host_resident and isinstance(hix.layout.vectors, np.ndarray),
+          "host fit: a host-resident index whose layout is a host array")
+    check(held < table / 4, f"host fit: device memory held after the fit {held} B < 1/4 of the "
+                            f"f32 table's {table} B")
+    check(k1 > 0, f"assign_argmin launched in the host fit ({k1}x)")
+    hix.save_to(idx_dir, sh_dir)
+    del hix
+
+    vh = bindings.load(idx_dir, sh_dir, d, resident="host", device=dev)
+    ih = vh.index
+    vd = bindings.load(idx_dir, sh_dir, d, device=dev)
+    qsets = {NQ: xq, 16: xq[:16]}
+    f32 = {}
+    for n_probe in (8, 32):
+        for nq, q in qsets.items():
+            ms = host_ms(torch, lambda: vh.search_sync(q, k, n_probe))
+            D, I = vh.search_sync(q, k, n_probe)
+            mb = ih._last_stage_bytes / 2**20
+            f32[(n_probe, nq)] = (D, I)
+            r1, r10, r100, ov = quality(np, I, gt[:nq], k)
+            log(f"  staged f32 n_probe={n_probe:3d} nq={nq:5d}: {ms:9.3f} ms/batch host clock "
+                f"(packing included), QPS {nq / ms * 1e3:9.1f}; staged {mb:8.1f} MiB per batch; "
+                f"R@1 {r1:.4f} R@10 {r10:.4f} R@100 {r100:.4f} top-{k} overlap {ov:.4f}")
+        D, I = f32[(n_probe, NQ)]
+        Dd, Id = vd.search_sync(xq, k, n_probe, method="dense_exact")
+        same = float((np.sort(I, 1) == np.sort(Id, 1)).all(axis=1).mean())
+        scale = np.sum(xq * xq, axis=1) + float(np.max(np.sum(xb * xb, axis=1)))
+        err = np.abs(D - Dd)
+        check(same >= STAGED_SAME_FLOOR and bool((err <= RTOL * scale[:, None]).all()),
+              f"staged f32 n_probe={n_probe}: the device-resident dense program's sets on "
+              f"{same:.4f} of queries (>= {STAGED_SAME_FLOOR}), distances within {RTOL:g}*"
+              f"(|q|^2+max|x|^2) (max |err| {float(err.max()):.3e})")
+    del vd
+    for sd in (torch.bfloat16, torch.int8):
+        ih.stage_dtype = sd
+        ms = host_ms(torch, lambda: vh.search_sync(xq, k, 8))
+        D, I = vh.search_sync(xq, k, 8)
+        mb = ih._last_stage_bytes / 2**20
+        ov = float(np.mean([len(np.intersect1d(a, b)) for a, b in zip(I, f32[(8, NQ)][1])]) / k)
+        log(f"  staged {str(sd).split('.')[-1]:8s} n_probe=  8 nq={NQ}: {ms:9.3f} ms/batch host "
+            f"clock, QPS {NQ / ms * 1e3:9.1f}; staged {mb:8.1f} MiB per batch; top-{k} overlap "
+            f"with f32 staging {ov:.4f}")
+        check(ov >= STAGED_QUANT_FLOOR, f"staged {sd} after the exact host re-rank: top-{k} "
+                                        f"overlap with f32 staging {ov:.4f} >= {STAGED_QUANT_FLOOR}")
+    ih.stage_dtype = torch.float32
+
+    vs = bindings.load(str(spill_work / "index"), str(spill_work / "shards"), d,
+                       resident="host", device=dev)
+    D, I = vs.search_sync(xq, k, 8)
+    r10 = quality(np, I, gt, k)[1]
+    check(vs.index.spill == 1 and no_dup_rows(np, I),
+          f"staged spilled index n_probe=8: no repeated id in a row (R@10 {r10:.4f})")
+    del vs
+    torch.cuda.synchronize()
+    counts = kb.launch_counts()
+    log(f"  launch counts in phase 8: {counts}")
+
+    t0 = time.perf_counter()
+    vc = bindings.load(idx_dir, sh_dir, d, resident="host", device="cpu")
+    qs = xq[:NQ_TWIN]
+    scale = np.sum(qs * qs, axis=1) + float(np.max(np.sum(xb * xb, axis=1)))
+    for n_probe in (8, 32):
+        Dp, Ip = vc.search_sync(qs, k, n_probe)
+        Dc, Ic = (a[:NQ_TWIN] for a in f32[(n_probe, NQ)])
+        err = np.abs(Dc - Dp)
+        same = (np.sort(Ic, 1) == np.sort(Ip, 1)).all(axis=1).mean()
+        check(bool(np.isfinite(Dp).all()) and bool((err <= RTOL * scale[:, None]).all())
+              and same >= TWIN_SAME_FLOOR,
+              f"staged n_probe={n_probe}: card vs CPU, {NQ_TWIN} queries: every rank within "
+              f"{RTOL:g}*(|q|^2+max|x|^2) (max |err| {float(err.max()):.3e}); equal sets on "
+              f"{same:.4f} (>= {TWIN_SAME_FLOOR})")
+    log(f"  CPU comparison: {time.perf_counter() - t0:.2f}s")
+    return counts
+
+
+def gc_collect(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
 
 
 def main() -> int:
@@ -1593,22 +2019,37 @@ def main() -> int:
     log("== 4. main path")
     work = ROOT / "build" / "chip_smoke_work"
     shutil.rmtree(work, ignore_errors=True)
+    by_phase = {}
     try:
-        counts, overlaps, gt = main_phase(torch, np, xb, xq, check, dev, work, results)
+        counts, overlaps, gt, r10 = main_phase(torch, np, xb, xq, check, dev, work, results)
+        by_phase["4"] = dict(counts)
         log("== 5. offload and the other stream methods")
         t0 = time.perf_counter()
-        counts.update(offload_phase(torch, np, xb, xq, check, dev, work, overlaps))
+        by_phase["5"] = offload_phase(torch, np, xb, xq, check, dev, work, overlaps)
+        counts.update({name: by_phase["5"][name] for name in OFFLOAD_KERNELS})
         log(f"  phase 5: {time.perf_counter() - t0:.2f}s")
         log("== 6. the exhaustive, int8 and gather methods")
         t0 = time.perf_counter()
-        counts.update(flat_gather_phase(torch, np, xb, xq, check, dev, work, gt))
+        by_phase["6"] = flat_gather_phase(torch, np, xb, xq, check, dev, work, gt)
+        counts.update({name: by_phase["6"][name] for name in PHASE6_KERNELS})
         log(f"  phase 6: {time.perf_counter() - t0:.2f}s")
+        log("== 7. a spilled (SOAR) index")
+        t0 = time.perf_counter()
+        by_phase["7"] = spill_phase(torch, np, xb, xq, check, dev, work / "spill",
+                                    dict(gt=gt, r10=r10, overlap=overlaps))
+        log(f"  phase 7: {time.perf_counter() - t0:.2f}s")
+        log("== 8. the host-resident build and staged serving")
+        t0 = time.perf_counter()
+        by_phase["8"] = host_phase(torch, np, xb, xq, check, dev, work / "host",
+                                   work / "spill", gt)
+        log(f"  phase 8: {time.perf_counter() - t0:.2f}s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     counts["flat_sweep_minreduce"] = results["flat_sweep_minreduce"]["launches"]  # phase 3
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
+             launches_by_phase={p: c.get(name, 0) for p, c in by_phase.items()},
              **{key: results[name][key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "library_call", "shape")})

@@ -192,9 +192,15 @@ def test_resolve_keeps_the_fused_sweep_at_wide_rows(method, d):
 
 @pytest.mark.parametrize("method", ["staged"])
 def test_unported_methods_raise(method):
+    """'staged' needs a host-resident index: elsewhere it raises, as the
+    reference's resolve does; a host-resident index resolves every method
+    to it."""
     core = _Core(np.full(50, 100))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="resident='host'"):
         td.resolve(core, 10, 4, k=10, method=method)
+    core.host_resident = True
+    for m in (method, "auto", "dense"):
+        assert td.resolve(core, 10, 4, k=10, method=m).program == "staged"
 
 
 def test_unknown_method_raises():

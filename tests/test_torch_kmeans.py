@@ -112,4 +112,4 @@ def test_unported_trainers_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tk.run_kmeans_mini_batch(torch.zeros(4, 2), 2, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.run_kmeans_lloyd_host(torch.zeros(4, 2), 2, 1)
+        tk.run_kmeans_balanced(torch.zeros(4, 2), 2, 1)

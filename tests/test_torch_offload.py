@@ -365,7 +365,9 @@ def test_offload_errors(pair, tmp_path):
     with pytest.raises(ValueError, match="rerank"):
         load_index_from(tmp_path / "index", tmp_path / "shards", resident="offload",
                         device="cpu", offload_rerank="gpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_index_from(tmp_path / "index", tmp_path / "shards", resident="host", device="cpu")
+    host = load_index_from(tmp_path / "index", tmp_path / "shards", resident="host",
+                           device="cpu")
+    with pytest.raises(RuntimeError, match="host-resident"):
+        host.offload_main_table()
     with pytest.raises(ValueError, match="resident"):
         load_index_from(tmp_path / "index", tmp_path / "shards", resident="disk", device="cpu")

@@ -37,7 +37,8 @@ class VectorIndexerConfig:
     # 'l2' | 'ip' | 'cosine'; for ip/cosine distances are negated
     # similarities (ascending = most similar first).
     metric: str = "l2"
-    # SOAR spilled assignment: only 0 is ported (ROADMAP Queue 1 item 11).
+    # SOAR spilled assignment: 0 or 1 secondary cells per vector (searches
+    # of a spilled index drop repeated ids).
     spill: int = 0
     device: Optional[str] = None
 
@@ -112,7 +113,9 @@ class VectorIndexer:
         """``resident='offload'`` uploads only a host-quantized int8 stream
         table, for serving f32 tables larger than device memory;
         ``offload_rerank`` ('host', 'device' or 'none') picks how its
-        shortlist is re-ranked (index/offload.py)."""
+        shortlist is re-ranked (index/offload.py). ``resident='host'``
+        keeps the layout in host memory and stages each batch's probed
+        cells (index/staged.py)."""
         index = load_index_from(
             cfg.index_dir, cfg.shards_dir, resident=resident, device=cfg.device,
             offload_rerank=offload_rerank,

@@ -5,9 +5,12 @@ bindings/python/src/lib.rs):
 
   * ``build(xb, work_dir)``: one-shot build from an (n, d) f32 array,
     external_id = row index;
+  * ``build(xb, work_dir, spill=1)``: every vector also joins a SOAR-chosen
+    second cell (searches drop repeated ids);
   * ``load(index_dir, shards_dir, dim, resident)``: ``resident='offload'``
     serves from a host-quantized int8 stream table (the f32 table never
-    reaches the device);
+    reaches the device); ``resident='host'`` keeps the table in host
+    memory and stages each batch's probed cells;
   * ``VectorIndex.search_sync(xq, k, n_probe)`` returning ``(D, I)``
     float32/int64 arrays of shape (nq, k), padded with +inf / -1;
   * ``VectorIndex.search_device`` returning device tensors (no copy to the
@@ -129,7 +132,9 @@ def load(index_dir: str, shards_dir: str, dim: int, resident: str = "device",
          device=None) -> VectorIndex:
     """Load a saved index onto ``device``. ``resident='offload'`` serves
     f32 tables larger than device memory from a host-quantized int8 stream
-    table with an exact host re-rank (see IvfIndex.offload_from_host)."""
+    table with an exact host re-rank (see IvfIndex.offload_from_host);
+    ``resident='host'`` serves method 'staged' from host memory (see
+    index/staged.py)."""
     cfg = (
         VectorIndexerConfig(dim)
         .with_index_dir(index_dir)

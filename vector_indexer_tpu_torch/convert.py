@@ -35,7 +35,8 @@ REFERENCE_KEYS = (
 
 def index_from_reference_arrays(arrays: Dict[str, np.ndarray],
                                 device: DeviceLike = None) -> IvfIndex:
-    """Port IvfIndex holding the reference index's state on ``device``."""
+    """Port IvfIndex holding the reference index's state on ``device``.
+    ``arrays['spill']`` (default 0) carries a spilled index's spill count."""
     missing = [k for k in REFERENCE_KEYS if k not in arrays]
     if missing:
         raise KeyError(f"reference arrays missing: {missing}")
@@ -47,6 +48,7 @@ def index_from_reference_arrays(arrays: Dict[str, np.ndarray],
     idx.num_shards = int(arrays["num_shards"])
     idx.external_ids = np.asarray(arrays["external_ids"], np.uint64).copy()
     idx.timestamps = np.asarray(arrays["timestamps"], np.uint64).copy()
+    idx.spill = int(arrays.get("spill", 0))
     vectors = np.array(arrays["vectors"], np.float32)  # a writable copy
     idx.layout = PostingLayout(
         vectors=torch.as_tensor(vectors, device=dev),

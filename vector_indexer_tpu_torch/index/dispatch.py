@@ -7,8 +7,10 @@ returned ``Decision`` to a program (index/programs.py).
 
 Port of ``vector_indexer_tpu/index/dispatch.py``. The constants are the
 reference's, calibrated on a TPU v5e and copied unchanged so that both
-packages pick the same programs; ROADMAP Queue 1 item 10 re-measures them
-on the H100. Differences from the reference:
+packages pick the same programs; ROADMAP Queue 1 item 4 re-measures them
+on the H100. A host-resident index resolves to ``staged`` whatever the
+method (index/staged.py), and ``staged`` on any other index raises, as in
+the reference. Differences from the reference:
 
 * the fused programs are always available (the reference gates them on a
   TPU backend); on the CPU their kernels run their plain versions. So on
@@ -26,9 +28,7 @@ on the H100. Differences from the reference:
   would pass 12 MB, or when the budget passes 32,768 slots: limits of the
   TPU kernel (lane tiling, VMEM, slot clamping) that the CUDA kernel does
   not have. Both programs return the same sets, so the two packages
-  agree on results where their programs differ;
-* ``staged`` (host-staged serving) is not ported yet and raises
-  ``NotImplementedError`` naming its ROADMAP item.
+  agree on results where their programs differ.
 """
 
 from __future__ import annotations
@@ -151,7 +151,7 @@ class Decision:
 
     method: str
     program: str  # 'flat_fused' | 'flat_torch' | 'dense_fused' | 'dense_torch' |
-    #               'stream' | 'stream_shared' | 'gather' | 'gather_dma'
+    #               'stream' | 'stream_shared' | 'gather' | 'gather_dma' | 'staged'
     q_tile: int = 0
     plan: Optional[Tuple[int, int, int]] = None  # fused (w, q_tile, c_groups)
     precision: str = "highest"  # fused sweep precision: 'highest' (f32), 'int8', 'int8x1'
@@ -167,14 +167,11 @@ _SWEEP_METHODS = (
     "dense", "dense_exact", "dense_fused", "dense_int8", "dense_int8x1",
 )
 
-_NOT_PORTED = {
-    "staged": "host-staged serving (ROADMAP Queue 1 item 13)",
-}
-
-
 def resolve(core, nq: int, n_probe: int, k: int = 100, method: str = "auto") -> Decision:
     """Resolve ``method`` (possibly 'auto') for an IvfIndex at one
     (nq, n_probe, k) point into the concrete program and its parameters."""
+    if getattr(core, "host_resident", False):
+        return Decision(method="staged", program="staged")
     lay = core.layout
     d = core.dimension
     n_probe = min(n_probe, core.num_clusters)
@@ -183,10 +180,9 @@ def resolve(core, nq: int, n_probe: int, k: int = 100, method: str = "auto") -> 
 
     if method == "auto":
         method = core.choose_method(nq, n_probe)
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"search method {method!r} needs {_NOT_PORTED[method]}, not ported yet"
-        )
+    if method == "staged":
+        raise RuntimeError("method='staged' requires a host-resident index (load with "
+                           "resident='host' or call to_host_resident())")
 
     from ..ops.flat_sweep import plan_fused
 

@@ -1,12 +1,17 @@
 """Two-level IVF-Flat index: build (fit) and batched search, on one device.
 
-Port of the default path of ``vector_indexer_tpu/index/ivf.py``:
+Port of ``vector_indexer_tpu/index/ivf.py``:
 
-* ``fit``: full-batch Lloyd on the device (``resident='device'``, no spill,
-  no mesh), a super-centroid k-means over the centroid table with
-  ``num_shards = ceil(sqrt(nlist))`` and seed ``seed*31 + 7``, empty lists
-  filtered and ids densely remapped, and a posting layout whose clusters
-  are grouped by shard;
+* ``fit``: full-batch Lloyd on the device (optionally trained on a seeded
+  subsample, ``train_sample``), a super-centroid k-means over the centroid
+  table with ``num_shards = ceil(sqrt(nlist))`` and seed ``seed*31 + 7``,
+  empty lists filtered and ids densely remapped, and a posting layout whose
+  clusters are grouped by shard. ``spill=1`` also puts every vector into a
+  SOAR-chosen second cell (``ops/distance.py::assign_spill_chunked``);
+  searches then run (1+spill)k wide and drop duplicate ids.
+  ``resident='host'`` is the low-device-memory build: only the training
+  sample and fixed-size assignment slices reach the device, and the layout
+  stays in host memory;
 * ``search_batch``: ``index/dispatch.py::resolve`` picks the program
   (stream, fused or plain dense, fused or plain flat, the int8 sweeps,
   the packed gather or the K6 range gather), ``index/programs.py`` runs
@@ -16,24 +21,32 @@ Port of the default path of ``vector_indexer_tpu/index/ivf.py``:
 * offloaded serving (``offload_main_table``, ``offload_from_host``,
   ``load_index_from(..., resident='offload')``): the f32 table leaves the
   device, an int8 stream table serves, and the shortlist is re-ranked on
-  the host, on the device, or not at all (index/offload.py).
+  the host, on the device, or not at all (index/offload.py);
+* host-resident serving (``to_host_resident``, ``load_index_from(...,
+  resident='host')``): the layout stays in host memory and each batch
+  stages only its probed cells (index/staged.py).
 
-Host-resident serving, spill and the mesh build are not ported yet
-(ROADMAP Queue 1 items 11-15) and raise.
+The mesh build and the mini-batch and balanced trainers are not ported yet
+(ROADMAP Queue 1 items 6 and 8) and raise.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models.kmeans import run_kmeans_lloyd
+from ..models.kmeans import (
+    run_kmeans_lloyd,
+    run_kmeans_lloyd_host,
+    run_kmeans_lloyd_sampled,
+)
 from ..ops.block_stream import build_stream_table, pick_chunk
-from ..ops.distance import sq_norms
+from ..ops.distance import assign_spill_chunked, sq_norms
 from ..ops.flat_sweep import quantize_table_int8
 from ..ops.gather import candidate_budget
 from ..storage.layout import ALIGN, PostingLayout, build_layout
@@ -54,6 +67,7 @@ from .dispatch import (
     stream_itemsize,
     stream_params,
 )
+from .staged import staged_search
 
 log = logging.getLogger("vector_indexer_tpu_torch")
 
@@ -71,7 +85,16 @@ class IvfIndex:
         self.centroids_to_shard = np.zeros(0, np.int32)
         self.num_shards = 0
         self.layout: Optional[PostingLayout] = None
+        # Secondary (SOAR) assignments per vector: 0 or 1. A spilled index
+        # searches (1+spill)k wide and drops duplicate ids.
         self.spill = 0
+        # Host-resident serving (index/staged.py): the layout lives in host
+        # memory, each batch stages its probed cells in ``stage_dtype``.
+        self.host_resident = False
+        self.stage_dtype = torch.float32
+        self._stage = None
+        self._stage_lock = threading.Lock()
+        self._last_stage_bytes = 0
         # Host-side record columns, in internal-id order.
         self.external_ids = np.zeros(0, np.uint64)
         self.timestamps = np.zeros(0, np.uint64)
@@ -116,21 +139,34 @@ class IvfIndex:
         metric: str = "l2",
         trainer: str = "lloyd",
         spill: int = 0,
+        spill_lambda: float = 1.0,
         train_sample: Optional[int] = None,
         resident: str = "device",
         device: DeviceLike = None,
+        mesh=None,
     ) -> "IvfIndex":
+        if mesh is not None:
+            raise NotImplementedError(
+                "the mesh (multi-device) build is not ported yet (ROADMAP Queue 1 item 8)"
+            )
+        if resident not in ("device", "host"):
+            raise ValueError("resident must be 'device' or 'host'")
+        if trainer not in ("lloyd", "mini_batch", "balanced"):
+            raise ValueError(f"unknown trainer: {trainer}")
+        if train_sample is not None and trainer != "lloyd":
+            raise ValueError("train_sample is a full-batch Lloyd option")
+        if resident == "host" and (trainer != "lloyd" or spill):
+            raise ValueError(
+                "resident='host' fit supports trainer='lloyd' without spill (the "
+                "low-device-memory build stages only a training sample and "
+                "per-slice assignments)"
+            )
         if trainer != "lloyd":
             raise NotImplementedError(
-                f"trainer {trainer!r} is not ported yet (ROADMAP Queue 1 item 14)"
+                f"trainer {trainer!r} is not ported yet (ROADMAP Queue 1 item 6)"
             )
-        if resident != "device" or train_sample is not None:
-            raise NotImplementedError(
-                "the sampled and host-resident builds are not ported yet "
-                "(ROADMAP Queue 1 item 14)"
-            )
-        if spill:
-            raise NotImplementedError("spill is not ported yet (ROADMAP Queue 1 item 11)")
+        if spill not in (0, 1):
+            raise ValueError("spill supports 0 or 1 secondary assignments")
         n = len(store)
         if n == 0:
             raise ValueError("no vectors provided")
@@ -147,15 +183,43 @@ class IvfIndex:
         iters = max_iters if max_iters is not None else calculate_max_iterations(n)
         log.info("ivf.fit: n=%d dim=%d nlist=%d max_iters=%d", n, dim, k, iters)
 
-        # One copy of the corpus on the device serves training and layout.
-        data_dev = torch.as_tensor(data, device=dev)
+        spherical = metric == "cosine"
+        data_dev = None
         with trace("fit.kmeans", n=n, k=k):
-            kres = run_kmeans_lloyd(
-                data_dev, k, iters, seed=seed, spherical=(metric == "cosine")
-            )
+            if resident == "host":
+                # Only the training sample and one assignment slice at a
+                # time reach the device; the layout packs in host memory.
+                kres = run_kmeans_lloyd_host(
+                    data, k, iters, train_sample or min(n, 2_000_000), seed=seed,
+                    spherical=spherical, device=dev,
+                )
+            else:
+                # One copy of the corpus on the device serves training, the
+                # spill assignment and the layout.
+                data_dev = torch.as_tensor(data, device=dev)
+                if train_sample is not None and train_sample < n:
+                    kres = run_kmeans_lloyd_sampled(
+                        data_dev, k, iters, train_sample, seed=seed, spherical=spherical
+                    )
+                else:
+                    kres = run_kmeans_lloyd(data_dev, k, iters, seed=seed, spherical=spherical)
         log.info("fit.kmeans: %d iterations, converged=%s", kres.iterations, kres.converged)
         centroids = kres.centroids.cpu().numpy()
         labels = kres.labels.cpu().numpy().astype(np.int64)
+
+        # Spilled assignment: each vector also joins its SOAR-chosen second
+        # cell (entries [primary labels, secondary labels], both of points
+        # 0..n-1).
+        entry_labels, point_ids = labels, None
+        if spill:
+            with trace("fit.spill", n=n):
+                labels2 = assign_spill_chunked(
+                    data_dev, kres.centroids.to(dev), kres.labels.to(dev),
+                    soar_lambda=spill_lambda,
+                ).cpu().numpy().astype(np.int64)
+            entry_labels = np.concatenate([labels, labels2])
+            point_ids = np.concatenate([np.arange(n, dtype=np.int64)] * 2)
+        del kres
 
         # Super-centroid clustering over the (unfiltered) centroid table.
         num_shards = num_shards_for(k)
@@ -171,7 +235,7 @@ class IvfIndex:
             shard_labels_all = sres.labels.cpu().numpy().astype(np.int64)
 
         # Filter empty posting lists; densify centroid ids (order-preserving).
-        counts = np.bincount(labels, minlength=k)
+        counts = np.bincount(entry_labels, minlength=k)
         keep = np.flatnonzero(counts > 0)
         log.info(
             "ivf.fit: filtered %d empty lists, %d remain, %d shards",
@@ -181,6 +245,7 @@ class IvfIndex:
         old_to_new[keep] = np.arange(len(keep))
 
         idx = cls(dim, metric=metric, device=dev)
+        idx.spill = int(spill)
         idx.centroids = centroids[keep]
         idx.centroids_to_shard = shard_labels_all[keep].astype(np.int32)
         idx.num_shards = num_shards
@@ -192,8 +257,10 @@ class IvfIndex:
         cluster_order = np.argsort(idx.centroids_to_shard, kind="stable")
         with trace("fit.layout", n=n, clusters=len(keep)):
             idx.layout = build_layout(
-                data_dev, old_to_new[labels], len(keep), cluster_order
+                data if resident == "host" else data_dev, old_to_new[entry_labels],
+                len(keep), cluster_order, point_ids=point_ids,
             )
+        idx.host_resident = resident == "host"
         return idx
 
     # ------------------------------------------------------------------
@@ -232,6 +299,34 @@ class IvfIndex:
         resident='offload')``): the tables are built on the host and only
         they are uploaded (index/offload.py::offload_from_host)."""
         _offload.offload_from_host(self, stream_dtype, rerank)
+
+    def to_host_resident(self, stage_dtype=None) -> None:
+        """Serve from host memory: move the posting layout to the host, free
+        its device copies, and stage only each batch's probed cells
+        (index/staged.py), so the corpus is bounded by host RAM, not device
+        memory. ``stage_dtype`` (torch.float32 by default, or bfloat16 /
+        int8) is the staging precision; bf16 and int8 halve / quarter the
+        per-batch copy and re-rank a widened shortlist exactly on the host.
+        ``load_index_from(..., resident='host')`` never puts the table on
+        the device at all."""
+        if self.layout is None:
+            raise RuntimeError("index is empty: fit or load it first")
+        if self.offloaded:
+            raise RuntimeError("index is offloaded (main table freed); reload it before "
+                               "switching to host-resident serving")
+        lay = self.layout
+        if isinstance(lay.vectors, torch.Tensor):
+            lay.vectors = lay.vectors.cpu().numpy()
+            lay.row_norms = lay.row_norms.cpu().numpy()
+        # Every device table derived from the layout goes.
+        self._stream_tables = {}
+        self._runs = self._sweep_q = self._lists = self._budgets = None
+        self._perm_dev = self._perm_inv = None
+        if stage_dtype is not None:
+            self.stage_dtype = stage_dtype
+        self.host_resident = True
+        log.info("host-resident mode: %d rows in host memory, the device holds the "
+                 "centroids only", lay.vectors.shape[0])
 
     def _perm_dev_table(self):
         """Device map layout row -> internal id (-1 on gap and tail rows),
@@ -307,6 +402,8 @@ class IvfIndex:
         shortlist makes the two kernels result-equivalent, while the
         rank-only mode returns the raw plane, where the shared selection is
         measurably lossier (the reference's measurement)."""
+        if getattr(self, "host_resident", False):
+            return "staged"
         lengths = np.asarray(self.layout.lengths)
         n_probe = min(n_probe, self.num_clusters)
         itemsize = stream_itemsize(self.stream_dtype)
@@ -339,13 +436,27 @@ class IvfIndex:
 
     def search_batch_device(self, queries, k: int, n_probe: int, method: str = "auto"):
         """Device-side search: (D (nq, k) f32, layout rows (nq, k) int64)
-        tensors on the index's device, padded +inf / -1."""
+        tensors on the index's device, padded +inf / -1. On a spilled index
+        a vector can surface from 1+spill probed cells: the program runs
+        (1+spill)k wide and duplicate ids are dropped on the device."""
         if self.layout is None or self.num_clusters == 0:
             raise RuntimeError("index is empty: fit or load it first")
         if k <= 0:
             raise ValueError("k must be > 0")
         if n_probe <= 0:
             raise ValueError("n_probe must be > 0")
+        if self.host_resident:
+            raise RuntimeError("host-resident index has no device-resident layout; use "
+                               "search_batch (method='staged')")
+        if not self.spill:
+            return self._search_rows(queries, k, n_probe, method)
+        dv, rows = self._search_rows(queries, (1 + self.spill) * k, n_probe, method)
+        return _offload.dedup_topk(dv, rows, self._perm_dev_table(), k)
+
+    def _search_rows(self, queries, k: int, n_probe: int, method: str = "auto"):
+        """``search_batch_device`` without the spill dedup: the program's
+        own (D, layout rows) at width k (a spilled index's rows may repeat
+        an id)."""
         q = self._queries_on_device(queries)
         nq = q.shape[0]  # after the reshape: one (d,) query is nq = 1
         n_probe = min(n_probe, self.num_clusters)
@@ -431,7 +542,19 @@ class IvfIndex:
                      method: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
         """Batched search: (nq, d) -> (D (nq, k) f32, internal ids (nq, k)
         int64), missing slots padded +inf / -1. An offloaded index re-ranks
-        its shortlist as its mode says (index/offload.py)."""
+        its shortlist as its mode says (index/offload.py); a host-resident
+        one stages its probed cells (index/staged.py)."""
+        if self.host_resident:
+            if method not in ("auto", "staged"):
+                raise RuntimeError(
+                    "host-resident index serves method='staged' only (the posting layout "
+                    "lives in host memory; reload with resident='device' for the others)"
+                )
+            if k <= 0:
+                raise ValueError("k must be > 0")
+            if n_probe <= 0:
+                raise ValueError("n_probe must be > 0")
+            return staged_search(self, queries, k, n_probe)
         if self.offloaded and self._offload_rerank in ("host", "device"):
             if k <= 0:
                 raise ValueError("k must be > 0")
@@ -471,6 +594,8 @@ class IvfIndex:
         row = self._perm_inv[1][internal_id]
         if row < 0:
             raise KeyError(f"internal id {internal_id} not present in layout")
+        if isinstance(lay.vectors, np.ndarray):  # host-resident
+            return np.array(lay.vectors[int(row)])
         return lay.vectors[int(row)].cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -494,7 +619,8 @@ def load_index_from(index_dir, shards_dir=None, resident: str = "device",
     ``shards_dir`` is given) onto ``device``. ``resident='offload'`` builds
     an int8 stream table on the host and uploads only it (the f32 table
     never reaches the device); ``offload_rerank`` is then 'host', 'device'
-    or 'none' (index/offload.py)."""
+    or 'none' (index/offload.py). ``resident='host'`` keeps the layout in
+    host memory and serves by per-batch staging (index/staged.py)."""
     from ..storage import persist
 
     return persist.load_index(index_dir, shards_dir, device=device, resident=resident,

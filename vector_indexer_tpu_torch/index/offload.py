@@ -1,7 +1,7 @@
-"""Offloaded (larger-than-device-memory) serving for IvfIndex.
+"""Offloaded (larger-than-device-memory) serving for IvfIndex, and the
+shortlist epilogues that spilled indexes share.
 
-Port of ``vector_indexer_tpu/index/offload.py`` (spill's dedup branches
-stay out with spill, ROADMAP Queue 1 item 11):
+Port of ``vector_indexer_tpu/index/offload.py``:
 
 * the mode's entry points: ``offload_main_table`` (a device-resident index
   frees its f32 table) and ``offload_from_host`` (a host-staged load
@@ -11,7 +11,10 @@ stay out with spill, ROADMAP Queue 1 item 11):
   (kernels K2/K4, or K5 at huge probed footprints) selects: 'host' (exact,
   from the host mirror), 'device' (against the two-layer int8
   reconstruction of ops/correction.py) and 'none' (the sweep's own
-  ranking, through ``search_batch_device``).
+  ranking, through ``search_batch_device``);
+* the spill epilogues: ``dedup_topk`` (device) and ``host_dedup_topk``
+  drop the repeated ids of a spilled index's (1+spill)k-wide candidate
+  lists, as do the offloaded re-ranks and the staged search.
 
 This is the design point of an index bigger than device memory, with
 device memory : host RAM in the role of RAM : disk.
@@ -42,6 +45,66 @@ _RERANK_MULT, _RERANK_MIN, _RERANK_MAX = 2, 128, 4096
 _PIPELINE_MIN_NQ = 512
 
 
+def _smallest(dist, k: int):
+    """Smallest k along dim 1 by a stable sort (equal distances keep their
+    order, as the reference's top_k does), padded +inf / -1 past the
+    width."""
+    vals, order = torch.sort(dist, dim=1, stable=True)
+    vals, order = vals[:, :k], order[:, :k]
+    if order.shape[1] < k:
+        pad = k - order.shape[1]
+        vals = torch.cat([vals, vals.new_full((vals.shape[0], pad), float("inf"))], dim=1)
+        order = torch.cat([order, order.new_full((order.shape[0], pad), -1)], dim=1)
+    return vals, order
+
+
+def dedup_topk(dvals, rows, perm_dev, k: int):
+    """Drop repeated internal ids from a (nq, kk) distance-sorted candidate
+    list of layout rows (a spilled index can return a vector from each of
+    its cells), keep the first occurrence (the smaller distance) and select
+    the top k in distance order. ``perm_dev`` maps layout rows to internal
+    ids (``IvfIndex._perm_dev_table``). A stable sort by id marks each
+    id's later occurrences. -> (D (nq, k), layout rows (nq, k)), padded
+    +inf / -1."""
+    ids = torch.where(rows >= 0, perm_dev[rows.clamp_min(0)], -1)
+    order = torch.argsort(ids, dim=1, stable=True)
+    ids_s = torch.gather(ids, 1, order)
+    dup_s = torch.zeros_like(ids_s, dtype=torch.bool)
+    dup_s[:, 1:] = (ids_s[:, 1:] == ids_s[:, :-1]) & (ids_s[:, 1:] >= 0)
+    dup = torch.empty_like(dup_s).scatter_(1, order, dup_s)
+    dist = torch.where(dup | (rows < 0), float("inf"), dvals)
+    dv, sel = _smallest(dist, k)
+    rsel = torch.gather(rows, 1, sel.clamp_min(0))
+    ok = (sel >= 0) & torch.isfinite(dv)
+    return dv, torch.where(ok, rsel, torch.full_like(rsel, -1))
+
+
+def host_dedup_topk(exact, internal, k: int):
+    """Host twin of ``dedup_topk`` over internal ids: sort a (nq, kk)
+    candidate list by distance, drop repeated ids (the first, smallest,
+    stays), and keep the first k survivors, padded +inf / -1."""
+    exact = np.where(internal >= 0, exact, np.inf)
+    order = np.argsort(exact, axis=1, kind="stable")
+    ids_o = np.take_along_axis(internal, order, axis=1)
+    d_o = np.take_along_axis(exact, order, axis=1)
+    oi = np.argsort(ids_o, axis=1, kind="stable")
+    ids_s = np.take_along_axis(ids_o, oi, axis=1)
+    dup_s = np.zeros_like(ids_s, bool)
+    dup_s[:, 1:] = (ids_s[:, 1:] == ids_s[:, :-1]) & (ids_s[:, 1:] >= 0)
+    dup = np.empty_like(dup_s)
+    np.put_along_axis(dup, oi, dup_s, axis=1)
+    keep = (~dup) & (ids_o >= 0) & np.isfinite(d_o)
+    kw = min(k, exact.shape[1])
+    sel = np.argsort(~keep, axis=1, kind="stable")[:, :kw]
+    taken = np.take_along_axis(keep, sel, axis=1)
+    D = np.where(taken, np.take_along_axis(d_o, sel, axis=1), np.inf).astype(np.float32)
+    I = np.where(taken, np.take_along_axis(ids_o, sel, axis=1), -1)
+    if kw < k:
+        D = np.pad(D, ((0, 0), (0, k - kw)), constant_values=np.inf)
+        I = np.pad(I, ((0, 0), (0, k - kw)), constant_values=-1)
+    return D, I.astype(np.int64)
+
+
 def _check(idx, rerank: str) -> None:
     if rerank not in RERANKS:
         raise ValueError("rerank must be 'host', 'device', or 'none'")
@@ -61,6 +124,9 @@ def offload_main_table(idx, stream_dtype=None, rerank: str = "host") -> None:
     quantization error). Afterwards only the stream methods serve.
     Irreversible on this object (reload to undo)."""
     _check(idx, rerank)
+    if idx.host_resident:
+        raise RuntimeError("index is host-resident (staged serving); offload needs a "
+                           "device-resident layout: reload with resident='device' first")
     if not isinstance(idx.layout.vectors, torch.Tensor):
         raise RuntimeError("index is not device-resident; use offload_from_host()")
     dtype = torch.int8 if stream_dtype is None else stream_dtype
@@ -115,6 +181,7 @@ def offload_from_host(idx, stream_dtype=None, rerank: str = "host") -> None:
     lay.row_norms = None
     idx._runs = None
     idx.offloaded = True
+    idx.host_resident = False
     log.info("offloaded (host-built) table: stream dtype %s, %d MB resident",
              idx.stream_dtype, st.nbytes >> 20)
 
@@ -124,8 +191,9 @@ def _shortlist(k: int) -> int:
 
 
 def search_offloaded(idx, queries, k: int, n_probe: int, method: str = "auto"):
-    """rerank='host': a widened shortlist from the device sweep, re-ranked
-    exactly from the host mirror. A batch of _PIPELINE_MIN_NQ queries or
+    """rerank='host': a widened shortlist from the device sweep ((1+spill)
+    times wider on a spilled index), re-ranked exactly from the host mirror
+    (and de-duplicated when spilled). A batch of _PIPELINE_MIN_NQ queries or
     more is split in two, and both halves' sweeps are enqueued before the
     host waits for the first: each half's rows are copied to pinned host
     memory right behind its sweep, so the host re-ranks half 1 while the
@@ -135,16 +203,16 @@ def search_offloaded(idx, queries, k: int, n_probe: int, method: str = "auto"):
     if queries.ndim == 1:
         queries = queries[None, :]
     nq = queries.shape[0]
-    kk = _shortlist(k)
+    kk = (1 + idx.spill) * _shortlist(k)
     if method == "auto":
         method = idx.choose_method(nq, n_probe)
     pieces = 2 if nq >= _PIPELINE_MIN_NQ else 1
     bounds = [(i * nq // pieces, (i + 1) * nq // pieces) for i in range(pieces)]
     pending = []
     for a, b in bounds:
-        _, rows = idx.search_batch_device(queries[a:b], kk, n_probe, method)
+        _, rows = idx._search_rows(queries[a:b], kk, n_probe, method)
         pending.append(_copy_to_host(rows))
-    outs = [offload_rerank_piece(idx, queries[a:b], _wait(p), k)
+    outs = [offload_rerank_piece(idx, queries[a:b], _wait(p), k, idx.spill)
             for (a, b), p in zip(bounds, pending)]
     return (np.concatenate([o[0] for o in outs], axis=0),
             np.concatenate([o[1] for o in outs], axis=0))
@@ -168,10 +236,10 @@ def _wait(pending) -> np.ndarray:
     return host.numpy()
 
 
-def offload_rerank_piece(idx, queries, rows, k: int):
+def offload_rerank_piece(idx, queries, rows, k: int, spill: int = 0):
     """Host half of the rerank='host' search for one piece of the batch:
     exact f32 distances of the device shortlist from the host mirror, then
-    the top k."""
+    the top k (without repeated ids when ``spill``)."""
     lay = idx.layout
     bound = max(lay.rows_used - 1, 0)
     internal = np.where(rows >= 0, lay.perm[np.clip(rows, 0, bound)], -1)
@@ -191,6 +259,8 @@ def offload_rerank_piece(idx, queries, rows, k: int):
         )
     else:
         exact = -cross
+    if spill:
+        return host_dedup_topk(exact, internal, k)
     return _host_topk(exact, internal, k)
 
 
@@ -213,10 +283,13 @@ def _host_topk(exact, internal, k: int):
     return D, I.astype(np.int64)
 
 
-def _corrected_rerank_program(queries, rows, st, corr, *, k: int, metric: str, rr_tile: int):
+def _corrected_rerank_program(queries, rows, st, corr, perm_dev=None, *, k: int, metric: str,
+                              rr_tile: int):
     """Device half of rerank='device': re-rank the widened shortlist
     against x^ = c + s1 r8 + s2 q2, in query tiles of ``rr_tile`` (which
-    bounds the (rr, kk, d) f32 reconstruction). -> (D, layout rows)."""
+    bounds the (rr, kk, d) f32 reconstruction). With ``perm_dev`` (a
+    spilled index) the list is sorted by corrected distance and repeated
+    ids dropped (``dedup_topk``). -> (D, layout rows)."""
     parts = []
     for s in range(0, queries.shape[0], rr_tile):
         qt, rw = queries[s : s + rr_tile], rows[s : s + rr_tile]
@@ -232,6 +305,10 @@ def _corrected_rerank_program(queries, rows, st, corr, *, k: int, metric: str, r
             dist = -cross
         parts.append(torch.where(rw < 0, float("inf"), dist))
     dist = torch.cat(parts)
+    if perm_dev is not None:
+        dv, order = _smallest(dist, dist.shape[1])
+        rows_s = torch.where(order >= 0, torch.gather(rows, 1, order.clamp_min(0)), -1)
+        return dedup_topk(dv, rows_s, perm_dev, k)
     dv, order = topk_smallest(dist, k)
     rsel = torch.gather(rows, 1, order.clamp_min(0))
     ok = (order >= 0) & torch.isfinite(dv)
@@ -240,22 +317,23 @@ def _corrected_rerank_program(queries, rows, st, corr, *, k: int, metric: str, r
 
 def search_offloaded_device(idx, queries, k: int, n_probe: int, method: str = "auto"):
     """rerank='device': the widened shortlist from the device sweep,
-    re-ranked on the device against the two-layer reconstruction; rows map
+    re-ranked on the device against the two-layer reconstruction (and
+    de-duplicated when spilled); rows map
     to internal ids on the device too (``_perm_dev_table``), so one small
     copy reaches the host."""
     q = idx._queries_on_device(queries)
     nq, d = q.shape
-    kk = _shortlist(k)
+    kk = (1 + idx.spill) * _shortlist(k)
     if method == "auto":
         method = idx.choose_method(nq, n_probe)
-    _, rows = idx.search_batch_device(q, kk, n_probe, method)
+    _, rows = idx._search_rows(q, kk, n_probe, method)
     # A query tile bounding the (rr, kk, d) f32 reconstruction to ~128 MB.
     rr = min(nq, max(1, (1 << 25) // max(kk * d, 1)))
     metric = idx.metric if idx.metric != "cosine" else "ip"
+    perm = idx._perm_dev_table()
     dv, rsel = _corrected_rerank_program(
         q, rows, idx._stream_tables[idx.stream_dtype], idx._corr_table,
-        k=k, metric=metric, rr_tile=rr,
+        perm if idx.spill else None, k=k, metric=metric, rr_tile=rr,
     )
-    perm = idx._perm_dev_table()
     internal = torch.where(rsel >= 0, perm[rsel.clamp_min(0)], -1)
     return dv.cpu().numpy(), internal.cpu().numpy()

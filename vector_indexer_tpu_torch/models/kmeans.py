@@ -21,8 +21,11 @@ differ from the reference's jax.random streams by design, so the seeded
 steps are held to the reference statistically (inertia, recovery) and the
 Lloyd iterations from a shared init.
 
-The mini-batch, balanced, sampled and host-resident trainers are not
-ported yet (ROADMAP Queue 1 item 6) and raise.
+The sampled trainer (Lloyd on a seeded subsample, every point assigned)
+and its host-corpus twin (only the subsample and one fixed-size assignment
+slice at a time reach the device) draw the reference's numpy sample, so
+both packages train on the same rows. The mini-batch and balanced trainers
+are not ported yet (ROADMAP Queue 1 item 6) and raise.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve_device
 from ..ops.assign import assign_argmin
 from ..ops.distance import pairwise_sq_l2, sq_norms
 
@@ -338,6 +343,84 @@ def compute_inertia(data, centroids, labels) -> float:
     return float(torch.sum(diff * diff))
 
 
+def training_sample(n: int, train_sample: int, seed: int) -> np.ndarray:
+    """The sampled trainers' rows: ``train_sample`` of ``n`` drawn without
+    replacement by numpy's generator seeded ``seed ^ 0x5A3B1E``, sorted
+    (the reference's draw, so both packages train on the same rows)."""
+    rng = np.random.default_rng(np.uint64(seed) ^ np.uint64(0x5A3B1E))
+    return np.sort(rng.choice(n, size=train_sample, replace=False))
+
+
+def run_kmeans_lloyd_sampled(data: torch.Tensor, k: int, max_iters: int, train_sample: int,
+                             seed: int = 42, chunk: int = _ASSIGN_CHUNK,
+                             spherical: bool = False) -> KMeansResult:
+    """Lloyd trained on a seeded subsample (``training_sample``); every
+    point is then assigned exactly. Past ~100 points per centroid more
+    training rows move the centroids little and cost every sweep."""
+    data = _check_data(data)
+    n = data.shape[0]
+    if train_sample >= n:
+        return run_kmeans_lloyd(data, k, max_iters, seed=seed, chunk=chunk, spherical=spherical)
+    if train_sample < k:
+        raise ValueError(f"train_sample={train_sample} must be >= k={k} centroids")
+    sel = torch.as_tensor(training_sample(n, train_sample, seed), device=data.device)
+    res = run_kmeans_lloyd(data[sel], k, max_iters, seed=seed, chunk=chunk, spherical=spherical)
+    labels, _ = assign_points(data, res.centroids, chunk=chunk)
+    return KMeansResult(res.centroids, labels, res.iterations, res.converged)
+
+
+def assign_points_host_chunked(data_host: np.ndarray, centroids, chunk_rows: int = 1 << 20,
+                               method: str = "auto", device: DeviceLike = None) -> np.ndarray:
+    """Assignment of a corpus held in host memory: ``chunk_rows`` rows at a
+    time go to the device through one reused staging buffer (pinned when
+    the device is a card), the tail zero-padded so every slice has the same
+    shape, each assigned by ``assign_points(method=method)``; labels come
+    back (4 bytes a row). The device holds one slice and the centroids.
+    -> (n,) int32 labels."""
+    dev = resolve_device(device)
+    cent = torch.as_tensor(np.asarray(centroids, np.float32), device=dev) \
+        if not isinstance(centroids, torch.Tensor) else centroids.to(dev, torch.float32)
+    n, d = data_host.shape
+    chunk_rows = min(chunk_rows, max(8, n))
+    out = np.empty(n, np.int32)
+    buf = torch.zeros((chunk_rows, d), dtype=torch.float32, pin_memory=dev.type == "cuda")
+    buf_np = buf.numpy()
+    slab = buf if dev.type == "cpu" else torch.empty((chunk_rows, d), dtype=torch.float32,
+                                                      device=dev)
+    for lo in range(0, n, chunk_rows):
+        hi = min(lo + chunk_rows, n)
+        buf_np[: hi - lo] = data_host[lo:hi]
+        buf_np[hi - lo :] = 0.0
+        if slab is not buf:
+            slab.copy_(buf, non_blocking=True)
+        lbl, _ = assign_points(slab, cent, method=method)
+        # The copy back waits for the slice's work, so the buffer is free
+        # for the next slice.
+        out[lo:hi] = lbl[: hi - lo].cpu().numpy()
+    return out
+
+
+def run_kmeans_lloyd_host(data_host: np.ndarray, k: int, max_iters: int, train_sample: int,
+                          seed: int = 42, chunk: int = _ASSIGN_CHUNK, spherical: bool = False,
+                          chunk_rows: int = 1 << 20, device: DeviceLike = None) -> KMeansResult:
+    """Host-corpus twin of ``run_kmeans_lloyd_sampled``: only the training
+    subsample (the same rows) goes to the device; the exact assignment of
+    every point runs through ``assign_points_host_chunked``. The result's
+    labels are a CPU tensor."""
+    dev = resolve_device(device)
+    n = data_host.shape[0]
+    train_sample = min(train_sample, n)
+    if train_sample < k:
+        raise ValueError(f"train_sample={train_sample} must be >= k={k} centroids")
+    sub = data_host[training_sample(n, train_sample, seed)] if train_sample < n else data_host
+    res = run_kmeans_lloyd(torch.as_tensor(np.asarray(sub, np.float32), device=dev), k,
+                           max_iters, seed=seed, chunk=chunk, spherical=spherical)
+    del sub
+    labels = assign_points_host_chunked(data_host, res.centroids, chunk_rows=chunk_rows,
+                                        device=dev)
+    return KMeansResult(res.centroids, torch.from_numpy(labels), res.iterations, res.converged)
+
+
 def _not_ported(name: str):
     def fn(*args, **kwargs):
         raise NotImplementedError(
@@ -350,5 +433,3 @@ def _not_ported(name: str):
 
 run_kmeans_mini_batch = _not_ported("run_kmeans_mini_batch")
 run_kmeans_balanced = _not_ported("run_kmeans_balanced")
-run_kmeans_lloyd_sampled = _not_ported("run_kmeans_lloyd_sampled")
-run_kmeans_lloyd_host = _not_ported("run_kmeans_lloyd_host")

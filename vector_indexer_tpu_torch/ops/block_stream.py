@@ -27,7 +27,7 @@ Port of ``vector_indexer_tpu/ops/pallas/block_stream.py``.
 
 The sizing constants (chunk target, FAN, the fused threshold, Q_SHARE, the
 task-cap grain) are the reference's TPU-calibrated values, copied unchanged
-until they are re-measured on the H100 (ROADMAP Queue 1 item 10). Each
+until they are re-measured on the H100 (ROADMAP Queue 1 item 4). Each
 kernel wrapper runs its plain PyTorch version on a CPU tensor and launches
 its CUDA kernel on a CUDA tensor (or raises).
 """

@@ -44,7 +44,7 @@ streams beside the table panels at larger d.
 ``plan_fused``, ``pick_window`` and ``pick_groups`` are the reference's
 sizing rules, copied unchanged (the VMEM budget in ``plan_fused`` decides
 whether the fused route is taken at all, so the port keeps it until the
-H100 recalibration, ROADMAP Queue 1 item 10).
+H100 recalibration, ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -14,9 +14,11 @@ Invariants (the same as the reference's storage/layout.py):
   the last run, kept so that the table shape equals the reference's (the
   converted-index tests rely on it; no port kernel reads past a list end).
 
-A layout is normally on a torch device. A HOST-staged layout (numpy
-``vectors`` and ``row_norms``) is what ``load(..., resident='offload')``
-quantizes from, so that the f32 table never reaches the device.
+A layout is normally on a torch device. A HOST-placed layout (numpy
+``vectors`` and ``row_norms``: the reference's ``device_put=False``) is
+what ``load(..., resident='offload')`` quantizes from, so that the f32
+table never reaches the device, and what a host-resident index
+(``fit(resident='host')``, ``load(..., resident='host')``) serves from.
 """
 
 from __future__ import annotations
@@ -129,14 +131,16 @@ def pack_layout(
 
 
 def build_layout(
-    vectors: torch.Tensor,
+    vectors,
     labels: np.ndarray,
     num_clusters: int,
     cluster_order: Optional[np.ndarray] = None,
     point_ids: Optional[np.ndarray] = None,
 ) -> PostingLayout:
     """Pack vectors into cluster-contiguous, ALIGN-aligned CSR order, on
-    ``vectors``' device (the host computes only the int64 row map).
+    ``vectors``' device (the host computes only the int64 row map), or in
+    host memory when ``vectors`` is a numpy array (nothing reaches a
+    device).
 
     ``cluster_order`` permutes cluster placement (clusters of the same shard
     are laid out adjacently). Labels must already be in the dense

@@ -7,8 +7,10 @@ byte for byte, so an index saved by either package loads in the other:
   shards_dir/shard_N.bin - posting lists (vectors + ids + timestamps)
 
 Loading parses every shard file and re-stages the posting layout on the
-requested device (or, for ``resident='offload'``, in host memory, from
-where only the compact offload tables are uploaded). A missing or corrupt
+requested device, or in host memory: for ``resident='offload'`` only the
+compact offload tables are uploaded from there, and for ``resident='host'``
+the layout stays there and searches stage their probed cells. Spilled
+indexes (the header's spill count) load either way. A missing or corrupt
 shard is logged and skipped: its clusters drop out of the searchable set,
 and search keeps working.
 """
@@ -75,7 +77,9 @@ def save_shards(index, shards_dir) -> None:
     host = index._host_data
     vectors = None
     if host is None or host.shape[0] < lay.n:
-        vectors = lay.vectors[: lay.rows_used].cpu().numpy()
+        vectors = np.asarray(lay.vectors[: lay.rows_used].cpu()
+                             if isinstance(lay.vectors, torch.Tensor)
+                             else lay.vectors[: lay.rows_used])
     starts = lay.offsets[:-1]
     lengths = lay.lengths
     perm = lay.perm
@@ -114,16 +118,13 @@ def load_index(index_dir, shards_dir=None, device: DeviceLike = None,
     ``resident``: 'device' stages the layout on ``device``; 'offload' stages
     it in host memory, builds the int8 stream table there and uploads only
     that (plus the correction table for ``offload_rerank='device'``), so the
-    f32 table never reaches the device (IvfIndex.offload_from_host). 'host'
-    (serving from host memory by per-batch staging) is not ported yet."""
+    f32 table never reaches the device (IvfIndex.offload_from_host); 'host'
+    keeps it in host memory and serves by staging each batch's probed cells
+    (index/staged.py), so no corpus-sized copy reaches the device."""
     from ..index.ivf import IvfIndex
 
     if resident not in ("device", "host", "offload"):
         raise ValueError("resident must be 'device', 'host', or 'offload'")
-    if resident == "host":
-        raise NotImplementedError(
-            "resident='host' (host-staged serving) is not ported yet (ROADMAP Queue 1 item 13)"
-        )
     dev = resolve_device(device)
     p = index_path(index_dir)
     if not os.path.exists(p):
@@ -141,8 +142,6 @@ def load_index(index_dir, shards_dir=None, device: DeviceLike = None,
         raise ShardFormatError(f"{p}: index header CRC mismatch")
     if version != INDEX_VERSION:
         raise ShardFormatError(f"{p}: unsupported index version {version}")
-    if spill:
-        raise NotImplementedError("spilled indexes are not ported yet (ROADMAP Queue 1 item 11)")
 
     off = 40
     cent = np.frombuffer(buf, "<f4", count=kc * dim, offset=off).reshape(kc, dim)
@@ -154,8 +153,10 @@ def load_index(index_dir, shards_dir=None, device: DeviceLike = None,
     idx.centroids = cent.copy()
     idx.centroids_to_shard = c2s.copy()
     idx.num_shards = num_shards
+    idx.spill = int(spill)
     if shards_dir is not None:
         _stage_shards(idx, shards_dir, n_total, device_put=resident == "device")
+        idx.host_resident = resident == "host"
         if resident == "offload":
             idx.offload_from_host(rerank=offload_rerank)
     return idx

@@ -17,7 +17,7 @@ our own (little-endian, CRC-protected header):
 
 The port's copy is the numpy whole-shard reader/writer only; the JAX
 package's selective per-centroid reads and its native reader/writer
-(storage/native/shardio.cpp) come later (ROADMAP Queue 1 item 8). The bytes on disk are identical, so either package reads what the
+(storage/native/shardio.cpp) come later (ROADMAP Queue 1 item 7). The bytes on disk are identical, so either package reads what the
 other wrote.
 """
 
