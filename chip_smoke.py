@@ -92,10 +92,31 @@ Phases (each prints its own lines; any failure exits non-zero):
    RTOL), bf16 and int8 staging (>= 0.99 top-100 overlap with f32 after
    the exact host re-rank), phase 7's spilled index staged (no repeated
    id) and 200 queries again on the CPU.
+9. Trainers and the mesh (phase 4's corpus and index): ``IvfIndex.fit``
+   with ``trainer='mini_batch'`` and ``'balanced'`` (fit seconds, inertia
+   against phase 4's Lloyd, max / mean list length, R@10 of ``auto`` at
+   n_probe 32; gates: inertia <= 1.5x Lloyd's, K1 launched in the
+   mini-batch fit, the balanced lists' max / mean at or below Lloyd's, a
+   second balanced fit's centroids equal to the first's bit for bit);
+   the data-parallel Lloyd over a 4-entry mesh (the cards present, else
+   card 0 four times) beside the single-device Lloyd (inertia ratio <=
+   1.001, label agreement >= 0.98); the 1-D ``ShardedSearcher`` on that
+   mesh with 'dense', 'dense_fused', 'stream' and 'auto' at n_probe 8 /
+   32 / 128 (batch ms by CUDA events, the body 'auto' picks, the kernels
+   each launched;
+   'dense' returns ``dense_exact``'s sets, 'dense_fused' (K3) and 'stream'
+   (K2 / K4) the single-device routes' overlap within 0.01; the
+   per-device loop of each body makes no host synchronisation, under
+   ``torch.cuda.set_sync_debug_mode("error")``), phase 7's
+   spilled index sharded without repeated ids, the 2-D (2 x 2) and
+   multi-host (2 x 2) searchers against the 1-D searcher's sets, the
+   multi-host merge's cross-host bytes S-fold below a flat merge's, and
+   200 queries again on a CPU mesh. Four mesh entries on one card measure
+   correctness and per-shard cost, not a parallel speedup.
 
 The line before the last is a JSON object describing each kernel (its
 ``launches`` from the phase that must launch it, and ``launches_by_phase``
-for phases 4-8); the last line is {"ok": true, "device": {...}}.
+for phases 4-9); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -215,6 +236,23 @@ FLAT_EXACT_FLOOR = 0.999
 FLAT_R1_FLOOR = 0.99
 INT8_TOP10_FLOORS = {"flat_int8": 0.97, "flat_int8x1": 0.85}
 GATHER_SAME_FLOOR = 0.99
+# Phase 9 (trainers, mesh): the trainers' inertia bound against Lloyd's
+# (the reference's, tests/test_kmeans.py); the data-parallel Lloyd's
+# inertia against the single-device run's and its label agreement (same
+# init, same sweeps: only summation order and the empty-cell draws differ;
+# the limits lie between the readings of a correct run and of one that
+# drops one slice's partial, PERF.md); the sharded searcher's n_probe
+# values; the share of queries on which 'dense' (and the 2-D / multi-host
+# searchers) must return the single-device exact sets; how far the K3 /
+# stream bodies' top-100 overlap may trail their single-device routes';
+# the CPU twins.
+TRAINER_INERTIA_BOUND = 1.5
+DP_INERTIA_BOUND = 1.001
+DP_AGREE_FLOOR = 0.98
+SHARD_N_PROBES = (8, 32, 128)
+SHARD_SAME_FLOOR = 0.99
+SHARD_OVERLAP_SLACK = 0.01
+SHARD_TWINS = (("stream", 8), ("stream", 32), ("dense_fused", 128))
 
 
 def log(msg: str) -> None:
@@ -1958,6 +1996,302 @@ def host_phase(torch, np, xb, xq, check, dev, work, spill_work, gt):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the other trainers and the multi-device layer
+# ---------------------------------------------------------------------------
+
+
+def layout_labels(np, idx):
+    """(n,) cell of every point of an unspilled index, from its layout."""
+    lay = idx.layout
+    lengths = np.asarray(lay.lengths).astype(np.int64)
+    rows = np.concatenate([np.arange(s, s + m) for s, m in zip(np.asarray(lay.offsets[:-1]),
+                                                                lengths)])
+    labels = np.empty(lay.n, np.int64)
+    labels[lay.perm[rows]] = np.repeat(np.arange(len(lengths)), lengths)
+    return labels
+
+
+def inertia_of(torch, xb_dev, centroids, labels) -> float:
+    """Sum of squared distances of the points to their cells (f64 sum of
+    per-chunk f32 sums, on the card)."""
+    from vector_indexer_tpu_torch.models.kmeans import compute_inertia
+
+    c = torch.as_tensor(centroids, dtype=torch.float32, device=xb_dev.device)
+    lbl = torch.as_tensor(labels, device=xb_dev.device)
+    step = 1 << 18
+    return sum(compute_inertia(xb_dev[s : s + step], c, lbl[s : s + step])
+               for s in range(0, xb_dev.shape[0], step))
+
+
+def mesh_devices(torch, n: int):
+    """The first n cards when there are that many, else card 0 n times (a
+    one-card mesh measures correctness and per-shard cost, not speedup)."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i if count >= n else 0) for i in range(n)]
+
+
+def sets_equal_share(np, a, b) -> float:
+    return float((np.sort(a, 1) == np.sort(b, 1)).all(axis=1).mean())
+
+
+def trainer_check(torch, np, store, xb_dev, xq, gt, lloyd_i: float, lloyd_skew: float,
+                  trainer: str, dev, check) -> dict:
+    """``IvfIndex.fit(store, trainer=trainer)`` on the card: build s, inertia
+    against the Lloyd index's ``lloyd_i``, max / mean list length against
+    ``lloyd_skew``, R@10 of ``auto`` at n_probe 32, and the gates (inertia
+    <= 1.5x; K1 launched in the mini-batch fit; the balanced skew at or
+    below Lloyd's, and a second balanced fit equal to the first)."""
+    from vector_indexer_tpu_torch.index.ivf import IvfIndex
+    from vector_indexer_tpu_torch.kernels import build as kb
+
+    gc_collect(torch)
+    k1 = kb.launch_counts()["assign_argmin"]
+    t0 = time.perf_counter()
+    idx = IvfIndex.fit(store, trainer=trainer, device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k1 = kb.launch_counts()["assign_argmin"] - k1
+    ratio = inertia_of(torch, xb_dev, idx.centroids, layout_labels(np, idx)) / lloyd_i
+    ln = np.asarray(idx.layout.lengths)
+    skew = float(ln.max() / ln.mean())
+    _, I = idx.search_batch(xq, K, 32)
+    r10 = quality(np, I, gt, K)[1]
+    log(f"  fit(trainer={trainer!r}): {fit_s:.2f}s, nlist={idx.num_clusters}, inertia "
+        f"{ratio!r}x Lloyd's, max/mean list length {skew:.4f} (Lloyd {lloyd_skew:.4f}), "
+        f"auto n_probe=32 R@10 {r10:.4f}, K1 launched {k1}x")
+    check(ratio <= TRAINER_INERTIA_BOUND,
+          f"{trainer}: inertia {ratio:.4f}x Lloyd's <= {TRAINER_INERTIA_BOUND}")
+    if trainer == "mini_batch":
+        check(k1 > 0, f"assign_argmin launched in the mini-batch fit ({k1}x)")
+    else:
+        check(skew <= lloyd_skew, f"balanced: max/mean list length {skew:.4f} <= Lloyd's "
+                                  f"{lloyd_skew:.4f}")
+        # Its controller and clone-split amplify any rounding that differs
+        # between runs, so the card's statistics must be deterministic.
+        again = IvfIndex.fit(store, trainer=trainer, device=dev)
+        check(torch.equal(torch.as_tensor(again.centroids).cpu(),
+                          torch.as_tensor(idx.centroids).cpu()),
+              "balanced: a second fit of the same seed gives the same centroids bit for bit")
+        del again
+    del idx
+    return dict(fit_s=fit_s, inertia_ratio=ratio, skew=skew, r10=r10, k1=k1)
+
+
+def dp_lloyd_check(torch, xb, xb_dev, nlist: int, mesh, check, iters: int = 20) -> dict:
+    """``run_kmeans_lloyd_dp`` over ``mesh`` beside the single-device Lloyd
+    (same seed and iterations) on ``xb_dev``'s card: wall seconds, the
+    inertia ratio and the label agreement, held to DP_INERTIA_BOUND and
+    DP_AGREE_FLOOR."""
+    from vector_indexer_tpu_torch.models.kmeans import run_kmeans_lloyd
+    from vector_indexer_tpu_torch.parallel import run_kmeans_lloyd_dp
+
+    t0 = time.perf_counter()
+    dp = run_kmeans_lloyd_dp(xb, nlist, iters, mesh, seed=42)
+    for dv in set(mesh.devices.flat):
+        torch.cuda.synchronize(dv)
+    dp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = run_kmeans_lloyd(xb_dev, nlist, iters, seed=42)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    ratio = inertia_of(torch, xb_dev, dp.centroids, dp.labels) / inertia_of(
+        torch, xb_dev, single.centroids, single.labels)
+    agree = float((dp.labels.cpu() == single.labels.cpu()).float().mean())
+    log(f"  data-parallel Lloyd over {mesh}: {dp_s:.2f}s, {dp.iterations} iterations; "
+        f"single-device {single_s:.2f}s, {single.iterations}; inertia ratio {ratio!r}, "
+        f"label agreement {agree!r}")
+    check(ratio <= DP_INERTIA_BOUND and agree >= DP_AGREE_FLOOR,
+          f"data-parallel Lloyd: inertia {ratio:.6f}x the single-device run's <= "
+          f"{DP_INERTIA_BOUND}, label agreement {agree:.6f} >= {DP_AGREE_FLOOR}")
+    return dict(dp_s=dp_s, single_s=single_s, inertia_ratio=ratio, agreement=agree)
+
+
+def sync_check(torch, ss, xq, k: int, check) -> None:
+    """The per-device loop of ``ShardedSearcher`` ``ss`` only enqueues work,
+    so that distinct cards overlap: any synchronising call inside it (a size
+    read, .item(), a copy to the host) raises under the sync debug mode.
+    Checked in every body at n_probe 32."""
+    method = ss.method
+    for body in ("dense", "dense_fused", "stream"):
+        ss.method = body
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ss.run([(j, dv, xq) for j, dv in enumerate(ss.devices)], k, 32, len(xq))
+            err = None
+        except RuntimeError as e:
+            err = str(e).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for dv in set(ss.devices):
+            torch.cuda.synchronize(dv)
+        check(err is None, f"sharded {body}: the per-device loop makes no host "
+                           f"synchronisation ({err or 'none raised'})")
+    ss.method = method
+
+
+def grid_check(torch, np, index, devs, xq, k: int, ref_I, flat_list: int, check) -> dict:
+    """``Sharded2DSearcher`` and ``MultiHostSearcher`` ('dense', n_probe 32)
+    on a 2 x (len(devs) / 2) grid of ``devs``: batch ms, merge bytes, the
+    1-D searcher's sets ``ref_I`` on >= SHARD_SAME_FLOOR of queries, and
+    the multi-host stage-2 bytes S-fold below a flat merge's cross-host
+    bytes (``flat_list``: one device's list in bytes)."""
+    from vector_indexer_tpu_torch.parallel import Mesh, MultiHostSearcher, Sharded2DSearcher
+
+    half = len(devs) // 2
+    grid = np.empty((2, half), dtype=object)
+    for i, dv in enumerate(devs):
+        grid[i // half, i % half] = dv
+    out = {}
+    for name, key, searcher in (
+            (f"Sharded2DSearcher (2 x {half})", "2d",
+             Sharded2DSearcher(index, Mesh(grid, ("queries", "shards")))),
+            (f"MultiHostSearcher (2 hosts x {half} shards)", "multihost",
+             MultiHostSearcher(index, Mesh(grid, ("hosts", "shards")), method="dense"))):
+        ms = cuda_ms(torch, lambda: searcher.search_batch(xq, k, 32), reps=3)
+        _, I = searcher.search_batch(xq, k, 32)
+        same = sets_equal_share(np, I, ref_I)
+        out[key] = dict(ms=ms, merge_bytes=searcher.last_merge_bytes, same=same)
+        log(f"  {name} dense n_probe=32: batch {ms:9.3f} ms, merge bytes "
+            f"{searcher.last_merge_bytes}")
+        check(same >= SHARD_SAME_FLOOR, f"{name}: the 1-D searcher's sets on {same:.4f} of "
+                                        f"queries (>= {SHARD_SAME_FLOOR})")
+        if key == "multihost":
+            H, S = searcher.grid.shape
+            flat_cross = flat_list * (H - 1) * S
+            hosts = searcher.last_merge_bytes["hosts"]
+            check(flat_cross == S * hosts,
+                  f"multi-host merge: stage-2 (cross-host) bytes {hosts} = a flat merge's "
+                  f"cross-host {flat_cross} / S ({S})")
+        del searcher
+    return out
+
+
+def parallel_phase(torch, np, xb, xq, check, dev, work, spill_work, gt):
+    """Phase 9 on phase 4's corpus and saved index: the mini-batch and
+    balanced fits, the data-parallel Lloyd beside the single-device one,
+    the 1-D sharded searcher (four mesh entries) in each body, the 2-D and
+    multi-host searchers, and a CPU twin. Returns the phase's counts."""
+    from vector_indexer_tpu_torch import bindings
+    from vector_indexer_tpu_torch.kernels import build as kb
+    from vector_indexer_tpu_torch.parallel import Mesh, ShardedSearcher
+    from vector_indexer_tpu_torch.storage.vector_store import VectorStore
+
+    k, d, n = K, xb.shape[1], xb.shape[0]
+    idx_dir, sh_dir = str(work / "index"), str(work / "shards")
+    kb.reset_launch_counts()  # counts from here on belong to phase 9
+    xb_dev = torch.as_tensor(xb, device=dev)
+    vl = bindings.load(idx_dir, sh_dir, d, device=dev)
+    lloyd_i = inertia_of(torch, xb_dev, vl.index.centroids, layout_labels(np, vl.index))
+    ln = np.asarray(vl.index.layout.lengths)
+    lloyd_skew = float(ln.max() / ln.mean())
+    log(f"  phase 4's Lloyd index: inertia {lloyd_i:.6e}, max/mean list length {lloyd_skew:.4f}")
+
+    # (a) the mini-batch and balanced trainers.
+    store = VectorStore(external_ids=np.arange(n, dtype=np.uint64), vectors=xb)
+    for trainer in ("mini_batch", "balanced"):
+        trainer_check(torch, np, store, xb_dev, xq, gt, lloyd_i, lloyd_skew, trainer, dev, check)
+
+    # (b) the data-parallel Lloyd beside the single-device one.
+    gc_collect(torch)
+    mesh = Mesh(mesh_devices(torch, 4), ("shards",))
+    dp_lloyd_check(torch, xb, xb_dev, vl.index.num_clusters, mesh, check)
+    gc_collect(torch)
+
+    # (c) the 1-D sharded searcher, each body, beside the single-device routes.
+    single_routes = {"dense": "dense_exact", "dense_fused": "dense_fused", "stream": "stream"}
+    ref = {}
+    xq_dev = torch.as_tensor(xq, device=dev)
+    for n_probe in SHARD_N_PROBES:
+        for m, route in single_routes.items():
+            Ds, Rs = vl.search_device(xq_dev, k, n_probe, method=route)
+            ref[(m, n_probe)] = (Ds.cpu().numpy(), vl.rows_to_external(Rs))
+    t0 = time.perf_counter()
+    ss = ShardedSearcher(vl.index, mesh, method="dense")
+    log(f"  ShardedSearcher over {mesh}: {time.perf_counter() - t0:.2f}s to build the local "
+        f"tables; {ss._host_tables.local_vecs.shape[1]} rows per slice")
+    perm = ss.local_perm[ss.local_perm >= 0]
+    check(len(perm) == n and len(np.unique(perm)) == n,
+          f"local_perm covers every row exactly once ({len(perm)} entries, "
+          f"{len(np.unique(perm))} distinct)")
+    scale = np.sum(xq * xq, axis=1) + float(np.max(np.sum(xb * xb, axis=1)))
+    results = {}
+    for method in ("dense", "dense_fused", "stream", "auto"):
+        ss.method = method
+        for n_probe in SHARD_N_PROBES:
+            before = kb.launch_counts()
+            ms = cuda_ms(torch, lambda: ss.search_batch(xq, k, n_probe), reps=3)
+            D, I = ss.search_batch(xq, k, n_probe)
+            after = kb.launch_counts()
+            used = {kname: after[kname] - before[kname] for kname in after
+                    if after[kname] > before[kname]}
+            results[(method, n_probe)] = (D, I)
+            r1, r10, r100, ov = quality(np, I, gt, k)
+            log(f"  sharded {method:11s} n_probe={n_probe:4d} (body {ss.last_method}): batch "
+                f"{ms:9.3f} ms (CUDA events), QPS {NQ / ms * 1e3:9.1f}; R@1 {r1:.4f} R@10 "
+                f"{r10:.4f} R@100 {r100:.4f} top-{k} overlap {ov:.4f}; kernels {used}")
+            body = ss.last_method
+            if method == "dense":
+                Dr, Ir = ref[("dense", n_probe)]
+                same = sets_equal_share(np, I, Ir)
+                err = np.abs(D - Dr)
+                check(same >= SHARD_SAME_FLOOR and bool((err <= RTOL * scale[:, None]).all()),
+                      f"sharded dense n_probe={n_probe}: dense_exact's sets on {same:.4f} of "
+                      f"queries (>= {SHARD_SAME_FLOOR}), distances within {RTOL:g}*(|q|^2+"
+                      f"max|x|^2) (max |err| {float(err.max()):.3e})")
+            elif method in ("dense_fused", "stream"):
+                ov_single = quality(np, ref[(method, n_probe)][1], gt, k)[3]
+                check(ov >= ov_single - SHARD_OVERLAP_SLACK,
+                      f"sharded {method} n_probe={n_probe}: top-{k} overlap {ov:.4f} >= the "
+                      f"single-device {single_routes[method]}'s {ov_single:.4f} - "
+                      f"{SHARD_OVERLAP_SLACK}")
+                kernels = (("flat_sweep_topk_plane",) if method == "dense_fused" else
+                           ("stream_distances[bf16]", "stream_fused_plane[bf16]"))
+                check(body == method and any(used.get(kname, 0) for kname in kernels),
+                      f"sharded {method} n_probe={n_probe}: body {body}, launched one of "
+                      f"{kernels}")
+    flat_list = ss.last_merge_bytes["shards"] // (ss.n_dev - 1)
+    sync_check(torch, ss, xq, k, check)
+
+    sp = bindings.load(str(spill_work / "index"), str(spill_work / "shards"), d, device=dev)
+    for method in ("dense_fused", "stream"):
+        sps = ShardedSearcher(sp.index, mesh, method=method)
+        _, I = sps.search_batch(xq, k, 32)
+        check(no_dup_rows(np, I), f"phase 7's spilled index sharded ({method}, n_probe 32): no "
+                                  f"repeated id in a row (R@10 {quality(np, I, gt, k)[1]:.4f})")
+        del sps
+    del sp
+
+    # (d) the 2-D and multi-host searchers, against the 1-D searcher's sets.
+    grid_check(torch, np, vl.index, mesh_devices(torch, 4), xq, k, results[("dense", 32)][1],
+               flat_list, check)
+    del ss
+    torch.cuda.synchronize()
+    counts = kb.launch_counts()
+    log(f"  launch counts in phase 9: {counts}")
+
+    # (e) the 1-D searcher again on the CPU (the plain versions).
+    t0 = time.perf_counter()
+    vc = bindings.load(idx_dir, sh_dir, d, device="cpu")
+    cpu = torch.device("cpu")
+    qs = xq[:NQ_TWIN]
+    sc = ShardedSearcher(vc.index, Mesh([cpu] * 4, ("shards",)))
+    for method, n_probe in SHARD_TWINS:
+        sc.method = method
+        Dp, Ip = sc.search_batch(qs, k, n_probe)
+        Dc, Ic = (a[:NQ_TWIN] for a in results[(method, n_probe)])
+        err = np.abs(Dc - Dp)
+        same = sets_equal_share(np, Ic, Ip)
+        check(bool(np.isfinite(Dp).all()) and bool((err <= RTOL * scale[:NQ_TWIN, None]).all())
+              and same >= TWIN_SAME_FLOOR,
+              f"sharded {method} n_probe={n_probe}: card vs CPU, {NQ_TWIN} queries: every rank "
+              f"within {RTOL:g}*(|q|^2+max|x|^2) (max |err| {float(err.max()):.3e}); equal "
+              f"sets on {same:.4f} (>= {TWIN_SAME_FLOOR})")
+    log(f"  CPU comparison: {time.perf_counter() - t0:.2f}s")
+    return counts
+
+
 def gc_collect(torch):
     import gc
 
@@ -2043,6 +2377,11 @@ def main() -> int:
         by_phase["8"] = host_phase(torch, np, xb, xq, check, dev, work / "host",
                                    work / "spill", gt)
         log(f"  phase 8: {time.perf_counter() - t0:.2f}s")
+        log("== 9. the mini-batch and balanced trainers, the mesh (data-parallel Lloyd, "
+            "sharded, 2-D and multi-host search)")
+        t0 = time.perf_counter()
+        by_phase["9"] = parallel_phase(torch, np, xb, xq, check, dev, work, work / "spill", gt)
+        log(f"  phase 9: {time.perf_counter() - t0:.2f}s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -109,7 +109,13 @@ def test_assign_routes_agree():
 
 
 def test_unported_trainers_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.run_kmeans_mini_batch(torch.zeros(4, 2), 2, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.run_kmeans_balanced(torch.zeros(4, 2), 2, 1)
+    """The mini-batch and balanced trainers (ported since) refuse empty
+    data as the reference's do, and train on the rest."""
+    for ours, ref in ((tk.run_kmeans_mini_batch, jk.run_kmeans_mini_batch),
+                      (tk.run_kmeans_balanced, jk.run_kmeans_balanced)):
+        with pytest.raises(ValueError, match="empty"):
+            ours(torch.zeros(0, 2), 2, 1)
+        with pytest.raises(ValueError, match="empty"):
+            ref(np.zeros((0, 2), np.float32), 2, 1)
+        res = ours(torch.arange(8, dtype=torch.float32).reshape(4, 2), 2, 3)
+        assert res.centroids.shape == (2, 2) and res.labels.shape == (4,)

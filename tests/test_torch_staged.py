@@ -389,11 +389,17 @@ def test_fit_host_resident_low_memory(tmp_path):
         IvfIndex.fit(store, seed=42, resident="nope", device="cpu")
     with pytest.raises(ValueError):
         IvfIndex.fit(store, seed=42, resident="host", trainer="balanced", device="cpu")
+    # The reference's guards on the other trainers and the mesh fit.
     for trainer in ("mini_batch", "balanced"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-            IvfIndex.fit(store, seed=42, trainer=trainer, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        IvfIndex.fit(store, seed=42, mesh=object(), device="cpu")
+        with pytest.raises(ValueError, match="train_sample"):
+            IvfIndex.fit(store, seed=42, trainer=trainer, train_sample=1500, device="cpu")
+    from vector_indexer_tpu_torch.parallel import Mesh
+
+    mesh = Mesh([torch.device("cpu")] * 2, ("shards",))
+    with pytest.raises(ValueError, match="resident='host'"):
+        IvfIndex.fit(store, seed=42, mesh=mesh, resident="host", device="cpu")
+    with pytest.raises(ValueError, match="mesh-parallel"):
+        IvfIndex.fit(store, seed=42, mesh=mesh, trainer="balanced", device="cpu")
 
 
 def test_load_host_through_bindings_and_api(saved):

@@ -3,7 +3,9 @@
 Port of ``vector_indexer_tpu/index/ivf.py``:
 
 * ``fit``: full-batch Lloyd on the device (optionally trained on a seeded
-  subsample, ``train_sample``), a super-centroid k-means over the centroid
+  subsample, ``train_sample``; ``trainer='mini_batch'`` or ``'balanced'``
+  for the other trainers; ``mesh=`` for the data-parallel Lloyd over a
+  device mesh, parallel/dp_kmeans.py), a super-centroid k-means over the centroid
   table with ``num_shards = ceil(sqrt(nlist))`` and seed ``seed*31 + 7``,
   empty lists filtered and ids densely remapped, and a posting layout whose
   clusters are grouped by shard. ``spill=1`` also puts every vector into a
@@ -26,8 +28,7 @@ Port of ``vector_indexer_tpu/index/ivf.py``:
   resident='host')``): the layout stays in host memory and each batch
   stages only its probed cells (index/staged.py).
 
-The mesh build and the mini-batch and balanced trainers are not ported yet
-(ROADMAP Queue 1 items 6 and 8) and raise.
+Search over a corpus split across devices is ``parallel/sharded.py``.
 """
 
 from __future__ import annotations
@@ -41,9 +42,11 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.kmeans import (
+    run_kmeans_balanced,
     run_kmeans_lloyd,
     run_kmeans_lloyd_host,
     run_kmeans_lloyd_sampled,
+    run_kmeans_mini_batch,
 )
 from ..ops.block_stream import build_stream_table, pick_chunk
 from ..ops.distance import assign_spill_chunked, sq_norms
@@ -136,34 +139,45 @@ class IvfIndex:
         seed: int = 42,
         nlist: Optional[int] = None,
         max_iters: Optional[int] = None,
+        refine_iters: int = 2,
         metric: str = "l2",
         trainer: str = "lloyd",
+        mesh=None,
+        mesh_axis: str = "shards",
         spill: int = 0,
         spill_lambda: float = 1.0,
+        balance: float = 1.0,
         train_sample: Optional[int] = None,
         resident: str = "device",
         device: DeviceLike = None,
-        mesh=None,
     ) -> "IvfIndex":
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh (multi-device) build is not ported yet (ROADMAP Queue 1 item 8)"
-            )
+        """Train the coarse quantizer and pack the posting layout.
+
+        ``trainer``: 'lloyd' (full batch, the default), 'mini_batch' (the
+        original engine's algorithm, then ``refine_iters`` Lloyd passes) or
+        'balanced' (occupancy-penalized Lloyd; ``balance`` scales the
+        penalty). ``mesh`` (a ``parallel.Mesh``): train with the
+        data-parallel Lloyd, the points split along ``mesh_axis`` (lloyd
+        only); the index itself lives on ``device``."""
         if resident not in ("device", "host"):
             raise ValueError("resident must be 'device' or 'host'")
         if trainer not in ("lloyd", "mini_batch", "balanced"):
             raise ValueError(f"unknown trainer: {trainer}")
-        if train_sample is not None and trainer != "lloyd":
-            raise ValueError("train_sample is a full-batch Lloyd option")
-        if resident == "host" and (trainer != "lloyd" or spill):
+        if train_sample is not None and (trainer != "lloyd" or mesh is not None):
             raise ValueError(
-                "resident='host' fit supports trainer='lloyd' without spill (the "
-                "low-device-memory build stages only a training sample and "
-                "per-slice assignments)"
+                "train_sample is a full-batch Lloyd option (mini_batch is already "
+                "subsampled; balanced and data-parallel sweeps need every point)"
             )
-        if trainer != "lloyd":
-            raise NotImplementedError(
-                f"trainer {trainer!r} is not ported yet (ROADMAP Queue 1 item 6)"
+        if resident == "host" and (trainer != "lloyd" or mesh is not None or spill):
+            raise ValueError(
+                "resident='host' fit supports trainer='lloyd' without mesh or spill (the "
+                "low-device-memory build stages only a training sample and per-slice "
+                "assignments)"
+            )
+        if mesh is not None and trainer != "lloyd":
+            raise ValueError(
+                "mesh-parallel fit supports trainer='lloyd' (the mini-batch step is "
+                "batch-bound, not data-bound: data parallelism would split a <= 256-row batch)"
             )
         if spill not in (0, 1):
             raise ValueError("spill supports 0 or 1 secondary assignments")
@@ -185,8 +199,14 @@ class IvfIndex:
 
         spherical = metric == "cosine"
         data_dev = None
-        with trace("fit.kmeans", n=n, k=k):
-            if resident == "host":
+        with trace("fit.kmeans", n=n, k=k, mesh=mesh is not None):
+            if mesh is not None:
+                from ..parallel.dp_kmeans import run_kmeans_lloyd_dp
+
+                kres = run_kmeans_lloyd_dp(data, k, iters, mesh=mesh, axis=mesh_axis, seed=seed,
+                                           spherical=spherical)
+                data_dev = torch.as_tensor(data, device=dev)  # for the spill pass and layout
+            elif resident == "host":
                 # Only the training sample and one assignment slice at a
                 # time reach the device; the layout packs in host memory.
                 kres = run_kmeans_lloyd_host(
@@ -197,7 +217,13 @@ class IvfIndex:
                 # One copy of the corpus on the device serves training, the
                 # spill assignment and the layout.
                 data_dev = torch.as_tensor(data, device=dev)
-                if train_sample is not None and train_sample < n:
+                if trainer == "balanced":
+                    kres = run_kmeans_balanced(data_dev, k, iters, balance=balance, seed=seed,
+                                               spherical=spherical)
+                elif trainer == "mini_batch":
+                    kres = run_kmeans_mini_batch(data_dev, k, iters, seed=seed,
+                                                 refine_iters=refine_iters, spherical=spherical)
+                elif train_sample is not None and train_sample < n:
                     kres = run_kmeans_lloyd_sampled(
                         data_dev, k, iters, train_sample, seed=seed, spherical=spherical
                     )

@@ -91,19 +91,20 @@ def exact_rerank(queries, rows, vectors, row_norms, k: int, metric: str):
 
 def stream_program(queries, centroids, c_sq, table, *, k: int, n_probe: int,
                    t_fixed: int, q_tile: int, metric: str, approx: bool = True,
-                   shared: bool = False, t_cap: int = 0, rerank_from=None):
+                   shared: bool = False, t_cap: int = 0, rerank_from=None, probe_fn=None):
     """Probed-blocks-only search over a stream table. ``shared`` runs K5
     (``t_cap`` tasks per query tile). ``rerank_from`` = (vectors,
     row_norms) of the f32 main table re-ranks the widened shortlist
     exactly, hoisted out of the sweep's tile loop into tiles of up to
     RERANK_Q_TILE queries; without it the kernel distances are narrowed
-    to k."""
+    to k. ``probe_fn(qt)`` -> (q, p) probe ids, nearest first, replaces the
+    coarse top-n_probe (the sharded searchers pass their local probes)."""
     wide = 4 if table.dtype == torch.int8 else 2
     kk = shortlist_k(k, t_fixed, table.chunk, wide)
     dv_parts, row_parts = [], []
     for s in range(0, queries.shape[0], q_tile):
         qt = queries[s : s + q_tile]
-        probe = _probe(qt, centroids, c_sq, n_probe)
+        probe = _probe(qt, centroids, c_sq, n_probe) if probe_fn is None else probe_fn(qt)
         if shared:
             dv, rows = block_stream_search_shared(
                 qt, table, probe, kk, t_fixed=t_fixed, t_cap=t_cap, metric=metric
@@ -186,10 +187,13 @@ def _cat(parts):
 
 def dense_fused_program(queries, centroids_ord, c_sq_ord, vectors, row_norms,
                         block_run, n_probe: int, vec_resid=None, scale_row=None, *, k: int,
-                        w: int, c_groups: int, metric: str, precision: str = "highest"):
+                        w: int, c_groups: int, metric: str, precision: str = "highest",
+                        probe_sets=None):
     """Masked dense sweep through kernel K3. ``precision`` 'int8' /
     'int8x1' sweeps the int8 codes ``vectors`` with ``scale_row`` (and
     ``vec_resid`` for 'int8'); norms stay the f32 table's.
+    ``probe_sets(qt)`` -> (probe sets, nearest run) replaces
+    ``_probe_sets`` (the sharded searchers' global threshold).
 
     Each launch sweeps its queries sorted by their nearest probe (stable),
     so that the queries of one 64-query kernel tile share probes and the
@@ -201,7 +205,8 @@ def dense_fused_program(queries, centroids_ord, c_sq_ord, vectors, row_norms,
     parts = []
     for s in range(0, queries.shape[0], SWEEP_Q_TILE):
         qt = queries[s : s + SWEEP_Q_TILE]
-        s_ord, nearest = _probe_sets(qt, centroids_ord, c_sq_ord, n_probe)
+        s_ord, nearest = (_probe_sets(qt, centroids_ord, c_sq_ord, n_probe)
+                          if probe_sets is None else probe_sets(qt))
         perm = torch.argsort(nearest, stable=True)
         qt, s_ord = qt[perm], s_ord[perm]
         mask = _sweep_mask(s_ord, block_run, mcols)
@@ -231,13 +236,15 @@ def flat_fused_program(queries, vectors, row_norms, vec_resid=None, scale_row=No
 
 
 def dense_program(queries, centroids_ord, c_sq_ord, vectors, row_norms, block_run,
-                  n_probe: int, *, k: int, q_tile: int, metric: str):
+                  n_probe: int, *, k: int, q_tile: int, metric: str, probe_sets=None):
     """Plain masked dense search: full (q_tile, n) distance matrix, unprobed
-    rows +inf, exact top-k; sentinel rows never count as results."""
+    rows +inf, exact top-k; sentinel rows never count as results.
+    ``probe_sets`` as in ``dense_fused_program``."""
     parts = []
     for s in range(0, queries.shape[0], q_tile):
         qt = queries[s : s + q_tile]
-        mask = _block_mask(qt, centroids_ord, c_sq_ord, block_run, n_probe)
+        mask = (_block_mask(qt, centroids_ord, c_sq_ord, block_run, n_probe)
+                if probe_sets is None else _expand_mask(probe_sets(qt)[0], block_run))
         dist = score(qt, vectors, row_norms, sq_norms(qt), metric)
         dist = torch.where(mask.repeat_interleave(ALIGN, dim=1), dist, float("inf"))
         parts.append(_real_topk(dist, k))

@@ -24,8 +24,16 @@ Lloyd iterations from a shared init.
 The sampled trainer (Lloyd on a seeded subsample, every point assigned)
 and its host-corpus twin (only the subsample and one fixed-size assignment
 slice at a time reach the device) draw the reference's numpy sample, so
-both packages train on the same rows. The mini-batch and balanced trainers
-are not ported yet (ROADMAP Queue 1 item 6) and raise.
+both packages train on the same rows.
+
+The mini-batch trainer (kmeans.py:766-864) keeps the original engine's
+per-cluster step eta = 1/count over batches of ``mini_batch_size(n)``
+points, then ``refine_iters`` full Lloyd passes and the final assignment
+(K1 at large n*k). The balanced trainer (kmeans.py:556-755) adds a
+per-cell penalty to the assignment, driven by an integral controller on
+the cells' occupancy, and clones an overfull cell's centroid onto an
+underfull one; its final assignment keeps the penalty. The data-parallel
+Lloyd is ``parallel/dp_kmeans.py``.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..ops.assign import assign_argmin
 from ..ops.distance import pairwise_sq_l2, sq_norms
+from ..utils.heuristics import mini_batch_size
 
 _SAMPLE_THRESHOLD = 50_000  # exact vs sampled k-means++ switch
 _DEFAULT_TOL = 1e-4
@@ -124,16 +133,27 @@ def kmeans_plus_plus_init(
 ) -> torch.Tensor:
     """k-means++ seeding; subsampled above ``sample_threshold`` points."""
     data = _check_data(data)
-    n = data.shape[0]
-    gen = make_generator(data.device, seed)
+    return init_from_rows(lambda idx: data if idx is None else data[idx], data.shape[0], k,
+                          seed, data.device, sample_threshold)
+
+
+def init_from_rows(rows_of, n: int, k: int, seed: int, dev: torch.device,
+                   sample_threshold: int = _SAMPLE_THRESHOLD) -> torch.Tensor:
+    """``kmeans_plus_plus_init`` over a corpus of ``n`` rows that
+    ``rows_of(idx)`` gathers onto ``dev`` (``idx`` None: every row), so a
+    corpus split over devices (parallel/dp_kmeans.py) draws the same init
+    as the same rows on one device."""
+    gen = make_generator(dev, seed)
     if k >= n:
         # Every point becomes a centroid; surplus centroids cycle through the
         # points again (empty-cluster repair owns them during training).
-        return data[torch.arange(k, device=data.device) % n].clone()
+        return rows_of(torch.arange(k, device=dev) % n).clone()
     if n > sample_threshold:
-        pick = torch.randperm(n, generator=gen, device=data.device)
-        data = data[pick[:sample_threshold]]
+        pick = torch.randperm(n, generator=gen, device=dev)
+        data = rows_of(pick[:sample_threshold])
         n = sample_threshold
+    else:
+        data = rows_of(None)
     draw_block = 1 if k <= 128 else max(1, min(64, k - 1, n))
     return _kmeans_pp_exact(gen, data, k, draw_block=draw_block)
 
@@ -275,6 +295,32 @@ def _repair_empty(gen, centroids, counts, data):
     return torch.where((counts == 0)[:, None], data[ridx], centroids)
 
 
+def lloyd_stats(data, centroids, k: int, chunk: int):
+    """One exact f32 assignment sweep over ``chunk``-point tiles: the
+    per-cluster (sums (k, d), counts (k,)) of ``data``."""
+    c_sq = sq_norms(centroids)
+    sums = torch.zeros_like(centroids)
+    counts = torch.zeros(k, dtype=torch.float32, device=data.device)
+    for s in range(0, data.shape[0], chunk):
+        xt = data[s : s + chunk]
+        lbl = torch.argmin(pairwise_sq_l2(xt, centroids, c_sq=c_sq), dim=1)
+        ts, tc = _segment_stats(xt, lbl, k)
+        sums.add_(ts)
+        counts.add_(tc)
+    return sums, counts
+
+
+def mean_update(sums, counts, centroids):
+    """Each hit cluster's mean; empty clusters keep their centroid."""
+    return torch.where((counts > 0)[:, None], sums / counts.clamp_min(1.0)[:, None], centroids)
+
+
+def _to_sphere(c):
+    """Spherical k-means: centroids stay on the unit sphere, so L2
+    assignment == cosine assignment for unit data."""
+    return c / c.norm(dim=1, keepdim=True).clamp_min(1e-12)
+
+
 def _rms_delta(curr, prev) -> torch.Tensor:
     k, d = curr.shape
     return torch.sqrt(torch.sum((curr - prev) ** 2) / (k * d))
@@ -288,23 +334,10 @@ def _lloyd_loop(data, init_centroids, gen, k: int, max_iters: int, tol: float,
     centroids = init_centroids.to(torch.float32).clone()
     it, converged = 0, False
     while it < max_iters:
-        c_sq = sq_norms(centroids)
-        sums = torch.zeros_like(centroids)
-        counts = torch.zeros(k, dtype=torch.float32, device=data.device)
-        for s in range(0, data.shape[0], chunk):
-            xt = data[s : s + chunk]
-            lbl = torch.argmin(pairwise_sq_l2(xt, centroids, c_sq=c_sq), dim=1)
-            ts, tc = _segment_stats(xt, lbl, k)
-            sums.add_(ts)
-            counts.add_(tc)
-        new_c = torch.where(
-            (counts > 0)[:, None], sums / counts.clamp_min(1.0)[:, None], centroids
-        )
-        new_c = _repair_empty(gen, new_c, counts, data)
+        sums, counts = lloyd_stats(data, centroids, k, chunk)
+        new_c = _repair_empty(gen, mean_update(sums, counts, centroids), counts, data)
         if spherical:
-            # Spherical k-means: centroids stay on the unit sphere, so L2
-            # assignment == cosine assignment for unit data.
-            new_c = new_c / new_c.norm(dim=1, keepdim=True).clamp_min(1e-12)
+            new_c = _to_sphere(new_c)
         delta = float(_rms_delta(new_c, centroids))
         centroids = new_c
         it += 1
@@ -421,15 +454,191 @@ def run_kmeans_lloyd_host(data_host: np.ndarray, k: int, max_iters: int, train_s
     return KMeansResult(res.centroids, torch.from_numpy(labels), res.iterations, res.converged)
 
 
-def _not_ported(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP Queue 1 item 6)"
-        )
-
-    fn.__name__ = name
-    return fn
+# ---------------------------------------------------------------------------
+# Balanced Lloyd (occupancy-penalized assignment)
+# ---------------------------------------------------------------------------
 
 
-run_kmeans_mini_batch = _not_ported("run_kmeans_mini_batch")
-run_kmeans_balanced = _not_ported("run_kmeans_balanced")
+def _assign_dense_biased(data, centroids, bias, chunk: int = _ASSIGN_CHUNK):
+    """Nearest centroid under an additive per-cluster ``bias`` (squared
+    distance units): the argmin of dmat + bias per point (first index on a
+    tie). Returns (labels int32, the TRUE squared distance to the chosen
+    cell)."""
+    c_sq = sq_norms(centroids)
+    labels, dists = [], []
+    for s in range(0, data.shape[0], chunk):
+        dmat = pairwise_sq_l2(data[s : s + chunk], centroids, c_sq=c_sq)
+        lbl = torch.argmin(dmat + bias[None, :], dim=1)
+        labels.append(lbl.to(torch.int32))
+        dists.append(dmat.gather(1, lbl[:, None])[:, 0])
+    return torch.cat(labels), torch.cat(dists)
+
+
+def _balanced_stats(data, centroids, pen, k: int, chunk: int):
+    """One penalized assignment sweep: (sums, counts, per-cell sums of the
+    chosen cells' squared distances, mean top-2 margin). The margin (the
+    second-nearest minus the nearest distance, unpenalized) is the unit of
+    the occupancy penalty: in high dimension margins are far smaller than
+    the error level (distance concentration), so an error-scaled penalty
+    would drown the geometry (the reference measured max/mean 148x at
+    d 128).
+
+    The per-cell sums are one one-hot product per tile, as the reference
+    computes them, not ``index_add_``: on the card that sums with atomics
+    in a varying order, and the controller and the clone-split amplify
+    those roundings until two runs of one seed differ by several percent
+    of inertia. The product gives the same result on every run."""
+    c_sq = sq_norms(centroids)
+    d = data.shape[1]
+    stats = torch.zeros((k, d + 2), dtype=torch.float32, device=data.device)
+    msum = torch.zeros((), dtype=torch.float32, device=data.device)
+    for s in range(0, data.shape[0], chunk):
+        xt = data[s : s + chunk]
+        dmat = pairwise_sq_l2(xt, centroids, c_sq=c_sq)
+        lbl = torch.argmin(dmat + pen[None, :], dim=1)
+        dsel = dmat.gather(1, lbl[:, None])
+        # [x | 1 | chosen distance] summed per cell: sums, counts, errs.
+        rhs = torch.cat([xt, torch.ones_like(dsel), dsel], dim=1)
+        stats.add_(torch.zeros_like(dmat).scatter_(1, lbl[:, None], 1.0).T @ rhs)
+        if k >= 2:
+            v2 = torch.topk(dmat, 2, dim=1, largest=False, sorted=True).values
+            msum.add_(torch.sum(v2[:, 1] - v2[:, 0]))
+    return stats[:, :d], stats[:, d], stats[:, d + 1], msum / data.shape[0]
+
+
+def _balanced_loop(data, init_centroids, gen, k: int, max_iters: int, tol: float, chunk: int,
+                   balance: float, spherical: bool = False):
+    """Lloyd with an occupancy-penalized assignment (the reference's
+    ``_lloyd_loop_balanced``). Returns (centroids, penalty, iterations,
+    converged).
+
+    * Integral controller in margin units: the penalty accumulates
+      0.5 * min(balance, 1) * margin * clip(count/target - 1, -1, 1) per
+      pass, mean-centred and clamped to +-4 margins (anti-windup; a
+      proportional penalty oscillates, an error-scaled one drowns the
+      geometry).
+    * Clone-split: a point mass leaves a cell as one bloc, so when the
+      heaviest cell holds > 2x target and the lightest < 0.6x target (and
+      more than 5 passes remain), the lightest cell's centroid becomes the
+      heaviest's plus a jitter of 0.1 of the donor's RMS radius, and takes
+      its penalty."""
+    n, d = data.shape
+    centroids = init_centroids.to(torch.float32).clone()
+    pen = torch.zeros(k, dtype=torch.float32, device=data.device)
+    target = n / k
+    rows = torch.arange(k, device=data.device)
+    it, converged = 0, False
+    while it < max_iters:
+        sums, counts, errs, margin = _balanced_stats(data, centroids, pen, k, chunk)
+        new_c = _repair_empty(gen, mean_update(sums, counts, centroids), counts, data)
+        if spherical:
+            new_c = _to_sphere(new_c)
+        push = torch.clamp(counts / target - 1.0, -1.0, 1.0)
+        new_pen = pen + 0.5 * min(balance, 1.0) * margin * push
+        new_pen = new_pen - new_pen.mean()
+        new_pen = torch.maximum(torch.minimum(new_pen, 4.0 * margin), -4.0 * margin)
+        heavy, light = torch.argmax(counts), torch.argmin(counts)
+        cell_rms = torch.sqrt(errs[heavy] / counts[heavy].clamp_min(1.0))
+        jitter = 0.1 * cell_rms.clamp_min(1e-15) * torch.randn(
+            d, generator=gen, device=data.device) / math.sqrt(d)
+        split = ((counts[heavy] > 2.0 * target) & (counts[light] < 0.6 * target)
+                 & (it < max_iters - 5)) & (rows == light)
+        new_c = torch.where(split[:, None], (new_c[heavy] + jitter)[None, :], new_c)
+        new_pen = torch.where(split, new_pen[heavy], new_pen)
+        delta = float(_rms_delta(new_c, centroids))
+        centroids, pen = new_c, new_pen
+        it += 1
+        if delta < tol:
+            converged = True
+            break
+    return centroids, pen, it, converged
+
+
+def run_kmeans_balanced(data: torch.Tensor, k: int, max_iters: int, balance: float = 1.0,
+                        early_stop_threshold: Optional[float] = None, seed: int = 42,
+                        chunk: int = _ASSIGN_CHUNK, spherical: bool = False) -> KMeansResult:
+    """Occupancy-penalized full-batch Lloyd: bounds posting-list skew by
+    construction (``balance`` scales the penalty's gain, saturating at 1).
+    The final assignment keeps the trained penalty (an unpenalized pass
+    would restore the skew). Early stopping is off unless
+    ``early_stop_threshold`` is given: the controller keeps working after
+    the centroids settle."""
+    data = _check_data(data)
+    tol = 0.0 if early_stop_threshold is None else early_stop_threshold
+    init = kmeans_plus_plus_init(data, k, seed=seed)
+    gen = make_generator(data.device, seed ^ 0x5EED)
+    chunk = min(chunk, max(8, data.shape[0]))
+    centroids, pen, iters, converged = _balanced_loop(
+        data, init, gen, k, max_iters, tol, chunk, float(balance), spherical=spherical
+    )
+    labels, _ = _assign_dense_biased(data, centroids, pen, chunk=chunk)
+    return KMeansResult(centroids, labels, iters, converged)
+
+
+# ---------------------------------------------------------------------------
+# Mini-batch
+# ---------------------------------------------------------------------------
+
+
+def _mini_batch_loop(data, init_centroids, gen, k: int, max_iters: int, tol: float,
+                     batch_size: int, spherical: bool = False):
+    """Mini-batch k-means from ``init_centroids``: per batch, a cluster the
+    batch hit counts one more hit and moves by eta = 1/count toward the
+    batch's mean of its points; empty clusters (cumulative count 0) are
+    re-seeded. Batches are ``randint`` draws when n >= 16 * batch (the
+    collisions are negligible) and draws without replacement otherwise.
+    Returns (centroids, iterations, converged)."""
+    n = data.shape[0]
+    centroids = init_centroids.to(torch.float32).clone()
+    counts = torch.zeros(k, dtype=torch.float32, device=data.device)
+    it, converged = 0, False
+    while it < max_iters:
+        if n >= 16 * batch_size:
+            idx = torch.randint(0, n, (batch_size,), generator=gen, device=data.device)
+        else:
+            idx = torch.randperm(n, generator=gen, device=data.device)[:batch_size]
+        batch = data[idx]
+        lbl = torch.argmin(pairwise_sq_l2(batch, centroids), dim=1)
+        sums, bcounts = _segment_stats(batch, lbl, k)
+        hit = bcounts > 0
+        new_counts = counts + hit.to(torch.float32)
+        eta = torch.where(hit, 1.0 / new_counts.clamp_min(1.0), 0.0)[:, None]
+        mean = sums / bcounts.clamp_min(1.0)[:, None]
+        new_c = torch.where(hit[:, None], (1.0 - eta) * centroids + eta * mean, centroids)
+        new_c = _repair_empty(gen, new_c, new_counts, data)
+        if spherical:
+            new_c = _to_sphere(new_c)
+        delta = float(_rms_delta(new_c, centroids))
+        centroids, counts = new_c, new_counts
+        it += 1
+        if delta < tol:
+            converged = True
+            break
+    return centroids, it, converged
+
+
+def run_kmeans_mini_batch(data: torch.Tensor, k: int, max_iters: int,
+                          early_stop_threshold: Optional[float] = _DEFAULT_TOL, seed: int = 42,
+                          batch_size: Optional[int] = None, chunk: int = _ASSIGN_CHUNK,
+                          refine_iters: int = 0, spherical: bool = False) -> KMeansResult:
+    """Mini-batch k-means (the original engine's algorithm) with batches of
+    ``mini_batch_size(n)`` = clamp(sqrt(n), 10, 256) points unless
+    ``batch_size`` is given. ``refine_iters`` > 0 appends full-batch Lloyd
+    passes: mini-batch alone leaves rarely hit clusters where the init put
+    them, and a couple of Lloyd sweeps rebalance the posting lists. The
+    final assignment is ``assign_points`` (K1 at large n*k)."""
+    data = _check_data(data)
+    n = data.shape[0]
+    tol = _DEFAULT_TOL if early_stop_threshold is None else early_stop_threshold
+    batch_size = min(mini_batch_size(n) if batch_size is None else batch_size, n)
+    init = kmeans_plus_plus_init(data, k, seed=seed)
+    gen = make_generator(data.device, seed ^ 0xB47C4)
+    centroids, iters, converged = _mini_batch_loop(
+        data, init, gen, k, max_iters, tol, batch_size, spherical=spherical
+    )
+    chunk = min(chunk, max(8, n))
+    if refine_iters > 0:
+        centroids, _, _ = _lloyd_loop(data, centroids, make_generator(data.device, seed ^ 0x5EF1E),
+                                      k, refine_iters, 0.0, chunk, spherical=spherical)
+    labels, _ = assign_points(data, centroids, chunk=chunk)
+    return KMeansResult(centroids, labels, iters, converged)

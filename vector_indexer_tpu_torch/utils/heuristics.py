@@ -38,11 +38,8 @@ def calculate_max_iterations(num_vectors: int) -> int:
 
 
 def mini_batch_size(num_vectors: int) -> int:
-    """Mini-batch size: clamp(sqrt(n), 10, 256).
-
-    The mini-batch trainer is not ported yet; this is kept as the parity
-    default for when it is.
-    """
+    """Mini-batch size: clamp(sqrt(n), 10, 256), the mini-batch trainer's
+    default batch."""
     return max(10, min(256, int(math.sqrt(num_vectors))))
 
 
