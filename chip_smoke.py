@@ -113,10 +113,27 @@ Phases (each prints its own lines; any failure exits non-zero):
    multi-host merge's cross-host bytes S-fold below a flat merge's, and
    200 queries again on a CPU mesh. Four mesh entries on one card measure
    correctness and per-shard cost, not a parallel speedup.
+10. Surface (on the index phase 4 saved): the native shard reader
+   (``storage/native``, built by g++) is available, and its ``read_file``
+   and ``mmap_view`` equal Python's reads of every shard file; the index
+   loaded with native and with numpy shard reads (``load.stage_shards``
+   ms, host clock); ``read_centroid_vectors`` of the lists that the first
+   200 queries probe at n_probe 8, grouped by shard, equals the card's
+   layout rows (vectors and internal ids, copied back once), with its
+   host-clock ms beside the whole-shard load's; ``stage_queries`` (1000
+   queries padded to 1024) gives ``search_device`` results equal to the
+   unstaged call's (rows, and distances bit for bit) at n_probe 8 / 32 /
+   128; ``device_profiler`` around one ``auto`` batch at each of those
+   n_probe writes a Chrome trace holding K2's, K4's and K3's kernels, as
+   many kernel events as the launch counters counted, and the device ms
+   per batch it gives; ``examples/demo_torch.py`` at its defaults (50,000
+   x 128) builds, then loads, on the card with the same ids as this
+   process's ``VectorIndexer.load`` + ``search_sync``; K2 bf16, K4 bf16
+   and K3 launched in the phase.
 
 The line before the last is a JSON object describing each kernel (its
 ``launches`` from the phase that must launch it, and ``launches_by_phase``
-for phases 4-9); the last line is {"ok": true, "device": {...}}.
+for phases 4-10); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -253,6 +270,24 @@ SHARD_N_PROBES = (8, 32, 128)
 SHARD_SAME_FLOOR = 0.99
 SHARD_OVERLAP_SLACK = 0.01
 SHARD_TWINS = (("stream", 8), ("stream", 32), ("dense_fused", 128))
+# Phase 10 (surface): the queries whose probed lists are read selectively;
+# the n_probe of each profiled 'auto' batch and the kernel its route runs
+# (K2, K4, K3), with the device ms per batch of PERF.md section 5's profile
+# (tools/torch_profile.py, nq 1000) beside it; each launch counter's CUDA
+# kernel; the trace's device-side events.
+NQ_SELECT = 200
+PROFILE_N_PROBES = {8: "stream_distances_kernel", 32: "stream_fused_plane_kernel",
+                    128: "flat_sweep_kernel"}
+PROFILE_DEVICE_MS = {8: 1.503, 32: 2.595, 128: 4.979}
+TRACE_KERNELS = {"assign_argmin": "assign_argmin_kernel",
+                 "stream_distances": "stream_distances_kernel",
+                 "stream_fused_plane": "stream_fused_plane_kernel",
+                 "stream_shared_plane": "stream_shared_plane_kernel",
+                 "flat_sweep_topk_plane": "flat_sweep_kernel",
+                 "flat_sweep_minreduce": "flat_sweep_kernel",
+                 "ivf_gather_distances": "ivf_gather_kernel"}
+DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+PHASE10_KERNELS = ("stream_distances[bf16]", "stream_fused_plane[bf16]", "flat_sweep_topk_plane")
 
 
 def log(msg: str) -> None:
@@ -391,8 +426,10 @@ def load_datasets():
 class Check:
     def __init__(self):
         self.failures = []
+        self.n = 0
 
     def __call__(self, ok: bool, what: str) -> None:
+        self.n += 1
         log(f"  [{'ok' if ok else 'FAIL'}] {what}")
         if not ok:
             self.failures.append(what)
@@ -2292,6 +2329,192 @@ def parallel_phase(torch, np, xb, xq, check, dev, work, spill_work, gt):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the surface (native shard I/O, selective reads, staged queries,
+# the device profiler, the demo)
+# ---------------------------------------------------------------------------
+
+
+def trace_kernel_counts(trace: dict, names) -> dict:
+    """Per kernel name, the number of the Chrome trace's CUDA kernel events
+    whose (demangled) name holds it as a whole word."""
+    pats = {n: re.compile(rf"\b{re.escape(n)}\b") for n in names}
+    out = dict.fromkeys(names, 0)
+    for e in trace.get("traceEvents", []):
+        if str(e.get("cat", "")).lower() != "kernel":
+            continue
+        for n, pat in pats.items():
+            if pat.search(str(e.get("name", ""))):
+                out[n] += 1
+    return out
+
+
+def trace_device_ms(trace: dict) -> float:
+    """Milliseconds of the trace's device-side events (kernels, copies and
+    memsets; one stream, so they do not overlap)."""
+    return sum(float(e.get("dur", 0.0)) for e in trace.get("traceEvents", [])
+               if str(e.get("cat", "")).lower() in DEVICE_EVENT_CATS) / 1e3
+
+
+def kernel_launch_totals(counts: dict) -> dict:
+    """Launch counters summed per CUDA kernel (the counters split a kernel
+    by table type or precision: ``stream_distances[bf16]`` ...)."""
+    out = dict.fromkeys(TRACE_KERNELS.values(), 0)
+    for name, c in counts.items():
+        out[TRACE_KERNELS[name.split("[")[0]]] += c
+    return out
+
+
+def surface_phase(torch, np, xb, xq, check, dev, work):
+    """Phase 10 on phase 4's saved index: the native shard reader against
+    Python's reads, selective per-centroid reads against the card's layout
+    rows, native vs numpy load times, staged queries against unstaged ones,
+    ``device_profiler`` traces against the launch counters, and the demo
+    on the card. Returns the phase's launch counts."""
+    from vector_indexer_tpu_torch import bindings
+    from vector_indexer_tpu_torch.api import VectorIndexer, VectorIndexerConfig
+    from vector_indexer_tpu_torch.kernels import build as kb
+    from vector_indexer_tpu_torch.ops.topk import brute_force_topk
+    from vector_indexer_tpu_torch.storage import read_centroid_vectors
+    from vector_indexer_tpu_torch.storage import shard_format as sf
+    from vector_indexer_tpu_torch.storage.layout import cluster_starts
+    from vector_indexer_tpu_torch.storage.native import shardio
+    from vector_indexer_tpu_torch.utils import tracing
+
+    k, d, nq = K, xb.shape[1], xq.shape[0]
+    idx_dir, sh_dir = work / "index", work / "shards"
+    kb.reset_launch_counts()  # counts from here on belong to phase 10
+    gpu = gpu_line()
+
+    # (a) native I/O: present, and byte-equal to Python's reads.
+    check(shardio.available(), "native shard I/O library built by g++ and loaded "
+          f"({shardio.library_path().name})")
+    files = sorted(sh_dir.glob("shard_*.bin"))
+    same, nbytes = 0, 0
+    for p in files:
+        raw = p.read_bytes()
+        with shardio.mmap_view(str(p)) as mv:
+            mapped = bytes(mv)
+        same += shardio.read_file(str(p)) == raw and mapped == raw
+        nbytes += len(raw)
+    check(len(files) > 0 and same == len(files),
+          f"read_file and mmap_view equal open().read() on {same} of {len(files)} shard "
+          f"files ({nbytes / 2**20:.1f} MiB)")
+
+    # (b) whole-shard loads, native then numpy then native (host clock).
+    stage_ms = {}
+    for path in ("native", "numpy", "native"):
+        saved = sf._native
+        if path == "numpy":
+            sf._native = lambda: None
+        try:
+            tracing.reset_phases()
+            t0 = time.perf_counter()
+            vi = bindings.load(str(idx_dir), str(sh_dir), d, device=dev)
+            torch.cuda.synchronize()
+            load_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            sf._native = saved
+        ms = tracing.phase_report()["load.stage_shards"]["total_s"] * 1e3
+        stage_ms.setdefault(path, []).append(ms)
+        log(f"  load ({path} shard reads): load.stage_shards {ms:.1f} ms, whole load "
+            f"{load_ms:.1f} ms (host clock; {gpu})")
+        if path == "numpy":
+            del vi
+            gc_collect(torch)
+    idx, lay = vi.index, vi.index.layout
+
+    # (c) selective reads of the first NQ_SELECT queries' probed lists
+    # (n_probe 8) against the card's layout rows, copied back once.
+    cent = torch.as_tensor(idx.centroids, dtype=torch.float32, device=dev)
+    _, probes = brute_force_topk(torch.as_tensor(xq[:NQ_SELECT], device=dev), cent, 8)
+    lists = np.unique(probes.cpu().numpy())
+    by_shard = {}
+    for cid in lists:
+        by_shard.setdefault(int(idx.centroids_to_shard[cid]), []).append(int(cid))
+    t0 = time.perf_counter()
+    read = {}
+    for sid, cids in by_shard.items():
+        read.update(read_centroid_vectors(sf.shard_path(sh_dir, sid), sid, cids))
+    sel_ms = (time.perf_counter() - t0) * 1e3
+    starts, lengths = cluster_starts(lay), np.asarray(lay.lengths)
+    rows = np.concatenate([np.arange(starts[c], starts[c] + lengths[c]) for c in lists])
+    vecs = lay.vectors[torch.as_tensor(rows, device=dev)].cpu().numpy()
+    internal = lay.perm[rows]
+    ok, off = 0, 0
+    for c in lists:
+        m, cl = int(lengths[c]), read[int(c)]
+        ok += (np.array_equal(cl.vectors, vecs[off:off + m])
+               and np.array_equal(cl.internal_ids.astype(np.int64), internal[off:off + m]))
+        off += m
+    check(ok == len(lists), f"read_centroid_vectors equals the card's layout rows (vectors and "
+          f"internal ids) for {ok} of {len(lists)} probed lists of {NQ_SELECT} queries "
+          f"(n_probe 8, {len(by_shard)} shards, {rows.size} rows)")
+    log(f"  selective read of those {len(lists)} lists ({rows.size} rows): {sel_ms:.1f} ms, "
+        f"against the whole-shard load.stage_shards {stage_ms['native'][0]:.1f} / "
+        f"{stage_ms['native'][1]:.1f} ms native, {stage_ms['numpy'][0]:.1f} ms numpy "
+        f"(host clock; {gpu})")
+
+    # (d) staged queries change nothing.
+    xs = vi.stage_queries(xq, pad_to=1024)
+    torch.cuda.synchronize()
+    check(tuple(xs.shape) == (1024, d) and xs.device == dev
+          and torch.equal(xs[:nq].cpu(), torch.as_tensor(xq)) and not xs[nq:].any(),
+          f"stage_queries: {nq} queries on {xs.device}, zero-padded to {xs.shape[0]}")
+    for n_probe in PROFILE_N_PROBES:
+        D0, R0 = vi.search_device(xq, k, n_probe)
+        D1, R1 = vi.search_device(xs, k, n_probe)
+        check(torch.equal(R1[:nq], R0) and torch.equal(D1[:nq], D0),
+              f"n_probe={n_probe}: staged search_device equals the unstaged call's {nq} "
+              f"rows (rows equal, distances bit-equal)")
+
+    # (e) device_profiler sees the hand-written kernels, as many as counted.
+    for n_probe, kern in PROFILE_N_PROBES.items():
+        before = kb.launch_counts()
+        with tracing.device_profiler(work / "profile") as path:
+            vi.search_device(xs, k, n_probe)
+        after = kb.launch_counts()
+        counted = kernel_launch_totals({n: c - before.get(n, 0) for n, c in after.items()})
+        trace = json.loads(Path(path).read_text())
+        seen = trace_kernel_counts(trace, counted)
+        dev_ms = trace_device_ms(trace)
+        check(seen[kern] > 0 and seen == counted,
+              f"n_probe={n_probe}: the profiler's trace holds {kern} ({seen[kern]}x); its "
+              f"kernel events {({n: c for n, c in seen.items() if c})} equal the launch "
+              f"counters' {({n: c for n, c in counted.items() if c})}")
+        log(f"  n_probe={n_probe} ({kern}): device ms per batch from the trace {dev_ms:.3f} "
+            f"(PERF.md section 5's profile: {PROFILE_DEVICE_MS[n_probe]}); {gpu}")
+
+    # (f) the demo on the card: builds, then loads, with the same ids as
+    # this process's load + search_sync.
+    demo_dir = work / "demo"
+    cmd = [sys.executable, str(ROOT / "examples" / "demo_torch.py"), "--work-dir", str(demo_dir)]
+    outs = []
+    for want in ("building index...", "loaded existing index"):
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        ids = [int(m) for m in re.findall(r"external_id=(\d+)", res.stdout)]
+        log(f"  demo ({want}) {time.perf_counter() - t0:.2f}s: exit {res.returncode}, ids {ids}")
+        check(res.returncode == 0 and want in res.stdout and len(ids) > 0,
+              f"examples/demo_torch.py on the card prints '{want}' and its results"
+              + ("" if res.returncode == 0 else f"; stderr: {res.stderr[-2000:]}"))
+        outs.append(ids)
+    cfg = (VectorIndexerConfig(d).with_index_dir(demo_dir / "index")
+           .with_shards_dir(demo_dir / "shards").with_device(dev))
+    ix = VectorIndexer.load(cfg)
+    query = np.random.default_rng(7).uniform(-1, 1, d).astype(np.float32)
+    mine = [r.external_id for r in ix.search_sync(ix.search_request(query))]
+    check(outs[0] == outs[1] == mine,
+          f"the demo's two runs and this process's load + search_sync give the same ids ({mine})")
+
+    torch.cuda.synchronize()
+    counts = kb.launch_counts()
+    log(f"  launch counts in phase 10: {counts}")
+    for name in PHASE10_KERNELS:
+        check(counts.get(name, 0) > 0, f"{name} launched in phase 10 ({counts.get(name, 0)}x)")
+    return counts
+
+
 def gc_collect(torch):
     import gc
 
@@ -2307,6 +2530,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true", help="stop after phase 3")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2382,6 +2606,11 @@ def main() -> int:
         t0 = time.perf_counter()
         by_phase["9"] = parallel_phase(torch, np, xb, xq, check, dev, work, work / "spill", gt)
         log(f"  phase 9: {time.perf_counter() - t0:.2f}s")
+        log("== 10. the surface: native shard I/O, selective reads, staged queries, the "
+            "device profiler, the demo")
+        t0 = time.perf_counter()
+        by_phase["10"] = surface_phase(torch, np, xb, xq, check, dev, work)
+        log(f"  phase 10: {time.perf_counter() - t0:.2f}s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2394,6 +2623,7 @@ def main() -> int:
                  "library_call", "shape")})
         for name, (src, rep) in SOURCES.items()
     ]
+    log(f"== {check.n} checks in {time.perf_counter() - t_start:.1f}s")
     if check.failures:
         log(f"FAILED: {len(check.failures)} check(s): {check.failures}")
         return 1

@@ -1,5 +1,6 @@
-"""The port's package and its GPU scripts (chip_smoke.py, tools/torch_*.py)
-import no JAX, and each script refuses to run without a CUDA device."""
+"""The port's package, its GPU scripts (chip_smoke.py, tools/torch_*.py)
+and its demo (examples/demo_torch.py) import no JAX, and each refuses to
+run without a CUDA device (the demo unless it is given --cpu)."""
 
 import subprocess
 import sys
@@ -10,6 +11,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 SCRIPTS = ["chip_smoke.py", "tools/torch_profile.py", "tools/torch_shape_check.py"]
+DEMO = "examples/demo_torch.py"
 
 _IMPORT_ALL = """
 import importlib, pkgutil, runpy, sys
@@ -27,7 +29,7 @@ print(bad)
 
 def test_port_and_scripts_import_no_jax():
     res = subprocess.run(
-        [sys.executable, "-c", _IMPORT_ALL % (SCRIPTS,)],
+        [sys.executable, "-c", _IMPORT_ALL % (SCRIPTS + [DEMO],)],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 0, res.stderr
@@ -54,3 +56,15 @@ def test_smoke_kernels_only_refuses_without_a_card():
     assert res.returncode != 0
     assert "{" not in res.stdout
     assert "no CUDA device" in res.stderr
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the no-card refusal")
+def test_demo_refuses_without_a_card(tmp_path):
+    res = subprocess.run(
+        [sys.executable, str(ROOT / DEMO), "--work-dir", str(tmp_path / "w")],
+        cwd=tmp_path, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode != 0
+    assert "CUDA is not available" in res.stderr
+    assert "external_id" not in res.stdout
+    assert not (tmp_path / "w").exists()  # refused before writing anything

@@ -75,3 +75,38 @@ def test_shared_bound_counts_distinct_blocks_and_tf32_products(dtype, products):
     b = cs.shared_bound(table, tasks)
     assert b["bound_ms"] == pytest.approx(max(nbytes / cs.HBM_BYTES_S, ops / cs.TF32_FLOP_S) * 1e3)
     assert b["bound_by"] == "bytes"  # at d 128 the tensor cores outrun the plane's bytes
+
+
+def test_trace_kernel_counts_match_launch_counters():
+    # A hand-made Chrome trace as torch.profiler writes it: CPU ops, the
+    # runtime's launch calls, and device events with demangled names.
+    ev = [
+        dict(ph="X", cat="cpu_op", name="aten::topk", dur=40.0),
+        dict(ph="X", cat="cuda_runtime", name="cudaLaunchKernel", dur=5.0),
+        dict(ph="X", cat="kernel", name="void (anonymous namespace)::stream_distances_kernel"
+             "<true, __nv_bfloat16, 4>(float const*, float const*, int)", dur=60.0),
+        dict(ph="X", cat="Kernel", name="void k::stream_distances_kernel<false, signed char, 1>"
+             "(float const*)", dur=40.0),
+        dict(ph="X", cat="kernel", name="void k::flat_sweep_kernel<true, true, 0, true>"
+             "(CUtensorMap_st, Args)", dur=1000.0),
+        dict(ph="X", cat="kernel", name="void k::merge_top2_kernel(float const*, int const*)",
+             dur=20.0),
+        dict(ph="X", cat="kernel", name="void at::native::sbtopk::gatherTopK<float>()", dur=300.0),
+        dict(ph="X", cat="gpu_memcpy", name="Memcpy HtoD (Pinned -> Device)", dur=80.0),
+        dict(ph="X", cat="gpu_memset", name="Memset (Device)", dur=0.5),
+        dict(ph="f", cat="ac2g", name="ac2g", id=3),
+    ]
+    trace = {"traceEvents": ev}
+    names = ("stream_distances_kernel", "stream_fused_plane_kernel", "flat_sweep_kernel")
+    assert cs.trace_kernel_counts(trace, names) == {
+        "stream_distances_kernel": 2, "stream_fused_plane_kernel": 0, "flat_sweep_kernel": 1}
+    # A name inside a longer identifier does not count.
+    assert cs.trace_kernel_counts(trace, ("sweep_kernel", "top2_kernel")) == {
+        "sweep_kernel": 0, "top2_kernel": 0}
+    assert cs.trace_device_ms(trace) == pytest.approx((60 + 40 + 1000 + 20 + 300 + 80 + 0.5) / 1e3)
+    counts = {"stream_distances[bf16]": 1, "stream_distances[int8]": 1,
+              "stream_fused_plane[bf16]": 0, "flat_sweep_topk_plane": 1,
+              "flat_sweep_topk_plane[int8]": 0, "assign_argmin": 0}
+    totals = cs.kernel_launch_totals(counts)
+    assert cs.trace_kernel_counts(trace, totals) == totals
+    assert totals["stream_distances_kernel"] == 2 and totals["flat_sweep_kernel"] == 1

@@ -14,7 +14,8 @@ bindings/python/src/lib.rs):
   * ``VectorIndex.search_sync(xq, k, n_probe)`` returning ``(D, I)``
     float32/int64 arrays of shape (nq, k), padded with +inf / -1;
   * ``VectorIndex.search_device`` returning device tensors (no copy to the
-    host) for serving and benchmark loops;
+    host) for serving and benchmark loops, on queries that
+    ``VectorIndex.stage_queries`` copied to the device once;
   * ``VectorIndex.offload(stream_dtype, rerank)``: free a loaded index's f32
     table and serve from the compact stream table.
 
@@ -74,12 +75,32 @@ class VectorIndex:
 
     def search_device(self, xq, k: int, n_probe: int, method: str = "auto"):
         """Device-resident search: (D, layout_rows) tensors on the index's
-        device, no copy to the host. ``xq`` may already be a device tensor;
-        ``rows_to_external`` maps the rows to external ids."""
+        device, no copy to the host: the serving / benchmark hot path.
+        Queries staged by ``stage_queries`` are used without another copy;
+        ``rows_to_external`` maps the rows to external ids, and
+        ``search_sync`` returns host arrays with external ids."""
         cfg = self._indexer.cfg
         return self._indexer.index.search_batch_device(
             xq, min(k, cfg.max_k), min(n_probe, cfg.max_n_probe), method
         )
+
+    def stage_queries(self, xq, pad_to: int = 512) -> torch.Tensor:
+        """Copy a query batch to the index's device once, as f32; pass the
+        tensor to ``search_device`` to keep repeated searches free of
+        host-to-device copies. Rows are padded with zero rows to a multiple
+        of ``pad_to``, so a batch of any size searches at a few shapes; the
+        first ``len(xq)`` rows of a result belong to ``xq``. On a card the
+        copy goes through pinned memory, without blocking the host."""
+        xq = np.ascontiguousarray(xq, dtype=np.float32)
+        if xq.ndim == 1:
+            xq = xq[None, :]
+        n = xq.shape[0]
+        n_pad = -(-n // pad_to) * pad_to if pad_to > 1 else n
+        dev = self._indexer.index.device
+        cuda = dev.type == "cuda"
+        host = torch.zeros((n_pad, xq.shape[1]), dtype=torch.float32, pin_memory=cuda)
+        host[:n] = torch.from_numpy(xq)
+        return host.to(dev, non_blocking=True) if cuda else host
 
     def offload(self, stream_dtype=None, rerank: str = "host") -> None:
         """Larger-than-device mode: free the f32 main table and serve from a

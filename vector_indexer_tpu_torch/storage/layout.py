@@ -187,3 +187,8 @@ def scatter_runs(values: np.ndarray, starts: np.ndarray, lengths: np.ndarray):
             out[s : s + m] = values[pos : pos + m]
             pos += m
     return out
+
+
+def cluster_starts(layout: PostingLayout) -> np.ndarray:
+    """Per-cluster start rows, indexed by cluster id (host numpy)."""
+    return layout.offsets[:-1]

@@ -28,6 +28,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..utils.tracing import trace
+from .layout import ALIGN, cluster_starts, pack_layout, scatter_runs
 from .shard_format import (
     ClusterData,
     Shard,
@@ -80,7 +81,7 @@ def save_shards(index, shards_dir) -> None:
         vectors = np.asarray(lay.vectors[: lay.rows_used].cpu()
                              if isinstance(lay.vectors, torch.Tensor)
                              else lay.vectors[: lay.rows_used])
-    starts = lay.offsets[:-1]
+    starts = cluster_starts(lay)
     lengths = lay.lengths
     perm = lay.perm
     with trace("save.shards", shards=index.num_shards):
@@ -167,8 +168,6 @@ def _stage_shards(idx, shards_dir, n_total: int, device_put: bool = True) -> Non
     device (``device_put``) or in host memory. Missing/corrupt shards are
     skipped with a warning; their clusters keep zero-length posting
     lists."""
-    from .layout import ALIGN, pack_layout, scatter_runs
-
     kc = idx.num_clusters
     dim = idx.dimension
     clusters: dict = {}

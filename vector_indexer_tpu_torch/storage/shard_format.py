@@ -1,8 +1,9 @@
 """Binary shard container: header / centroid index / aligned cluster blocks.
 
 Same capabilities as the original Rust shard file (src/shards.rs): O(1)
-centroid lookup via a fixed-stride index, shard-id validation, corruption ->
-error (never a crash), 8-byte block alignment, versioned header. The byte layout is
+centroid lookup via a fixed-stride index, selective per-centroid reads,
+shard-id validation, corruption -> error (never a crash), 8-byte block
+alignment, versioned header. The byte layout is
 our own (little-endian, CRC-protected header):
 
     header (48 B):
@@ -15,20 +16,21 @@ our own (little-endian, CRC-protected header):
         num_vectors x { internal_id:u64 external_id:u64 timestamp:u64
                         vector f32[dim] (record padded to 8) }
 
-The port's copy is the numpy whole-shard reader/writer only; the JAX
-package's selective per-centroid reads and its native reader/writer
-(storage/native/shardio.cpp) come later (ROADMAP Queue 1 item 7). The bytes on disk are identical, so either package reads what the
-other wrote.
+A C++ reader / writer (native/shardio.cpp: write + fsync, pread, and a
+zero-copy mmap with sequential readahead for whole-shard loads) is used
+when g++ can build it, and the numpy path otherwise. The bytes on disk are
+the JAX package's, so either package reads what the other wrote.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import struct
 import zlib
 from pathlib import Path
-from typing import List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -88,6 +90,13 @@ def _pad8(nbytes: int) -> int:
 
 def shard_path(shards_dir, shard_id: int) -> Path:
     return Path(shards_dir) / f"shard_{shard_id}.bin"
+
+
+def _native():
+    """The native I/O module when its library is available, else None."""
+    from .native import shardio
+
+    return shardio if shardio.available() else None
 
 
 # ---------------------------------------------------------------------------
@@ -180,8 +189,12 @@ def save_shard(shard: Shard, shards_dir) -> Path:
         + [b"\0" * _pad8(index_offset + 32 * nc)]
         + blocks
     )
-    with open(path, "wb") as f:
-        f.write(payload)
+    nat = _native()
+    if nat is not None:
+        nat.write_file(str(path), payload)
+    else:
+        with open(path, "wb") as f:
+            f.write(payload)
     return path
 
 
@@ -194,8 +207,34 @@ def _read_file(path) -> bytes:
     p = str(path)
     if not os.path.exists(p):
         raise ShardFormatError(f"shard file not found: {p}")
+    nat = _native()
+    if nat is not None:
+        return nat.read_file(p)
     with open(p, "rb") as f:
         return f.read()
+
+
+@contextlib.contextmanager
+def _open_buffer(path):
+    """Yield the file's bytes as a buffer for parsing: a zero-copy mmap view
+    (sequential readahead; the load-time staging path, as the original
+    system's mmap in load_from_disk_in, shards.rs:356-425) when the native
+    library is present, else an ordinary read. The parsers copy everything
+    they return, so the mapping can be released on exit."""
+    nat = _native()
+    if nat is not None:
+        try:
+            view = nat.mmap_view(str(path))
+            mv = view.__enter__()
+        except OSError:  # missing, empty or unmappable: _read_file raises
+            pass
+        else:
+            try:
+                yield mv
+            finally:
+                view.__exit__(None, None, None)
+            return
+    yield _read_file(path)
 
 
 def _parse_header(buf: bytes, path) -> ShardHeader:
@@ -211,6 +250,18 @@ def _parse_header(buf: bytes, path) -> ShardHeader:
     if version != SHARD_VERSION:
         raise ShardFormatError(f"{path}: unsupported version {version}")
     return ShardHeader(shard_id, version, dim, nc, ioff, doff)
+
+
+def read_shard_header(path) -> ShardHeader:
+    """The shard's header alone (48 bytes read)."""
+    p = str(path)
+    if not os.path.exists(p):
+        raise ShardFormatError(f"shard file not found: {p}")
+    nat = _native()
+    if nat is not None:
+        return _parse_header(nat.read_file(p, 0, 48), path)
+    with open(p, "rb") as f:
+        return _parse_header(f.read(48), path)
 
 
 def _parse_entries(buf: bytes, h: ShardHeader, path) -> List[Tuple[int, int, int, int]]:
@@ -254,9 +305,31 @@ def _cluster(buf, entry, dim: int, path) -> ClusterData:
     )
 
 
+def read_centroid_vectors(path, shard_id: int,
+                          centroid_ids: Sequence[int]) -> Dict[int, ClusterData]:
+    """Selective per-centroid read (parity: get_centroid_vectors_from,
+    shards.rs:188-349, with its shard-id validation :222-231 and
+    missing-centroid error :256-265)."""
+    with _open_buffer(path) as buf:
+        h = _parse_header(buf, path)
+        if h.shard_id != shard_id:
+            raise ShardFormatError(
+                f"{path}: shard id mismatch: expected {shard_id}, found {h.shard_id}"
+            )
+        entries = {e[0]: e for e in _parse_entries(buf, h, path)}
+        out: Dict[int, ClusterData] = {}
+        for cid in centroid_ids:
+            if cid not in entries:
+                raise ShardFormatError(f"{path}: centroid {cid} not in shard {shard_id}")
+            out[cid] = _cluster(buf, entries[cid], h.dimensions, path)
+        return out
+
+
 def load_shard_from_disk(path) -> Shard:
-    """Whole-shard load (parity: load_from_disk_in, shards.rs:356-425)."""
-    buf = _read_file(path)
-    h = _parse_header(buf, path)
-    clusters = [_cluster(buf, e, h.dimensions, path) for e in _parse_entries(buf, h, path)]
+    """Whole-shard load, through the zero-copy mmap when the native library
+    is available (parity: load_from_disk_in, shards.rs:356-425)."""
+    with _open_buffer(path) as buf:
+        h = _parse_header(buf, path)
+        clusters = [_cluster(buf, e, h.dimensions, path)
+                    for e in _parse_entries(buf, h, path)]
     return Shard(id=h.shard_id, dimension=h.dimensions, clusters=clusters)
