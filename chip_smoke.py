@@ -130,10 +130,24 @@ Phases (each prints its own lines; any failure exits non-zero):
    x 128) builds, then loads, on the card with the same ids as this
    process's ``VectorIndexer.load`` + ``search_sync``; K2 bf16, K4 bf16
    and K3 launched in the phase.
+11. Wide rows: K2 (with and without nval2d), K4, K5 in every table type
+   they take, and K6, against their plain versions at d 16,384, 20,000
+   and 65,536 on small tables (l2 and ip; each check names its launch
+   plan), then a 100,000 x 16,384 clustered corpus drawn on the card
+   (seed 11) and built with ``IvfIndex.fit`` (Lloyd, 10 iterations, and
+   K1 at that width): ``auto`` at nq 1 (16 single-query calls) and 16 at
+   n_probe 8 / 32 / 64 (plus the first n_probe that ``resolve`` sends to
+   K4 where none of those does), ``gather_dma`` (K6) and
+   ``stream_shared_exact`` (K5 f32) at nq 16, n_probe 8, and, after
+   ``offload_main_table(rerank='device')``, ``search_batch`` at n_probe 8
+   and K4's n_probe (K2 / K4 int8); each run against a CPU twin (the same
+   tables copied to the CPU), rank by rank; a launch check of each part;
+   K4 bf16 and K6 at those runs' shapes checked and timed by graph replay
+   beside their bounds (``wide_rows`` in the kernels line).
 
 The line before the last is a JSON object describing each kernel (its
 ``launches`` from the phase that must launch it, and ``launches_by_phase``
-for phases 4-10); the last line is {"ok": true, "device": {...}}.
+for phases 4-11); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -288,6 +302,23 @@ TRACE_KERNELS = {"assign_argmin": "assign_argmin_kernel",
                  "ivf_gather_distances": "ivf_gather_kernel"}
 DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PHASE10_KERNELS = ("stream_distances[bf16]", "stream_fused_plane[bf16]", "flat_sweep_topk_plane")
+# Phase 11 (wide rows): the widths of the kernel checks on small tables (K2
+# and K5 change modes past ~50,000 and ~14,400-57,800 dims, K4 past
+# ~13,500-18,000, K6 past 12,288; 20,000 is no power of two); the wide
+# corpus (its width is the hidden size of a 16,384-wide model), its seed
+# and the Lloyd iterations of its build (cut from the default 50 to fit
+# the phase); the n_probe values of 'auto' and the other routes (where the
+# corpus's lists send none of these to K4, the first n_probe that does is
+# added); the batch sizes; the queries of each CPU twin; the kernels the
+# phase must launch.
+WIDE_DIMS = (16_384, 20_000, 65_536)
+WIDE_N, WIDE_D, WIDE_SEED, WIDE_ITERS = 100_000, 16_384, 11, 10
+WIDE_N_PROBES = (8, 32, 64)
+WIDE_NQ = (1, 16)
+WIDE_TWIN = 16
+WIDE_KERNELS = ("assign_argmin", "stream_distances[bf16]", "stream_fused_plane[bf16]",
+                "ivf_gather_distances", "stream_shared_plane[f32]")
+WIDE_OFFLOAD_KERNELS = ("stream_distances[int8]", "stream_fused_plane[int8]")
 
 
 def log(msg: str) -> None:
@@ -1024,12 +1055,12 @@ def hierarchical_vs_k1(torch, xb_dev, check, n: int = N, k: int = 16_384):
 
 def _template_args(mangled_tail: str) -> str:
     """'ILb1ELb0ELi2ELb1EEEv...' -> '<true,false,2,true>' (the kernels' bool,
-    int and row-type template arguments)."""
+    int (Lin1E: -1) and row-type template arguments)."""
     body = mangled_tail[1:].split("EEv", 1)[0] + "E"
     body = body.replace("13__nv_bfloat16", "bf16,").replace("Lb1E", "true,").replace("Lb0E", "false,")
     body = re.sub(r"(^|,)([af])(?=Li|true|false|E|$)",
                   lambda m: m.group(1) + {"a": "int8", "f": "f32"}[m.group(2)] + ",", body)
-    body = re.sub(r"Li(\d+)E", r"\1,", body)
+    body = re.sub(r"Li(n?)(\d+)E", lambda m: ("-" if m.group(1) else "") + m.group(2) + ",", body)
     return "<" + body.rstrip("E").rstrip(",") + ">"
 
 
@@ -1185,6 +1216,22 @@ def main_shape_kernels(torch, vi, xb, xq_dev, check, results):
             f"{results[name]['shape']}")
 
 
+def route_of(dec, k: int) -> str:
+    """The kernel route of a resolved Decision: stream/K4 or stream/K2
+    (the approximate stream program, as fused_engages decides at its
+    shortlist's width), stream/K2 (exact), stream_shared/K5,
+    dense_fused/K3, gather_dma/K6, or the plain program's name."""
+    from vector_indexer_tpu_torch.index.programs import shortlist_k
+    from vector_indexer_tpu_torch.ops.block_stream import fused_engages
+
+    if dec.program == "stream" and not dec.exact:
+        kk = shortlist_k(k, dec.t_fixed, dec.chunk)
+        return "stream/K4" if fused_engages(dec.t_fixed, dec.chunk, kk) else "stream/K2"
+    return {"stream": "stream/K2", "stream_shared": "stream_shared/K5",
+            "dense_fused": "dense_fused/K3", "gather_dma": "gather_dma/K6"}.get(
+        dec.program, dec.program)
+
+
 def shared_n_probe(lengths, nlist: int, chunk: int):
     """The smallest power-of-two n_probe (capped at nlist) at which the
     shared gate opens for a 1024-query batch, or None."""
@@ -1209,9 +1256,7 @@ def main_phase(torch, np, xb, xq, check, dev, work, kernel_results):
     from vector_indexer_tpu_torch import bindings
     from vector_indexer_tpu_torch.api import SearchRequest
     from vector_indexer_tpu_torch.index.dispatch import resolve
-    from vector_indexer_tpu_torch.index.programs import shortlist_k
     from vector_indexer_tpu_torch.kernels import build as kb
-    from vector_indexer_tpu_torch.ops.block_stream import fused_engages
     from vector_indexer_tpu_torch.ops.topk import brute_force_topk
     from vector_indexer_tpu_torch.utils import tracing
 
@@ -1245,12 +1290,7 @@ def main_phase(torch, np, xb, xq, check, dev, work, kernel_results):
     routes = {}
     for n_probe in (4, 8, 16, 32, 64, 128):
         dec = resolve(vi.index, nq, n_probe, k=k)
-        if dec.program == "stream":
-            kk = shortlist_k(k, dec.t_fixed, dec.chunk)
-            route = "stream/K4" if fused_engages(dec.t_fixed, dec.chunk, kk) else "stream/K2"
-        else:
-            route = dec.program + ("/K3" if dec.program == "dense_fused" else "")
-        routes[n_probe] = (route, dec)
+        routes[n_probe] = (route_of(dec, k), dec)
     log("  auto routes: " + ", ".join(f"n_probe={p}: {r[0]}" for p, r in routes.items()))
 
     table, results = [], {}
@@ -2515,6 +2555,303 @@ def surface_phase(torch, np, xb, xq, check, dev, work):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: wide rows
+# ---------------------------------------------------------------------------
+
+
+def clustered_on_card(torch, n: int, d: int, nq: int, seed: int, dev):
+    """benchmarks/datasets.py::clustered's distribution (ncent Gaussian
+    centers at scale 4, unit-variance points and queries around them),
+    drawn on the card from ``seed`` (torch's generator, not numpy's)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ncent = max(64, min(1024, n // 1000))
+    centers = 4.0 * torch.randn((ncent, d), generator=g, device=dev)
+    xb = torch.empty((n, d), device=dev)
+    step = max(1, (1 << 28) // (4 * d))
+    for s in range(0, n, step):
+        e = min(n, s + step)
+        lab = torch.randint(0, ncent, (e - s,), generator=g, device=dev)
+        xb[s:e] = centers[lab] + torch.randn((e - s, d), generator=g, device=dev)
+    lab = torch.randint(0, ncent, (nq,), generator=g, device=dev)
+    return xb, centers[lab] + torch.randn((nq, d), generator=g, device=dev)
+
+
+def wide_kernel_checks(torch, np, check, dev):
+    """K2 (with and without nval2d; bf16 / int8 / f32), K4 (bf16 / int8), K5
+    (bf16 / int8 / f32) and K6 against their plain versions at each d of
+    ``dims``, l2 and ip, on a small index of that width (2,048 points, 8
+    lists, chunk 256, 8 queries probing 3 lists); each check names the
+    launch plan (panel, rows, stages) its kernel took."""
+    from vector_indexer_tpu_torch.index.ivf import IvfIndex
+    from vector_indexer_tpu_torch.kernels import build as kb
+    from vector_indexer_tpu_torch.ops import block_stream as bs
+    from vector_indexer_tpu_torch.ops import ivf_gather as ig
+    from vector_indexer_tpu_torch.storage.vector_store import VectorStore
+
+    n, nq, n_probe, chunk = 2048, 8, 3, 256
+    for d in WIDE_DIMS:
+        t0 = time.perf_counter()
+        xb, q = clustered_on_card(torch, n, d, nq, d, dev)
+        store = VectorStore(external_ids=np.arange(n, dtype=np.uint64), vectors=xb.cpu().numpy())
+        del xb
+        idx = IvfIndex.fit(store, seed=1, nlist=8, max_iters=3, device=dev)
+        c, c_sq = idx._device_tables()
+        lengths = idx.layout.lengths
+        for dtype in (torch.bfloat16, torch.int8, torch.float32):
+            tb = bs.build_stream_table(idx.layout, idx.centroids, dtype, chunk=chunk)
+            item, mode = tb.vecs.element_size(), kb.ROW_TYPES[dtype][1]
+            exact = dtype == torch.float32
+            for metric in ("l2", "ip"):
+                grid = stream_grid(q, tb, c, c_sq, lengths, n_probe, metric, worst_case=exact)
+                what = f"{mode} d={d} {metric} t_fixed={grid['t_fixed']}"
+                p2 = bs.stream_distances_plan(d, item, grid["t_fixed"], chunk)
+                for nval in (False, True):
+                    ok, err = check_k2(q, tb, grid, metric, nval)
+                    check(ok, f"K2 wide {what}{' nval2d' if nval else ''} (panel {p2.panel}, "
+                              f"{p2.spb} slots a block): |err| <= {RTOL:g}*(term magnitude); "
+                              f"max |err| {err:.3e}")
+                if not exact:
+                    p4 = bs.stream_fused_plan(d, item, chunk)
+                    ok, n_mism, err = check_k4(q, tb, grid, metric)
+                    check(ok, f"K4 wide {what} (panel {p4.panel}, {p4.sub_rows} rows a stage, "
+                              f"{p4.smem} B): planes within {RTOL:g}*(query term scale), "
+                              f"{n_mism} slot differences all near-ties; max |err| {err:.3e}")
+                t_cap = bs.shared_task_cap(lengths, n_probe, nq, grid["t_fixed"],
+                                           worst_case=exact, chunk=chunk)
+                tasks = shared_tasks(q, tb, c, c_sq, lengths, n_probe, grid["t_fixed"], t_cap,
+                                     metric)
+                p5 = bs.stream_shared_plan(d, item, chunk)
+                ok, err = check_k5(tb, tasks, metric)
+                check(ok, f"K5 wide {what} t_cap={t_cap} (K-panel {p5.kpanel}, {p5.panel_rows} "
+                          f"rows, {p5.stages} stages): |err| <= {RTOL:g}*(|qc|^2+|r|^2); "
+                          f"max |err| {err:.3e}")
+            del tb
+        starts, lens, max_len, budget = gather_operands(q, idx, n_probe)
+        for metric in ("l2", "ip"):
+            ok, err = check_k6(q, idx.layout.vectors, starts, lens, max_len, budget, metric)
+            check(ok, f"K6 wide d={d} {metric} (query elements in shared memory "
+                      f"{ig.ivf_gather_plan(d).qres}): equal rows and holes, distances within "
+                      f"{RTOL:g}*(terms); max |err| {err:.3e}")
+        del idx, q
+        gc_collect(torch)
+        log(f"  wide kernel checks at d={d}: {time.perf_counter() - t0:.2f}s")
+
+
+def cpu_twin(torch, idx):
+    """A copy of an IvfIndex whose tables (layout, stream tables, the
+    correction table) are copied to the CPU, where every kernel wrapper
+    runs its plain version: the same index state without a second build."""
+    import copy
+    import dataclasses
+
+    def to_cpu(obj):
+        if obj is None:
+            return None
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+    tw = copy.copy(idx)
+    tw.device = torch.device("cpu")
+    tw.layout = to_cpu(idx.layout)
+    tw._stream_tables = {dt: to_cpu(st) for dt, st in idx._stream_tables.items()}
+    tw._corr_table = to_cpu(idx._corr_table)
+    tw._dev = tw._runs = tw._perm_inv = tw._perm_dev = tw._sweep_q = tw._lists = None
+    tw._budgets = None
+    return tw
+
+
+def twin_check(np, check, what, card, cpu, scale):
+    """Card vs CPU results rank by rank: finite where the CPU's are, every
+    rank's distance within RTOL * scale, and equal row sets on >=
+    TWIN_SAME_FLOOR of the queries, where a query whose sets differ only
+    by near-tie swaps at the last rank (every row in one set and not the
+    other within 2 RTOL * scale of that query's k-th distance) counts as
+    equal: the floor's allowance for those swaps is less than one query of
+    WIDE_TWIN, so each difference is held to being such a swap instead."""
+    (Dc, Rc), (Dp, Rp) = card, cpu
+    fin = np.isfinite(Dp)
+    err = np.abs(np.where(fin, Dc - Dp, 0.0))
+    equal = (np.sort(Rc, 1) == np.sort(Rp, 1)).all(axis=1)
+    tie = np.zeros_like(equal)
+    for i in np.flatnonzero(~equal):
+        dk = max(Dc[i, -1], Dp[i, -1])
+        swapped = np.concatenate([Dc[i][~np.isin(Rc[i], Rp[i])], Dp[i][~np.isin(Rp[i], Rc[i])]])
+        tie[i] = bool((np.abs(swapped - dk) <= 2 * RTOL * scale[i]).all())
+    same = float((equal | tie).mean())
+    check(bool((np.isfinite(Dc) == fin).all()) and bool((err <= RTOL * scale[:, None]).all())
+          and same >= TWIN_SAME_FLOOR,
+          f"{what}: card vs plain versions on the CPU, {len(Dc)} queries: every rank's distance "
+          f"within {RTOL:g}*(|q|^2+max|x|^2) (max |err| {float(err.max()):.3e}); equal row "
+          f"sets on {float(equal.mean()):.4f} of queries, {int(tie.sum())} more differing only "
+          f"by near-tie swaps at rank {Dc.shape[1]} ({same:.4f} >= {TWIN_SAME_FLOOR})")
+
+
+def wide_phase(torch, np, check, dev, results):
+    """Phase 11 (wide rows): the kernels against their plain versions at
+    WIDE_DIMS, then a WIDE_N x WIDE_D clustered corpus built on the card
+    (Lloyd and K1 at that width) and served through 'auto' at nq 1 and 16
+    (K2 and K4 bf16), 'gather_dma' (K6), 'stream_shared_exact' (K5 f32)
+    and, offloaded with rerank='device', 'auto' (K2 / K4 int8); each run
+    against a CPU twin of WIDE_TWIN queries; K4 and K6 timed at their
+    shapes by graph replay beside their bounds (into ``results``). Returns
+    the launch counts of the build and the searches."""
+    from vector_indexer_tpu_torch.index.dispatch import resolve
+    from vector_indexer_tpu_torch.index.ivf import IvfIndex
+    from vector_indexer_tpu_torch.kernels import build as kb
+    from vector_indexer_tpu_torch.ops import block_stream as bs
+    from vector_indexer_tpu_torch.ops import ivf_gather as ig
+    from vector_indexer_tpu_torch.storage.vector_store import VectorStore
+
+    t_ph = time.perf_counter()
+    wide_kernel_checks(torch, np, check, dev)
+    gpu = gpu_line()
+    k, n, d = K, WIDE_N, WIDE_D
+
+    kb.reset_launch_counts()  # counts from here on belong to phase 11's runs
+    t0 = time.perf_counter()
+    xb_dev, xq_dev = clustered_on_card(torch, n, d, WIDE_TWIN, WIDE_SEED, dev)
+    xb, xq = xb_dev.cpu().numpy(), xq_dev.cpu().numpy()
+    del xb_dev
+    gc_collect(torch)
+    log(f"  wide corpus {n} x {d} f32 ({xb.nbytes / 1e9:.2f} GB) and {WIDE_TWIN} queries drawn "
+        f"on the card (seed {WIDE_SEED}): {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    store = VectorStore(external_ids=np.arange(n, dtype=np.uint64), vectors=xb)
+    idx = IvfIndex.fit(store, seed=42, max_iters=WIDE_ITERS, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    k1 = kb.launch_counts()["assign_argmin"]
+    log(f"  wide build (Lloyd {WIDE_ITERS} iterations, K1): {build_s:.2f}s; nlist "
+        f"{idx.num_clusters}, max list {idx.layout.max_list_len}, K1 launches {k1}")
+    scale = np.sum(xq * xq, axis=1) + float(np.max(np.sum(xb * xb, axis=1)))
+
+    # Routes from the port's own dispatch on the built index.
+    runs = []
+    for nq in WIDE_NQ:
+        routes = {p: route_of(resolve(idx, nq, p, k=k), k) for p in WIDE_N_PROBES}
+        if "stream/K4" not in routes.values():
+            extra = next((p for p in range(1, idx.num_clusters + 1)
+                          if route_of(resolve(idx, nq, p, k=k), k) == "stream/K4"), None)
+            if extra is not None:
+                routes[extra] = "stream/K4"
+        log(f"  auto routes at nq={nq}: " + ", ".join(f"n_probe={p}: {r}" for p, r in routes.items()))
+        runs += [("auto", nq, p, r) for p, r in routes.items()]
+    dec = resolve(idx, 16, 8, k=k, method="gather_dma")
+    runs.append(("gather_dma", 16, 8, route_of(dec, k)))
+    dec = resolve(idx, 16, 8, k=k, method="stream_shared_exact")
+    runs.append(("stream_shared_exact", 16, 8, route_of(dec, k)))
+    check(runs[-2][3] == "gather_dma/K6" and runs[-1][3] == "stream_shared/K5",
+          f"resolve: gather_dma -> {runs[-2][3]}, stream_shared_exact -> {runs[-1][3]}")
+
+    def search(ix, method, nq, n_probe, qs):
+        if nq == 1:  # the queries one at a time: nq 1's program for each
+            outs = [ix.search_batch_device(qs[i:i + 1], k, n_probe, method=method)
+                    for i in range(len(qs))]
+            D, R = (torch.cat([o[j] for o in outs]) for j in (0, 1))
+        else:
+            D, R = ix.search_batch_device(qs, k, n_probe, method=method)
+        return D.cpu().numpy(), ix.rows_to_internal(R.cpu().numpy())
+
+    card = {}
+    for method, nq, n_probe, route in runs:
+        search(idx, method, nq, n_probe, xq_dev)  # warm-up: builds the tables
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card[(method, nq, n_probe)] = search(idx, method, nq, n_probe, xq_dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        D = card[(method, nq, n_probe)][0]
+        log(f"  {method} nq={nq} n_probe={n_probe} ({route}): {ms:.2f} ms for {WIDE_TWIN} "
+            f"queries (host clock{', one call per query' if nq == 1 else ''})")
+        check(D.shape == (WIDE_TWIN, k) and bool(np.isfinite(D).all()),
+              f"wide {method} nq={nq} n_probe={n_probe} ({route}): finite ({WIDE_TWIN}, {k})")
+    routes_seen = {r for *_, r in runs}
+    check({"stream/K4", "stream/K2"} <= routes_seen,
+          f"the wide runs take both stream routes (K2 and K4): {sorted(routes_seen)}")
+    torch.cuda.synchronize()
+    counts = kb.launch_counts()  # the build and the runs; comparisons below do not count
+    for name in WIDE_KERNELS:
+        check(counts[name] > 0, f"{name} launched in phase 11's device-resident runs "
+                                f"({counts[name]}x)")
+
+    # K4 and K6 at this width, timed by graph replay beside their bounds.
+    c, c_sq = idx._device_tables()
+    tb = idx._stream_table()
+    # K4's shape: the batched K4 run (nq 16) if there is one.
+    k4_runs = sorted((nq, p) for m, nq, p, r in runs if r == "stream/K4")
+    p4 = k4_runs[-1][1] if k4_runs else max(WIDE_N_PROBES)
+    grid = stream_grid(xq_dev, tb, c, c_sq, idx.layout.lengths, p4, "l2")
+    G = bs.pick_stream_groups(tb.chunk)
+    kw = dict(chunk=tb.chunk, groups=G, metric="l2", scales=tb.scales)
+    ok, n_mism, err = check_k4(xq_dev, tb, grid, "l2")
+    check(ok, f"K4 bf16 at the wide runs' shape (nq={WIDE_TWIN}, n_probe={p4}, t_fixed="
+              f"{grid['t_fixed']}, d={d}): planes within {RTOL:g}*(query term scale), {n_mism} "
+              f"slot differences all near-ties; max |err| {err:.3e}")
+    results["wide_k4"] = dict(
+        max_abs_err=err, ms=graph_ms(torch, lambda: bs.stream_fused_plane(
+            *k4_args(xq_dev, tb, grid), **kw)),
+        plain_ms=cuda_ms(torch, lambda: bs.stream_fused_plane_reference(
+            *k4_args(xq_dev, tb, grid), **kw), reps=1),
+        shape=f"nq={WIDE_TWIN} n_probe={p4} t_fixed={grid['t_fixed']} chunk={tb.chunk} d={d}",
+        **stream_bound(xq_dev, tb, grid, WIDE_TWIN * 2 * G * tb.chunk * 8))
+    starts, lens, max_len, budget = gather_operands(xq_dev, idx, 8)
+    ok, err = check_k6(xq_dev, idx.layout.vectors, starts, lens, max_len, budget, "l2")
+    check(ok, f"K6 at the wide runs' shape (nq={WIDE_TWIN}, n_probe=8, d={d}): equal rows and "
+              f"holes, distances within {RTOL:g}*(terms); max |err| {err:.3e}")
+    results["wide_k6"] = k6_entry(torch, xq_dev, idx.layout.vectors, starts, lens, max_len,
+                                  budget, err)
+    for name in ("wide_k4", "wide_k6"):
+        r = results[name]
+        log(f"  {name}: kernel {r['ms']:.3f} ms (graph replay), plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) ({r['shape']}; {gpu})")
+    del grid, starts, lens
+
+    # The CPU twin: the same tables, the plain versions.
+    t0 = time.perf_counter()
+    tw = cpu_twin(torch, idx)
+    log(f"  CPU twin (tables copied): {time.perf_counter() - t0:.2f}s")
+    for method, nq, n_probe, route in runs:
+        t0 = time.perf_counter()
+        twin_check(np, check, f"wide {method} nq={nq} n_probe={n_probe} ({route})",
+                   card[(method, nq, n_probe)], search(tw, method, nq, n_probe, xq), scale)
+        log(f"  twin of {method} nq={nq} n_probe={n_probe}: {time.perf_counter() - t0:.2f}s")
+    del tw, tb
+
+    # Offloaded, with the device re-rank: 'auto' over the int8 table (the
+    # counts are read around each search alone).
+    t0 = time.perf_counter()
+    idx.offload_main_table(rerank="device")
+    gc_collect(torch)
+    log(f"  offload_main_table(rerank='device'): {time.perf_counter() - t0:.2f}s")
+    off = {}
+    for n_probe in sorted({8, p4}):
+        before = kb.launch_counts()
+        D, I = idx.search_batch(xq, k, n_probe)
+        torch.cuda.synchronize()
+        ran = {name: c - before[name] for name, c in kb.launch_counts().items()
+               if name in WIDE_OFFLOAD_KERNELS and c > before[name]}
+        for name, c in ran.items():
+            counts[name] += c
+        off[n_probe] = (D, I, ran)
+        log(f"  offload (device re-rank) n_probe={n_probe}: launched {ran}")
+        check(D.shape == (WIDE_TWIN, k) and bool(np.isfinite(D).all()),
+              f"wide offload (device re-rank) n_probe={n_probe}: finite ({WIDE_TWIN}, {k})")
+    for name in WIDE_OFFLOAD_KERNELS:
+        check(counts[name] > 0, f"{name} launched in phase 11's offloaded runs ({counts[name]}x)")
+    tw = cpu_twin(torch, idx)
+    for n_probe, (D, I, ran) in off.items():
+        t1 = time.perf_counter()
+        twin_check(np, check, f"wide offload (device re-rank) n_probe={n_probe} "
+                              f"({', '.join(ran)})", (D, I), tw.search_batch(xq, k, n_probe),
+                   scale)
+        log(f"  twin of the offloaded n_probe={n_probe}: {time.perf_counter() - t1:.2f}s")
+    del tw, idx
+    gc_collect(torch)
+    log(f"  launch counts in phase 11: {counts}; phase 11 {time.perf_counter() - t_ph:.2f}s")
+    return counts
+
+
 def gc_collect(torch):
     import gc
 
@@ -2611,16 +2948,25 @@ def main() -> int:
         t0 = time.perf_counter()
         by_phase["10"] = surface_phase(torch, np, xb, xq, check, dev, work)
         log(f"  phase 10: {time.perf_counter() - t0:.2f}s")
+        log("== 11. wide rows: the kernels at d 16,384-65,536, a 100,000 x 16,384 index")
+        t0 = time.perf_counter()
+        by_phase["11"] = wide_phase(torch, np, check, dev, results)
+        log(f"  phase 11: {time.perf_counter() - t0:.2f}s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     counts["flat_sweep_minreduce"] = results["flat_sweep_minreduce"]["launches"]  # phase 3
+    wide = {"stream_fused_plane[bf16]": results["wide_k4"],
+            "ivf_gather_distances": results["wide_k6"]}
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
              launches_by_phase={p: c.get(name, 0) for p, c in by_phase.items()},
              **{key: results[name][key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                 "library_call", "shape")})
+                 "library_call", "shape")},
+             **({"wide_rows": {key: wide[name][key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "shape")}}
+                if name in wide else {}))
         for name, (src, rep) in SOURCES.items()
     ]
     log(f"== {check.n} checks in {time.perf_counter() - t_start:.1f}s")

@@ -2,6 +2,7 @@
 (bytes over the memory rate or operations over the peak of their type, as
 this run's data needs them) and the nvcc register / spill report."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -110,3 +111,31 @@ def test_trace_kernel_counts_match_launch_counters():
     totals = cs.kernel_launch_totals(counts)
     assert cs.trace_kernel_counts(trace, totals) == totals
     assert totals["stream_distances_kernel"] == 2 and totals["flat_sweep_kernel"] == 1
+
+
+def test_ptxas_report_names_the_panel_mode():
+    """K4's panel mode is NCH = -1, mangled Lin1E."""
+    log = "\n".join([
+        "ptxas info    : Function properties for _ZN2k25stream_fused_plane_kernelILb1E13__nv_bfloat16Lin1ELb0EEEvPKf",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 56 registers, used 2 barriers",
+    ])
+    assert cs.ptxas_lines(log)[0].startswith("stream_fused_plane_kernel<true,bf16,-1,false>: Used 56")
+
+
+def test_twin_check_passes_only_near_tie_swaps_at_the_last_rank():
+    """Phase 11's twin check: a query whose sets differ by a swap at rank k
+    within 2 RTOL * scale passes; a lost row above the boundary fails."""
+    scale = np.full(2, 1e4)
+    D = np.array([[1.0, 2.0, 3.0, 4.0], [1.0, 2.0, 3.0, 4.0]])
+    R = np.array([[0, 1, 2, 3], [0, 1, 2, 3]])
+    tie = R.copy()
+    tie[1, 3] = 9  # rank 4 swapped for a row at an equal distance (within 0.2)
+    lost = R.copy()
+    lost[1] = [0, 1, 3, 9]  # row 2 (distance 3, far above 2 RTOL * scale of 4) lost
+    for other, ok in ((tie, True), (lost, False)):
+        check = cs.Check()
+        Dp = D.copy()
+        Dp[1, 3] = 4.1
+        cs.twin_check(np, check, "t", (D, R), (Dp, other), scale)
+        assert (not check.failures) == ok

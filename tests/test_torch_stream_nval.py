@@ -84,7 +84,7 @@ def test_plan_covers_every_row(itemsize):
     for d in list(range(1, 70)) + [96, 100, 128, 255, 256, 512, 768, 1024, 1100, 1536, 2048,
                                    4096, 12288]:
         for t_fixed, chunk in ((1, 256), (16, 256), (48, 1024)):
-            nch, lpr, spb = bs.stream_distances_plan(d, itemsize, t_fixed, chunk)
+            nch, lpr, spb, panel, smem = bs.stream_distances_plan(d, itemsize, t_fixed, chunk)
             cpr = -(-d // epc)
             assert lpr in (1, 2, 4, 8, 16, 32) and nch in (0, 4)
             if nch:
@@ -92,10 +92,12 @@ def test_plan_covers_every_row(itemsize):
             else:
                 assert lpr == 32 and cpr > 128  # the wide mode
             assert 1 <= spb <= min(bs.K2_SLOTS_PER_BLOCK, t_fixed)
-            # The kernel's shared memory: q - c and the distances of each slot.
-            assert 4 * spb * (cpr * epc + chunk) <= 227 * 1024
+            # The kernel's shared memory: q - c (the whole padded row at
+            # these d) and the distances of each slot.
+            assert panel == cpr * epc
+            assert smem == 4 * spb * (panel + chunk) <= 227 * 1024
     # The main path's rows (d 128): 4 lanes per bf16 row, 2 per int8 row, 8 per f32 row.
-    assert bs.stream_distances_plan(128, 2, 16, 256) == (4, 4, 4)
-    assert bs.stream_distances_plan(128, 1, 16, 256) == (4, 2, 4)
-    assert bs.stream_distances_plan(128, 4, 16, 256) == (4, 8, 4)
-    assert bs.stream_distances_plan(2048, 2, 16, 256) == (0, 32, 4)
+    assert bs.stream_distances_plan(128, 2, 16, 256)[:4] == (4, 4, 4, 128)
+    assert bs.stream_distances_plan(128, 1, 16, 256)[:4] == (4, 2, 4, 128)
+    assert bs.stream_distances_plan(128, 4, 16, 256)[:4] == (4, 8, 4, 128)
+    assert bs.stream_distances_plan(2048, 2, 16, 256)[:4] == (0, 32, 4, 2048)

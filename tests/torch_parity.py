@@ -113,6 +113,8 @@ def reference_search(ref, program: str, xq, k: int, n_probe: int, precision: str
                                       budget=ref._budget_for(n_probe), q_tile=nq, metric=metric)
     elif program == "gather_dma":  # inline in search_batch_device; interpret on the CPU
         out = ref.search_batch_device(xq, k, n_probe, method="gather_dma")
+    elif program == "stream":  # its dispatch runs the stream kernels in interpret mode
+        out = ref.search_batch_device(xq, k, n_probe, method="stream")
     else:
         raise ValueError(program)
     return tuple(np.asarray(a)[:nq] for a in out)

@@ -9,11 +9,14 @@ tolerances) over odd sizes (K1 also with every centroid duplicated, where
 the lower id must win each exact tie), dimensions, chunks, table types
 (K2 with and without the slots' valid counts; K2 bf16 /
 int8 / f32, K4 bf16 / int8, K5 bf16 / int8 / f32 at every stream d, with
-rows that are not 16-byte multiples and panels of 16 rows, and K5 alone on
-rows too wide for its 16-row ring (8- and 4-row panels), K3 f32 / int8 /
-int8x1, at d on both sides of each kernel's mode changes), windows, group counts,
-list lengths (K6: short and long lists,
-empty probes) and both metrics, then searches one saved index on the card
+rows that are not 16-byte multiples and panels of 16 rows; K2, K4 and K5 on
+rows too wide for K5's 16-row ring (8- and 4-row panels) and past each
+kernel's wide-row mode change (K4's panels past ~13,500 dims, K5's
+K-panels past ~14,400-57,800, K2's panels past ~50,000) up to d 65,536,
+odd widths included; K3 f32 / int8 / int8x1, at d on both sides of each
+kernel's mode changes), windows, group counts, list lengths (K6: short and
+long lists, empty probes, and d past the 12,288 query elements it keeps in
+shared memory) and both metrics, then searches one saved index on the card
 and on the CPU (where every kernel runs its plain version) for each search
 method of the port, and offloaded in each re-rank mode, for both metrics,
 and compares the results rank by rank. Exits 1 if any check fails. Needs
@@ -57,11 +60,18 @@ STREAM_DIMS = (20, 32, 64, 96, 128, 512, 1024, 1100, 1536, 2048)
 STREAM_CHUNKS = (256, 512, 1024)
 STREAM_PROBES = (1, 5, 17)
 QUANT_DIMS = (32, 96, 128, 1024)  # dims of the int8 / f32 tables (K5 runs at every d)
-# K5 alone on rows whose two 16-row stages pass the 227 KB of shared memory
-# (f32 past d ~1800, bf16 past ~3600, int8 past ~7200): (d, table types).
-# f32 d 7200 takes one 8-row stage, d 10,000 one 4-row stage.
+# Wide rows: (d, table types). K5's two 16-row stages pass the 227 KB of
+# shared memory past f32 d ~1800, bf16 ~3600, int8 ~7200 (f32 d 7200 takes
+# one 8-row stage, d 10,000 one 4-row stage) and it takes K-panels past f32
+# d ~14,400, bf16 ~28,900, int8 ~57,800 and at odd int8 widths past ~7200;
+# K4 (bf16, int8) takes panels past bf16 ~13,500 and int8 ~18,000; K2 past
+# ~50,000; K6 keeps 12,288 query elements in shared memory. 12,289, 16,385
+# and 65,535 give rows that are no 16-byte multiple in every type.
 K5_WIDE = ((2048, ("f32",)), (4096, ("bf16", "f32")), (7200, ("bf16", "int8", "f32")),
-           (10_000, ("f32",)))
+           (7201, ("int8",)), (10_000, ("f32",)), (12_289, ("bf16", "int8", "f32")),
+           (16_384, ("bf16", "int8", "f32")), (16_385, ("bf16", "int8", "f32")),
+           (20_000, ("bf16", "int8", "f32")), (32_768, ("bf16", "int8", "f32")),
+           (65_535, ("bf16", "int8", "f32")), (65_536, ("bf16", "int8", "f32")))
 SEARCH_METHODS = ("stream", "stream_exact", "stream_shared", "stream_shared_exact", "dense",
                   "dense_exact", "auto", "flat", "flat_exact", "flat_fused", "flat_int8",
                   "flat_int8x1", "dense_int8", "dense_int8x1", "gather", "gather_dma")
@@ -74,7 +84,9 @@ SWEEP_NQ = (1, 37, 300)
 INT8_DIMS = (128, 256, 1280, 2048)
 K7_WINDOWS = (8, 16, 32)
 # K6: (d, max_len, probes per query, every how many lists is empty)
-K6_CASES = ((16, 40, 4, 3), (96, 300, 8, 5), (128, 700, 32, 4), (128, 2000, 6, 2))
+K6_CASES = ((16, 40, 4, 3), (96, 300, 8, 5), (128, 700, 32, 4), (128, 2000, 6, 2),
+            (12_289, 300, 8, 5), (16_384, 700, 8, 4), (16_385, 200, 6, 3),
+            (65_536, 300, 4, 3))
 
 
 def main() -> int:
@@ -145,23 +157,37 @@ def main() -> int:
 
     dtypes = {"bf16": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}
     for d, types in K5_WIDE:
-        xb, xq = ds.clustered(8192, d, 16, seed=d)
-        store = VectorStore(external_ids=np.arange(len(xb), dtype=np.uint64), vectors=xb)
+        n = 8192 if d <= 20_000 else 4096
+        xb, xq = chip_smoke.clustered_on_card(torch, n, d, 16, d, dev)
+        store = VectorStore(external_ids=np.arange(n, dtype=np.uint64), vectors=xb.cpu().numpy())
+        del xb
         idx = IvfIndex.fit(store, seed=1, nlist=16, max_iters=3, device=dev)
         c, c_sq = idx._device_tables()
-        q = torch.as_tensor(xq, device=dev)
+        q = xq
         lengths = idx.layout.lengths
-        for chunk, mode, metric in itertools.product((256, 1024), types, ("l2", "ip")):
+        for chunk, mode in itertools.product((256, 1024), types):
             table = build_stream_table(idx.layout, idx.centroids, dtypes[mode], chunk=chunk)
             exact = mode == "f32"
-            grid = stream_grid(q, table, c, c_sq, lengths, 5, metric, worst_case=exact)
-            t_cap = bs.shared_task_cap(lengths, 5, len(q), grid["t_fixed"], worst_case=exact,
-                                       chunk=chunk)
-            tasks = shared_tasks(q, table, c, c_sq, lengths, 5, grid["t_fixed"], t_cap, metric)
-            ok, err = check_k5(table, tasks, metric)
-            check(ok, f"K5 wide rows {mode} d={d} chunk={chunk} n_probe=5 {metric} t_cap={t_cap}: "
-                      f"max |err| {err:.3e}")
-    del xb, xq, idx, table, tasks
+            item = table.vecs.element_size()
+            plans = (f"K2 panel {bs.stream_distances_plan(d, item, 16, chunk).panel}, K4 panel "
+                     f"{bs.stream_fused_plan(d, item, chunk).panel}, K5 {bs.stream_shared_plan(d, item, chunk)[:3]}")
+            for metric in ("l2", "ip"):
+                grid = stream_grid(q, table, c, c_sq, lengths, 5, metric, worst_case=exact)
+                what = f"wide rows {mode} d={d} chunk={chunk} n_probe=5 {metric} ({plans})"
+                for nval in (False, True):
+                    ok, err = check_k2(q, table, grid, metric, nval)
+                    check(ok, f"K2 {what}{' nval2d' if nval else ''}: max |err| {err:.3e}")
+                if not exact:
+                    ok, n_mism, err = check_k4(q, table, grid, metric)
+                    check(ok, f"K4 {what}: {n_mism} near-tie slot differences, max |err| {err:.3e}")
+                t_cap = bs.shared_task_cap(lengths, 5, len(q), grid["t_fixed"], worst_case=exact,
+                                           chunk=chunk)
+                tasks = shared_tasks(q, table, c, c_sq, lengths, 5, grid["t_fixed"], t_cap, metric)
+                ok, err = check_k5(table, tasks, metric)
+                check(ok, f"K5 {what} t_cap={t_cap}: max |err| {err:.3e}")
+            del table, tasks, grid
+        del idx, store
+        chip_smoke.gc_collect(torch)
 
     print("== K3 flat_sweep_topk_plane", flush=True)
     for d in SWEEP_DIMS:

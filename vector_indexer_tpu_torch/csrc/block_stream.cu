@@ -34,7 +34,10 @@
 // per row and 16-byte reads, each lane keeping 8 words (and its rows'
 // norms) in flight instead of a copy ring: the rows are read once, so
 // direct loads need no staging, and the chain per pass is one load. The
-// distances are staged in shared memory and stored as 16-byte words.
+// distances are staged in shared memory and stored as 16-byte words. Rows
+// whose q - c and distances pass the shared memory of one slot (d past
+// ~50,000) take d in panels: q - c of one panel at a time, each row's
+// partial dot kept in its distance slot until the last panel adds the norm.
 //
 // K4 keeps the selection on chip. The fold of the reference (local slot u
 // outer, fan f inner; slot s = f * t_sub + u feeds group g = f % G; each
@@ -50,16 +53,22 @@
 // 1024 elements (the registers' limit) take a wide mode: one row per warp,
 // q - c in shared memory (double-buffered per slot), sub-blocks of as few
 // rows as keep the copies 16-byte multiples. Only the (2 G chunk)-wide
-// planes reach device memory. K4 takes bf16 and int8 tables (the f32 table
-// serves stream_exact, which never fuses) up to d = 12,288.
+// planes reach device memory. Rows too wide for that mode's shared memory
+// (two f32 q - c rows beside the ring: bf16 d past ~13,500, int8 past
+// ~18,000) take a panel mode: d in panels of 2 KB of the row, q - c of one
+// panel in shared memory (double-buffered), every valid row of the slot
+// streamed panel by panel (one bulk copy per row segment, 8 rows a stage),
+// and each row's partial dot kept in shared memory until its last panel,
+// where the scale and the norm are applied once and the row is folded. K4
+// takes bf16 and int8 tables (the f32 table serves stream_exact, which
+// never fuses) at any d; its launch plan comes from the wrapper
+// (ops/block_stream.py::stream_fused_plan) and is checked here.
 //
 // Bound on the H100: bytes. K2 with nval2d and K4 read only a task's valid
 // rows (at most chunk * d * itemsize bytes: 64 KB at chunk 256, d 128,
 // bf16; 32 KB int8; 128 KB f32), for 2 FLOPs per element - at most 2
 // FLOP/byte, far below the card's ~20 FLOP/byte f32 balance, so 3.35 TB/s
 // over the valid rows' bytes (and norms) is the roofline.
-#include <numeric>
-
 #include "common.cuh"
 
 namespace {
@@ -166,7 +175,10 @@ constexpr int K2_MAX_SMEM = 232448;
 // element by element). A row's dot is summed across its lanes by shuffles and its
 // first lane writes the distance into the run's staging area in shared
 // memory, where lanes at or past nval hold +inf. At the end the block
-// stores the run's rows, contiguous in out, as 16-byte words.
+// stores the run's rows, contiguous in out, as 16-byte words. `panel`
+// (elements, a multiple of EPC) is the share of d whose q - c is staged at
+// a time: the whole padded row, or (wide mode only) less, and then each
+// row's partial dot waits in its distance slot until the last panel.
 template <bool L2, typename T, int NCH, bool VEC>
 __global__ void __launch_bounds__(K2_THREADS, 2) stream_distances_kernel(
     const float* __restrict__ queries, const float* __restrict__ cent,
@@ -174,7 +186,7 @@ __global__ void __launch_bounds__(K2_THREADS, 2) stream_distances_kernel(
     const int* __restrict__ nval2d, const float* __restrict__ bias2d,
     const T* __restrict__ vecs, const float* __restrict__ norms,
     const float* __restrict__ scales, int t_fixed, int chunk, int d, int lpr, int spb,
-    float* __restrict__ out) {
+    int panel, float* __restrict__ out) {
   constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
   // Rows per lane kept in flight per pass: 8 16-byte words (the wide and
   // element-wise modes: 4 rows).
@@ -186,8 +198,8 @@ __global__ void __launch_bounds__(K2_THREADS, 2) stream_distances_kernel(
   __shared__ int s_cid[K2_MAX_SLOTS];
   const int cpr = (d + EPC - 1) / EPC;       // 16-byte chunks per row
   const int width = cpr * EPC;
-  float* qc_s = smem_k2;                     // spb x width: q - c per slot, zero past d
-  float* out_s = qc_s + spb * width;         // spb x chunk distances
+  float* qc_s = smem_k2;                     // spb x panel: q - c per slot, zero past d
+  float* out_s = qc_s + spb * panel;         // spb x chunk distances (partial dots)
 
   const int nsg = (t_fixed + spb - 1) / spb;
   const int q = blockIdx.x / nsg;
@@ -211,20 +223,10 @@ __global__ void __launch_bounds__(K2_THREADS, 2) stream_distances_kernel(
     s_scl[tid] = vitorch::row_scale<T>(scales, cid);
   }
   __syncthreads();
-  for (int e = tid; e < ns * width; e += K2_THREADS) {
-    const int s = e / width, k = e % width;
-    float v = 0.f;
-    if (k < d) {
-      v = queries[static_cast<size_t>(q) * d + k];
-      if (L2) v -= cent[static_cast<size_t>(s_cid[s]) * d + k];
-    }
-    qc_s[e] = v;
-  }
   for (int e = tid; e < ns * chunk; e += K2_THREADS) {  // lanes past nval: +inf
     const int s = e / chunk;
     if (e % chunk >= s_start[s + 1] - s_start[s]) out_s[e] = vitorch::inf_f();
   }
-  __syncthreads();
 
   const int li = lane % lpr;                 // lane within the row's lanes
   const int rpp = K2_WARPS * (32 / lpr);     // rows per pass of the block
@@ -235,45 +237,88 @@ __global__ void __launch_bounds__(K2_THREADS, 2) stream_distances_kernel(
 #pragma unroll
   for (int j = 0; j <= K2_MAX_SLOTS; ++j) start[j] = j <= ns ? s_start[j] : 0;
   const int total = s_start[ns];
-  for (int r0 = 0; r0 < total; r0 += U * rpp) {  // uniform across the block
-    int sl[U], rw[U];
-    float nrm[U], dot[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {  // flattened row -> (slot, row), its norm
-      const int f = r0 + u * rpp + my_row;
-      int s = 0, s_first = 0;
-#pragma unroll
-      for (int j = 1; j < K2_MAX_SLOTS; ++j) {
-        if (j < ns && f >= start[j]) {
-          s = j;
-          s_first = start[j];
-        }
+  for (int p0 = 0; p0 < width; p0 += panel) {
+    const int pw = min(panel, width - p0);  // this panel's elements
+    const bool first = p0 == 0, last = p0 + pw >= width;
+    if (!first) __syncthreads();  // every warp is done with the previous panel's q - c
+    for (int e = tid; e < ns * pw; e += K2_THREADS) {
+      const int s = e / pw, k = p0 + e % pw;
+      float v = 0.f;
+      if (k < d) {
+        v = queries[static_cast<size_t>(q) * d + k];
+        if (L2) v -= cent[static_cast<size_t>(s_cid[s]) * d + k];
       }
-      sl[u] = s;
-      rw[u] = f < total ? f - s_first : -1;
-      nrm[u] = rw[u] >= 0 && li == 0 ? norms[s_base[s] + rw[u]] : 0.f;
-      dot[u] = 0.f;
+      qc_s[s * panel + e % pw] = v;
     }
-    if constexpr (VEC && NCH > 0) {
-      uint4 w[U][NCH];
+    __syncthreads();
+    const int c0 = p0 / EPC, c1 = (p0 + pw) / EPC;  // the panel's 16-byte chunks
+    for (int r0 = 0; r0 < total; r0 += U * rpp) {  // uniform across the block
+      int sl[U], rw[U];
+      float nrm[U], dot[U];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const uint4* row =
-            reinterpret_cast<const uint4*>(table + (s_base[sl[u]] + max(rw[u], 0)) * row_bytes);
+      for (int u = 0; u < U; ++u) {  // flattened row -> (slot, row), its norm
+        const int f = r0 + u * rpp + my_row;
+        int s = 0, s_first = 0;
 #pragma unroll
-        for (int m = 0; m < NCH; ++m) {
-          const int c = li + m * lpr;
-          w[u][m] = rw[u] >= 0 && c < cpr ? __ldg(row + c) : make_uint4(0u, 0u, 0u, 0u);
+        for (int j = 1; j < K2_MAX_SLOTS; ++j) {
+          if (j < ns && f >= start[j]) {
+            s = j;
+            s_first = start[j];
+          }
         }
+        sl[u] = s;
+        rw[u] = f < total ? f - s_first : -1;
+        nrm[u] = rw[u] >= 0 && li == 0 && last ? norms[s_base[s] + rw[u]] : 0.f;
+        dot[u] = 0.f;
       }
+      if constexpr (VEC && NCH > 0) {
+        uint4 w[U][NCH];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
+        for (int u = 0; u < U; ++u) {
+          const uint4* row =
+              reinterpret_cast<const uint4*>(table + (s_base[sl[u]] + max(rw[u], 0)) * row_bytes);
 #pragma unroll
-        for (int m = 0; m < NCH; ++m) {
-          const int c = li + m * lpr;
-          if (c < cpr) {
+          for (int m = 0; m < NCH; ++m) {
+            const int c = li + m * lpr;
+            w[u][m] = rw[u] >= 0 && c < cpr ? __ldg(row + c) : make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int m = 0; m < NCH; ++m) {
+            const int c = li + m * lpr;
+            if (c < cpr) {
+              float qv[EPC];
+              const float4* qp = reinterpret_cast<const float4*>(qc_s + sl[u] * panel + c * EPC);
+#pragma unroll
+              for (int e = 0; e < EPC / 4; ++e) {
+                const float4 f = qp[e];
+                qv[4 * e] = f.x;
+                qv[4 * e + 1] = f.y;
+                qv[4 * e + 2] = f.z;
+                qv[4 * e + 3] = f.w;
+              }
+              dot[u] += word_dot(qv, w[u][m], T());
+            }
+          }
+        }
+      } else {
+        for (int c = c0 + li; c < c1; c += lpr) {
+          uint4 w[U];
+          if constexpr (VEC) {  // the wide mode: one word per row in flight
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+              w[u] = rw[u] >= 0 ? __ldg(reinterpret_cast<const uint4*>(
+                                            table + (s_base[sl[u]] + rw[u]) * row_bytes) + c)
+                                : make_uint4(0u, 0u, 0u, 0u);
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (rw[u] < 0) continue;
             float qv[EPC];
-            const float4* qp = reinterpret_cast<const float4*>(qc_s + sl[u] * width + c * EPC);
+            const float4* qp =
+                reinterpret_cast<const float4*>(qc_s + sl[u] * panel + (c - c0) * EPC);
 #pragma unroll
             for (int e = 0; e < EPC / 4; ++e) {
               const float4 f = qp[e];
@@ -282,48 +327,24 @@ __global__ void __launch_bounds__(K2_THREADS, 2) stream_distances_kernel(
               qv[4 * e + 2] = f.z;
               qv[4 * e + 3] = f.w;
             }
-            dot[u] += word_dot(qv, w[u][m], T());
+            if constexpr (VEC)
+              dot[u] += word_dot(qv, w[u], T());
+            else
+              dot[u] += chunk_dot<false>(qv, table + (s_base[sl[u]] + rw[u]) * row_bytes, c, d, T());
           }
         }
       }
-    } else {
-      for (int c = li; c < cpr; c += lpr) {
-        uint4 w[U];
-        if constexpr (VEC) {  // the wide mode: one word per row in flight
 #pragma unroll
-          for (int u = 0; u < U; ++u)
-            w[u] = rw[u] >= 0 ? __ldg(reinterpret_cast<const uint4*>(
-                                          table + (s_base[sl[u]] + rw[u]) * row_bytes) + c)
-                              : make_uint4(0u, 0u, 0u, 0u);
-        }
+      for (int u = 0; u < U; ++u) {
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (rw[u] < 0) continue;
-          float qv[EPC];
-          const float4* qp = reinterpret_cast<const float4*>(qc_s + sl[u] * width + c * EPC);
-#pragma unroll
-          for (int e = 0; e < EPC / 4; ++e) {
-            const float4 f = qp[e];
-            qv[4 * e] = f.x;
-            qv[4 * e + 1] = f.y;
-            qv[4 * e + 2] = f.z;
-            qv[4 * e + 3] = f.w;
-          }
-          if constexpr (VEC)
-            dot[u] += word_dot(qv, w[u], T());
-          else
-            dot[u] += chunk_dot<false>(qv, table + (s_base[sl[u]] + rw[u]) * row_bytes, c, d, T());
+        for (int off = 16; off > 0; off >>= 1)  // across the row's lpr lanes
+          if (off < lpr) dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], off);
+        if (rw[u] >= 0 && li == 0) {
+          float& o = out_s[sl[u] * chunk + rw[u]];
+          const float acc = first ? dot[u] : o + dot[u];
+          o = last ? task_distance<L2>(s_bias[sl[u]], acc * s_scl[sl[u]], nrm[u]) : acc;
         }
       }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)  // across the row's lpr lanes
-        if (off < lpr) dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], off);
-      if (rw[u] >= 0 && li == 0)
-        out_s[sl[u] * chunk + rw[u]] =
-            task_distance<L2>(s_bias[sl[u]], dot[u] * s_scl[sl[u]], nrm[u]);
     }
   }
   __syncthreads();
@@ -341,9 +362,35 @@ __global__ void __launch_bounds__(K2_THREADS, 2) stream_distances_kernel(
 
 constexpr int K4_CONSUMERS = 256;              // 8 consumer warps
 constexpr int K4_THREADS = K4_CONSUMERS + 32;  // + one producer warp
-constexpr int K4_STAGE_TARGET = 16 * 1024;     // bytes per staged sub-block
 constexpr int K4_STAGES = 4;
 constexpr int K4_SMEM_LIMIT = 232448;          // a block's dynamic shared memory on sm_90
+constexpr int K4_PANEL = -1;                   // NCH of the panel mode
+
+// Bytes of the 16-byte-aligned envelope of `len` bytes at byte offset `a`
+// of the table (whose base is 16-byte aligned): what one bulk copy moves.
+__device__ __forceinline__ uint32_t envelope(size_t a, int len) {
+  return static_cast<uint32_t>(((a + len + 15) & ~static_cast<size_t>(15)) -
+                               (a & ~static_cast<size_t>(15)));
+}
+
+// Lane l's (best, second) pair takes the candidate (dv, slot s) with strict
+// '<', as the reference folds it.
+__device__ __forceinline__ void fold_top2(float* best_v, float* second_v, int* best_s,
+                                          int* second_s, int l, float dv, int s) {
+  const float bv = best_v[l];
+  const int bi = best_s[l];
+  const bool better = dv < bv;
+  const float disp = better ? bv : dv;  // the displaced candidate
+  const int disp_i = better ? bi : s;
+  if (better) {
+    best_v[l] = dv;
+    best_s[l] = s;
+  }
+  if (disp < second_v[l]) {
+    second_v[l] = disp;
+    second_s[l] = disp_i;
+  }
+}
 
 // One block per (query, group g): the group's slots s = f * t_sub + u
 // (f = g mod G) in the reference's order, u outer, f inner. A producer warp
@@ -356,6 +403,11 @@ constexpr int K4_SMEM_LIMIT = 232448;          // a block's dynamic shared memor
 // across its lanes with shuffles, and the row's first lane folds the
 // distance into that lane's (best, second) pair in shared memory. A row
 // index always maps to the same thread, so the pairs need no barrier.
+// NCH = K4_PANEL: d in panels of `panel` elements, slot by slot; a stage
+// holds the panel's segment of `sub_rows` rows (one bulk copy each, its
+// 16-byte envelope, `seg_stride` bytes apart), q - c of the panel sits in
+// shared memory, and a row's partial dot waits in pdot[lane] (the same
+// thread again) until the last panel.
 template <bool L2, typename T, int NCH, bool VEC>
 __global__ void __launch_bounds__(K4_THREADS, NCH == 4 ? 1 : 2) stream_fused_plane_kernel(
     const float* __restrict__ queries, const float* __restrict__ cent,
@@ -363,9 +415,10 @@ __global__ void __launch_bounds__(K4_THREADS, NCH == 4 ? 1 : 2) stream_fused_pla
     const int* __restrict__ nval2d, const float* __restrict__ bias2d,
     const T* __restrict__ vecs, const float* __restrict__ norms,
     const float* __restrict__ scales, int t_fixed, int t_sub, int chunk, int groups, int d,
-    int lpr, int sub_rows, int row_align, int stage_bytes, float* __restrict__ dist_plane,
-    int* __restrict__ slot_plane) {
+    int lpr, int sub_rows, int row_align, int panel, int seg_stride, int stage_bytes,
+    float* __restrict__ dist_plane, int* __restrict__ slot_plane) {
   constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr bool PAN = NCH == K4_PANEL;
   extern __shared__ __align__(128) uint8_t smem_k4[];
   uint8_t* ring = smem_k4;
   float* best_v = reinterpret_cast<float*>(ring + K4_STAGES * stage_bytes);  // chunk each
@@ -374,7 +427,10 @@ __global__ void __launch_bounds__(K4_THREADS, NCH == 4 ? 1 : 2) stream_fused_pla
   int* second_s = best_s + chunk;
   uint64_t* full = reinterpret_cast<uint64_t*>(second_s + chunk);
   uint64_t* empty = full + K4_STAGES;
-  float* qc_s = reinterpret_cast<float*>(empty + K4_STAGES);  // wide: 2 x (cpr * EPC) floats
+  // Wide mode: 2 x (cpr * EPC) floats; panel mode: 2 x panel, then pdot
+  // (chunk floats).
+  float* qc_s = reinterpret_cast<float*>(empty + K4_STAGES);
+  float* pdot = qc_s + 2 * panel;
 
   const int q = blockIdx.x, g = blockIdx.y;
   const int fan = t_fixed / t_sub;
@@ -399,23 +455,45 @@ __global__ void __launch_bounds__(K4_THREADS, NCH == 4 ? 1 : 2) stream_fused_pla
     // ---- producer: one thread streams the group's slots, in fold order ----
     if (lane == 0) {
       int n = 0;
+      const uint8_t* table = reinterpret_cast<const uint8_t*>(vecs);
       for (int u = 0; u < t_sub; ++u) {
         for (int f = g; f < fan; f += groups) {
           const size_t task = static_cast<size_t>(q) * t_fixed + f * t_sub + u;
           const int nval = nval2d[task];
           if (nval <= 0) continue;  // an empty slot folds to nothing
-          // row_align rows are a 16-byte multiple; chunk % 16 == 0 keeps
-          // the rounded count inside the block.
-          const int rows_a = (nval + row_align - 1) / row_align * row_align;
-          const uint8_t* src = reinterpret_cast<const uint8_t*>(vecs) +
-                               static_cast<size_t>(blk2d[task]) * chunk * row_bytes;
-          for (int r0 = 0; r0 < nval; r0 += sub_rows, ++n) {
-            const int st = n % K4_STAGES;
-            if (n >= K4_STAGES) vitorch::mbar_wait(&empty[st], ((n / K4_STAGES) - 1) & 1);
-            const int nr = min(sub_rows, rows_a - r0);
-            const uint32_t bytes = static_cast<uint32_t>(nr * row_bytes);
-            vitorch::mbar_expect_tx(&full[st], bytes);
-            vitorch::bulk_copy_g2s(ring + st * stage_bytes, src + r0 * row_bytes, bytes, &full[st]);
+          const size_t blk0 = static_cast<size_t>(blk2d[task]) * chunk * row_bytes;
+          if constexpr (PAN) {
+            for (int k0 = 0; k0 < d; k0 += panel) {
+              const int seg = min(panel, d - k0) * static_cast<int>(sizeof(T));
+              for (int r0 = 0; r0 < nval; r0 += sub_rows, ++n) {
+                const int st = n % K4_STAGES;
+                if (n >= K4_STAGES) vitorch::mbar_wait(&empty[st], ((n / K4_STAGES) - 1) & 1);
+                const int nr = min(sub_rows, nval - r0);
+                uint32_t bytes = 0;
+                for (int i = 0; i < nr; ++i)
+                  bytes += envelope(blk0 + (r0 + i) * row_bytes + k0 * sizeof(T), seg);
+                vitorch::mbar_expect_tx(&full[st], bytes);
+                for (int i = 0; i < nr; ++i) {
+                  const size_t a = blk0 + (r0 + i) * row_bytes + k0 * sizeof(T);
+                  vitorch::bulk_copy_g2s(ring + st * stage_bytes + i * seg_stride,
+                                         table + (a & ~static_cast<size_t>(15)), envelope(a, seg),
+                                         &full[st]);
+                }
+              }
+            }
+          } else {
+            // row_align rows are a 16-byte multiple; chunk % 16 == 0 keeps
+            // the rounded count inside the block.
+            const int rows_a = (nval + row_align - 1) / row_align * row_align;
+            const uint8_t* src = table + blk0;
+            for (int r0 = 0; r0 < nval; r0 += sub_rows, ++n) {
+              const int st = n % K4_STAGES;
+              if (n >= K4_STAGES) vitorch::mbar_wait(&empty[st], ((n / K4_STAGES) - 1) & 1);
+              const int nr = min(sub_rows, rows_a - r0);
+              const uint32_t bytes = static_cast<uint32_t>(nr * row_bytes);
+              vitorch::mbar_expect_tx(&full[st], bytes);
+              vitorch::bulk_copy_g2s(ring + st * stage_bytes, src + r0 * row_bytes, bytes, &full[st]);
+            }
           }
         }
       }
@@ -440,6 +518,63 @@ __global__ void __launch_bounds__(K4_THREADS, NCH == 4 ? 1 : 2) stream_fused_pla
       const float bias = bias2d[task];
       const float scl = vitorch::row_scale<T>(scales, cid);
       const size_t base = static_cast<size_t>(blk2d[task]) * chunk;
+      if constexpr (PAN) {
+        for (int k0 = 0; k0 < d; k0 += panel) {
+          const int pe = min(panel, d - k0);  // this panel's elements
+          const bool first = k0 == 0, last = k0 + pe >= d;
+          // q - c of this panel, one buffer per (slot, panel) parity (the
+          // wide mode's argument holds per panel).
+          float* qcw = qc_s + (slots++ & 1) * panel;
+          for (int k = tid; k < pe; k += K4_CONSUMERS) {
+            float v = queries[static_cast<size_t>(q) * d + k0 + k];
+            if (L2) v -= cent[static_cast<size_t>(cid) * d + k0 + k];
+            qcw[k] = v;
+          }
+          vitorch::named_bar_sync(1, K4_CONSUMERS);
+          const int cpp = (pe + EPC - 1) / EPC;  // the panel's 16-byte chunks
+          for (int r0 = 0; r0 < nval; r0 += sub_rows, ++n) {
+            const int st = n % K4_STAGES;
+            vitorch::mbar_wait(&full[st], (n / K4_STAGES) & 1);
+            const uint8_t* buf = ring + st * stage_bytes;
+            const int nr = min(sub_rows, nval - r0);
+            for (int b = 0; b < nr; b += rpp) {  // uniform across the warp
+              const int rl = b + my_row;
+              const bool ok = rl < nr;
+              float dot = 0.f;
+              if (ok) {
+                const size_t a = (base + r0 + rl) * row_bytes + k0 * sizeof(T);
+                const uint8_t* seg = buf + rl * seg_stride + (a & 15);
+                for (int c = li; c < cpp; c += lpr) {
+                  float qv[EPC];
+#pragma unroll
+                  for (int e = 0; e < EPC; e += 4) {
+                    const float4 f4 = *reinterpret_cast<const float4*>(qcw + c * EPC + e);
+                    qv[e] = f4.x;
+                    qv[e + 1] = f4.y;
+                    qv[e + 2] = f4.z;
+                    qv[e + 3] = f4.w;
+                  }
+                  dot += chunk_dot<VEC>(qv, seg, c, pe, T());
+                }
+              }
+              for (int off = lpr >> 1; off > 0; off >>= 1)
+                dot += __shfl_xor_sync(0xffffffffu, dot, off);
+              if (ok && li == 0) {
+                const int l = r0 + rl;
+                const float acc = first ? dot : pdot[l] + dot;
+                if (last)
+                  fold_top2(best_v, second_v, best_s, second_s, l,
+                            task_distance<L2>(bias, acc * scl, norms[base + l]), s);
+                else
+                  pdot[l] = acc;
+              }
+            }
+            __syncwarp();
+            if (lane == 0) vitorch::mbar_arrive(&empty[st]);  // this warp is done with the stage
+          }
+        }
+        continue;
+      }
       float qc[NCH > 0 ? NCH : 1][EPC];  // q - c (l2) or q (ip) on this lane's chunks
       // Wide mode: q - c of this slot in shared memory, one buffer per slot
       // parity. A warp writes slot n's buffer only after every warp has
@@ -507,20 +642,8 @@ __global__ void __launch_bounds__(K4_THREADS, NCH == 4 ? 1 : 2) stream_fused_pla
             dot += __shfl_xor_sync(0xffffffffu, dot, off);
           if (ok && li == 0) {
             const int l = r0 + rl;
-            const float dv = task_distance<L2>(bias, dot * scl, norms[base + l]);
-            const float bv = best_v[l];
-            const int bi = best_s[l];
-            const bool better = dv < bv;
-            const float disp = better ? bv : dv;  // the displaced candidate
-            const int disp_i = better ? bi : s;
-            if (better) {
-              best_v[l] = dv;
-              best_s[l] = s;
-            }
-            if (disp < second_v[l]) {
-              second_v[l] = disp;
-              second_s[l] = disp_i;
-            }
+            fold_top2(best_v, second_v, best_s, second_s, l,
+                      task_distance<L2>(bias, dot * scl, norms[base + l]), s);
           }
         }
         __syncwarp();
@@ -545,11 +668,9 @@ template <bool L2, typename T, int NCH, bool VEC>
 int launch_distances_mode(const void* queries, const void* cent, const void* cid2d,
                           const void* blk2d, const void* nval2d, const void* bias2d,
                           const void* vecs, const void* norms, const void* scales, int nq,
-                          int t_fixed, int chunk, int d, int lpr, int spb, void* out,
+                          int t_fixed, int chunk, int d, int lpr, int spb, int panel, void* out,
                           cudaStream_t st) {
-  constexpr int EPC = 16 / sizeof(T);
-  const int width = (d + EPC - 1) / EPC * EPC;
-  const size_t smem = sizeof(float) * static_cast<size_t>(spb) * (width + chunk);
+  const size_t smem = sizeof(float) * static_cast<size_t>(spb) * (panel + chunk);
   if (smem > static_cast<size_t>(K2_MAX_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
   auto kern = stream_distances_kernel<L2, T, NCH, VEC>;
   if (smem > 40 * 1024) {  // past 48 KB with the static arrays: opt in
@@ -563,29 +684,34 @@ int launch_distances_mode(const void* queries, const void* cent, const void* cid
       static_cast<const int*>(cid2d), static_cast<const int*>(blk2d),
       static_cast<const int*>(nval2d), static_cast<const float*>(bias2d),
       static_cast<const T*>(vecs), static_cast<const float*>(norms),
-      static_cast<const float*>(scales), t_fixed, chunk, d, lpr, spb,
+      static_cast<const float*>(scales), t_fixed, chunk, d, lpr, spb, panel,
       static_cast<float*>(out));
   return 0;
 }
 
-// The plan (nch 4 or 0, lpr, spb) comes from the wrapper
+// The plan (nch 4 or 0, lpr, spb, panel) comes from the wrapper
 // (ops/block_stream.py::stream_distances_plan); it is checked here. Rows
 // that are not 16-byte multiples take the element-wise mode whatever nch is.
 template <bool L2, typename T>
 int launch_distances(const void* queries, const void* cent, const void* cid2d,
                      const void* blk2d, const void* nval2d, const void* bias2d,
                      const void* vecs, const void* norms, const void* scales, int nq,
-                     int t_fixed, int chunk, int d, int nch, int lpr, int spb, void* out,
-                     cudaStream_t st) {
+                     int t_fixed, int chunk, int d, int nch, int lpr, int spb, int panel,
+                     void* out, cudaStream_t st) {
   constexpr int EPC = 16 / sizeof(T);
   const int cpr = (d + EPC - 1) / EPC;
   const bool lpr_ok = lpr >= 1 && lpr <= 32 && (lpr & (lpr - 1)) == 0;
-  if (!lpr_ok || spb < 1 || spb > K2_MAX_SLOTS || (nch != 0 && nch != 4) ||
-      (nch == 0 && lpr != 32) || (nch == 4 && lpr * nch < cpr))
+  // A panel is the whole padded row, or (the wide mode) a part of it.
+  const bool panel_ok = panel == cpr * EPC ||
+                        (nch == 0 && panel > 0 && panel < cpr * EPC && panel % EPC == 0);
+  if (!lpr_ok || !panel_ok || spb < 1 || spb > K2_MAX_SLOTS || (nch != 0 && nch != 4) ||
+      (nch == 0 && lpr != 32) || (nch == 4 && lpr * nch < cpr) ||
+      sizeof(float) * static_cast<size_t>(spb) * (panel + chunk) > static_cast<size_t>(K2_MAX_SMEM))
     return static_cast<int>(cudaErrorInvalidValue);
 #define VITORCH_K2_MODE(NCH, VEC)                                                              \
   launch_distances_mode<L2, T, NCH, VEC>(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs,    \
-                                         norms, scales, nq, t_fixed, chunk, d, lpr, spb, out, st)
+                                         norms, scales, nq, t_fixed, chunk, d, lpr, spb, panel, \
+                                         out, st)
   if ((static_cast<size_t>(d) * sizeof(T)) % 16 != 0) return VITORCH_K2_MODE(0, false);
   return nch == 4 ? VITORCH_K2_MODE(4, true) : VITORCH_K2_MODE(0, true);
 #undef VITORCH_K2_MODE
@@ -597,7 +723,8 @@ int launch_fused_mode(dim3 grid, size_t smem, cudaStream_t st, const void* queri
                       const void* nval2d, const void* bias2d, const void* vecs,
                       const void* norms, const void* scales, int t_fixed, int t_sub,
                       int chunk, int groups, int d, int lpr, int sub_rows, int row_align,
-                      int stage_bytes, void* dist_plane, void* slot_plane) {
+                      int panel, int seg_stride, int stage_bytes, void* dist_plane,
+                      void* slot_plane) {
   auto kern = stream_fused_plane_kernel<L2, T, NCH, VEC>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -610,51 +737,58 @@ int launch_fused_mode(dim3 grid, size_t smem, cudaStream_t st, const void* queri
       static_cast<const int*>(nval2d), static_cast<const float*>(bias2d),
       static_cast<const T*>(vecs), static_cast<const float*>(norms),
       static_cast<const float*>(scales), t_fixed, t_sub, chunk, groups, d, lpr, sub_rows,
-      row_align, stage_bytes, static_cast<float*>(dist_plane), static_cast<int*>(slot_plane));
+      row_align, panel, seg_stride, stage_bytes, static_cast<float*>(dist_plane),
+      static_cast<int*>(slot_plane));
   return 0;
 }
 
+// The plan (nch, lpr, sub_rows, row_align, panel, stage_bytes) comes from
+// the wrapper (ops/block_stream.py::stream_fused_plan); it is checked here.
+// nch 1 / 2 / 4 (bf16 only): that many 16-byte chunks per lane in registers;
+// 0: the wide mode; panel < d: the panel mode (nch 0, one row per warp).
 template <bool L2, typename T>
 int launch_fused(const void* queries, const void* cent, const void* cid2d,
                  const void* blk2d, const void* nval2d, const void* bias2d,
                  const void* vecs, const void* norms, const void* scales, int nq,
-                 int t_fixed, int t_sub, int chunk, int groups, int d, void* dist_plane,
+                 int t_fixed, int t_sub, int chunk, int groups, int d, int nch, int lpr,
+                 int sub_rows, int row_align, int panel, int stage_bytes, void* dist_plane,
                  void* slot_plane, cudaStream_t st) {
   constexpr int EPC = 16 / sizeof(T);
   const int cpr = (d + EPC - 1) / EPC;
-  if (chunk % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  // Up to 4 chunks per lane in registers for bf16 rows and 2 for int8 (16
-  // values each), d <= 1024 either way; wider rows take the wide mode (0).
-  const int nch = cpr <= 32 ? 1 : cpr <= 64 ? 2 : cpr <= 128 && sizeof(T) == 2 ? 4 : 0;
-  int lpr = 32;  // lanes per row: a power of two covering the row's chunks
-  if (nch > 0) {
-    lpr = 1;
-    while (lpr * nch < cpr) lpr <<= 1;
-  }
   const size_t row_bytes = static_cast<size_t>(d) * sizeof(T);
-  // Sub-blocks of ~16 KB. Register modes: a multiple of 16 rows (a 16-byte
-  // multiple at any d). Wide mode: a multiple of the fewest rows that are.
-  int row_align = 16, sub_rows;
-  if (nch > 0) {
-    sub_rows = static_cast<int>(K4_STAGE_TARGET / row_bytes) & ~15;
-    sub_rows = sub_rows < 16 ? 16 : sub_rows;
-  } else {
-    row_align = static_cast<int>(16 / std::gcd(row_bytes, static_cast<size_t>(16)));
-    sub_rows = static_cast<int>(K4_STAGE_TARGET / row_bytes) / row_align * row_align;
-    sub_rows = sub_rows < row_align ? row_align : sub_rows;
-  }
-  sub_rows = sub_rows > chunk ? chunk : sub_rows;
-  const int stage_bytes = static_cast<int>((sub_rows * row_bytes + 127) & ~static_cast<size_t>(127));
+  const bool vec = row_bytes % 16 == 0;
+  const bool pan = panel < d;
+  const bool lpr_ok = lpr >= 1 && lpr <= 32 && (lpr & (lpr - 1)) == 0;
+  const bool nch_ok = nch == 0 ? lpr == 32
+                               : (nch == 1 || nch == 2 || (nch == 4 && sizeof(T) == 2)) &&
+                                     lpr * nch >= cpr;
+  if (chunk % 16 != 0 || !lpr_ok || !nch_ok || sub_rows < 1 || sub_rows > chunk ||
+      row_align < 1 || sub_rows % row_align != 0 || panel < 1 || panel > d)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // A panel segment's bytes (16-byte multiples, so vector rows stay
+  // aligned) and its stride in a stage (room for an unaligned envelope).
+  const int seg_stride =
+      pan ? panel * static_cast<int>(sizeof(T)) + (vec ? 0 : 32) : static_cast<int>(row_bytes);
+  if (pan ? nch != 0 || (panel * sizeof(T)) % 16 != 0 ||
+                static_cast<size_t>(stage_bytes) < static_cast<size_t>(sub_rows) * seg_stride
+          : (row_align * row_bytes) % 16 != 0 ||
+                static_cast<size_t>(stage_bytes) < sub_rows * row_bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (stage_bytes % 128 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // Ring, the four chunk-wide pair arrays, the barriers, then q - c (wide
+  // mode: two rows; panel mode: two panels and the partial dots).
   const size_t smem = static_cast<size_t>(K4_STAGES) * stage_bytes + 16 * static_cast<size_t>(chunk) +
                       2 * K4_STAGES * sizeof(uint64_t) +
-                      (nch > 0 ? 0 : 2 * sizeof(float) * static_cast<size_t>(cpr) * EPC);
+                      (pan ? sizeof(float) * (2 * static_cast<size_t>(panel) + chunk)
+                           : nch > 0 ? 0 : 2 * sizeof(float) * static_cast<size_t>(cpr) * EPC);
   if (smem > static_cast<size_t>(K4_SMEM_LIMIT)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = row_bytes % 16 == 0;
   const dim3 grid(nq, groups);
 #define VITORCH_K4_MODE(NCH, VEC)                                                                \
   launch_fused_mode<L2, T, NCH, VEC>(grid, smem, st, queries, cent, cid2d, blk2d, nval2d, bias2d, \
                                      vecs, norms, scales, t_fixed, t_sub, chunk, groups, d, lpr, \
-                                     sub_rows, row_align, stage_bytes, dist_plane, slot_plane)
+                                     sub_rows, row_align, panel, seg_stride, stage_bytes,        \
+                                     dist_plane, slot_plane)
+  if (pan) return vec ? VITORCH_K4_MODE(K4_PANEL, true) : VITORCH_K4_MODE(K4_PANEL, false);
   if (nch == 1) return vec ? VITORCH_K4_MODE(1, true) : VITORCH_K4_MODE(1, false);
   if (nch == 2) return vec ? VITORCH_K4_MODE(2, true) : VITORCH_K4_MODE(2, false);
   if (nch == 0) return vec ? VITORCH_K4_MODE(0, true) : VITORCH_K4_MODE(0, false);
@@ -665,19 +799,20 @@ int launch_fused(const void* queries, const void* cent, const void* cid2d,
 
 }  // namespace
 
-// nval2d may be null (every lane computed); nch / lpr / spb: the wrapper's
-// plan (chunks per lane, lanes per row, slots per block).
+// nval2d may be null (every lane computed); nch / lpr / spb / panel: the
+// wrapper's plan (chunks per lane, lanes per row, slots per block, q - c
+// elements staged at a time).
 VITORCH_API int vitorch_stream_distances(
     const void* queries, const void* cent, const void* cid2d, const void* blk2d,
     const void* nval2d, const void* bias2d, const void* vecs, const void* norms,
     const void* scales, int nq, int t_fixed, int chunk, int d, int is_l2, int row_type, int nch,
-    int lpr, int spb, void* out, void* stream) {
+    int lpr, int spb, int panel, void* out, void* stream) {
   if (static_cast<size_t>(nq) * t_fixed == 0) return static_cast<int>(cudaGetLastError());
   auto st = static_cast<cudaStream_t>(stream);
   int rc = 0;
 #define VITORCH_K2(L2, T)                                                                      \
   rc = launch_distances<L2, T>(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms, scales, \
-                               nq, t_fixed, chunk, d, nch, lpr, spb, out, st)
+                               nq, t_fixed, chunk, d, nch, lpr, spb, panel, out, st)
   switch (row_type) {
     case vitorch::ROW_BF16:
       if (is_l2) VITORCH_K2(true, __nv_bfloat16); else VITORCH_K2(false, __nv_bfloat16);
@@ -700,13 +835,15 @@ VITORCH_API int vitorch_stream_fused_plane(
     const void* queries, const void* cent, const void* cid2d, const void* blk2d,
     const void* nval2d, const void* bias2d, const void* vecs, const void* norms,
     const void* scales, int nq, int t_fixed, int t_sub, int chunk, int groups, int d,
-    int is_l2, int row_type, void* dist_plane, void* slot_plane, void* stream) {
+    int is_l2, int row_type, int nch, int lpr, int sub_rows, int row_align, int panel,
+    int stage_bytes, void* dist_plane, void* slot_plane, void* stream) {
   if (nq <= 0) return static_cast<int>(cudaGetLastError());
   auto st = static_cast<cudaStream_t>(stream);
   int rc = 0;
 #define VITORCH_K4(L2, T)                                                                 \
   rc = launch_fused<L2, T>(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms, scales, \
-                           nq, t_fixed, t_sub, chunk, groups, d, dist_plane, slot_plane, st)
+                           nq, t_fixed, t_sub, chunk, groups, d, nch, lpr, sub_rows,          \
+                           row_align, panel, stage_bytes, dist_plane, slot_plane, st)
   switch (row_type) {
     case vitorch::ROW_BF16:
       if (is_l2) VITORCH_K4(true, __nv_bfloat16); else VITORCH_K4(false, __nv_bfloat16);

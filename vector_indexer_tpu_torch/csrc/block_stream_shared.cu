@@ -46,10 +46,19 @@
 //   and L2 serve the 8 warps' repeated reads).
 // * Rows too wide for two 16-row stages in shared memory (f32 d > ~1800,
 //   bf16 d > ~3600, int8 d > ~7200) take 8-row panels, then one stage, then
-//   4-row panels (fit_ring), so any d up to ~14,400 f32 rows is served. A
-//   warp's 32-row item then repeats the panel's last row in the rows past
-//   it and never writes them: 4-8x the tensor-core work per row, and no
-//   copy overlap with one stage, on widths the 16-row ring cannot hold.
+//   4-row panels. A warp's 32-row item then repeats the panel's last row in
+//   the rows past it and never writes them: 4-8x the tensor-core work per
+//   row, and no copy overlap with one stage, on widths the 16-row ring
+//   cannot hold. Rows too wide for four of them in one stage (f32 d past
+//   ~14,400, bf16 ~28,900, int8 ~57,800), and those whose 8- and 4-row
+//   panels are no 16-byte multiple, take K-panels (KPAN): a stage holds a
+//   1 KB segment of each of 32 rows (one bulk copy per row, its 16-byte
+//   envelope), the loads walk a row panel's K-panels in order, and each
+//   item's accumulators carry over them in shared memory (promoted, as
+//   everywhere, every 8 chunks) until the last K-panel's epilogue applies
+//   the scale and the norm once. The plan (panel rows, stages, K-panel)
+//   comes from the wrapper (ops/block_stream.py::stream_shared_plan) and
+//   is checked here; it serves any d.
 // * Each thread loads its rows' 16-byte chunks (rows g and g+8 of a tile;
 //   chunks t and t + 4 of 8), in an order swapped by row parity so that a
 //   quarter warp's 8 loads fall in 8 different bank groups.
@@ -69,11 +78,12 @@ constexpr int WARPS = THREADS / 32;
 constexpr int QS = 8;           // query rows per task (Q_SHARE in ops/block_stream.py)
 constexpr int TPC = 16;         // tasks per CTA
 constexpr int ITEM_ROWS = 32;   // rows per warp work item: two m16 tiles
-constexpr int PANEL_TARGET = 32 * 1024;  // bytes per staged panel
 constexpr int MAX_STAGES = 3;
 // The ring's share of the 227 KB a block may opt in to (the static arrays
 // below take the rest).
 constexpr size_t MAX_RING_BYTES = 227 * 1024 - 1024;
+// KPAN: the carried accumulators, one item (2 x 4 per lane) per task.
+constexpr size_t PART_BYTES = sizeof(float) * TPC * 8 * 32;
 
 template <typename T>
 struct RowType;
@@ -160,12 +170,19 @@ __device__ __forceinline__ void load_query(const float* __restrict__ qrow, int k
   }
 }
 
-template <bool L2, typename T, bool VEC>
+// Bytes of the 16-byte-aligned envelope of `len` bytes at byte offset `a`
+// of the table (whose base is 16-byte aligned): what one bulk copy moves.
+__device__ __forceinline__ uint32_t envelope(size_t a, int len) {
+  return static_cast<uint32_t>(((a + len + 15) & ~static_cast<size_t>(15)) -
+                               (a & ~static_cast<size_t>(15)));
+}
+
+template <bool L2, typename T, bool VEC, bool KPAN>
 __global__ void __launch_bounds__(THREADS, 2) stream_shared_plane_kernel(
     const float* __restrict__ qc, const int* __restrict__ blk_t,
     const float* __restrict__ scl_t, const T* __restrict__ vecs,
     const float* __restrict__ norms, int t_cap, int chunk, int d, int panel_rows, int stages,
-    float* __restrict__ plane) {
+    int kpanel, float* __restrict__ plane) {
   constexpr int E = RowType<T>::E;
   constexpr int QV = E < 8 ? E : 8;  // query values split per load (registers)
   constexpr bool F32 = sizeof(T) == 4;
@@ -176,7 +193,11 @@ __global__ void __launch_bounds__(THREADS, 2) stream_shared_plane_kernel(
 
   const int t0 = blockIdx.x * TPC;
   const int row_bytes = d * static_cast<int>(sizeof(T));
-  const int stage_bytes = panel_rows * row_bytes;
+  // A staged row: the whole row, or (KPAN) a K-panel's segment of it.
+  const int seg_stride =
+      KPAN ? kpanel * static_cast<int>(sizeof(T)) + (VEC ? 0 : 32) : row_bytes;
+  const int stage_bytes = panel_rows * seg_stride;
+  float* part_s = reinterpret_cast<float*>(ring + static_cast<size_t>(stages) * stage_bytes);
   if (threadIdx.x < TPC) task_blk[threadIdx.x] = t0 + threadIdx.x < t_cap ? blk_t[t0 + threadIdx.x] : -1;
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -201,18 +222,35 @@ __global__ void __launch_bounds__(THREADS, 2) stream_shared_plane_kernel(
   const int n_segs = n_segs_s;
   if (n_segs == 0) return;  // only unused tasks: uniform across the block
   const int n_panels = chunk / panel_rows;
-  const int n_loads = n_segs * n_panels;
+  const int n_kpan = KPAN ? (d + kpanel - 1) / kpanel : 1;  // K-panels per row
+  const int n_loads = n_segs * n_panels * n_kpan;
 
-  // Load i = panel (i % n_panels) of segment (i / n_panels)'s block, into
-  // stage i % stages.
+  // Load i = K-panel i % n_kpan of row panel (i / n_kpan) % n_panels of
+  // segment i / (n_kpan * n_panels)'s block, into stage i % stages.
   auto issue = [&](int i) {
     const int s = i % stages;
-    const size_t row0 = static_cast<size_t>(seg_blk[i / n_panels]) * chunk +
-                        static_cast<size_t>(i % n_panels) * panel_rows;
-    vitorch::mbar_expect_tx(&full[s], static_cast<uint32_t>(stage_bytes));
-    vitorch::bulk_copy_g2s(ring + static_cast<size_t>(s) * stage_bytes,
-                           reinterpret_cast<const unsigned char*>(vecs) + row0 * row_bytes,
-                           static_cast<uint32_t>(stage_bytes), &full[s]);
+    const int j = i / n_kpan;
+    const size_t row0 = static_cast<size_t>(seg_blk[j / n_panels]) * chunk +
+                        static_cast<size_t>(j % n_panels) * panel_rows;
+    const unsigned char* table = reinterpret_cast<const unsigned char*>(vecs);
+    unsigned char* dst = ring + static_cast<size_t>(s) * stage_bytes;
+    if constexpr (KPAN) {
+      const int k0 = (i % n_kpan) * kpanel;
+      const int seg = min(kpanel, d - k0) * static_cast<int>(sizeof(T));
+      uint32_t bytes = 0;
+      for (int r = 0; r < panel_rows; ++r)
+        bytes += envelope((row0 + r) * row_bytes + k0 * sizeof(T), seg);
+      vitorch::mbar_expect_tx(&full[s], bytes);
+      for (int r = 0; r < panel_rows; ++r) {
+        const size_t a = (row0 + r) * row_bytes + k0 * sizeof(T);
+        vitorch::bulk_copy_g2s(dst + r * seg_stride, table + (a & ~static_cast<size_t>(15)),
+                               envelope(a, seg), &full[s]);
+      }
+    } else {
+      vitorch::mbar_expect_tx(&full[s], static_cast<uint32_t>(stage_bytes));
+      vitorch::bulk_copy_g2s(dst, table + row0 * row_bytes, static_cast<uint32_t>(stage_bytes),
+                             &full[s]);
+    }
   };
   if (threadIdx.x == 0)
     for (int i = 0; i < stages - 1 && i < n_loads; ++i) issue(i);
@@ -220,15 +258,19 @@ __global__ void __launch_bounds__(THREADS, 2) stream_shared_plane_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   // Chunk order of this thread's two loads per 8-chunk group (see the note).
-  const int par = VEC ? ((g ^ ((g * (row_bytes >> 4)) >> 2)) & 1) : 0;
-  const int n_groups = (row_bytes + 127) / 128;  // 8-chunk groups per row
+  const int par = VEC ? ((g ^ ((g * (seg_stride >> 4)) >> 2)) & 1) : 0;
   const int items_per_task = (panel_rows + ITEM_ROWS - 1) / ITEM_ROWS;
 
   for (int i = 0; i < n_loads; ++i) {
     if (threadIdx.x == 0 && i + stages - 1 < n_loads) issue(i + stages - 1);
     vitorch::mbar_wait(&full[i % stages], static_cast<uint32_t>((i / stages) & 1));
     const unsigned char* stage = ring + static_cast<size_t>(i % stages) * stage_bytes;
-    const int seg = i / n_panels, panel = i % n_panels;
+    const int kp = i % n_kpan, j = i / n_kpan;
+    const int seg = j / n_panels, panel = j % n_panels;
+    const int k0 = KPAN ? kp * kpanel : 0;  // the K-panel's first element
+    const int seg_bytes = KPAN ? min(kpanel, d - k0) * static_cast<int>(sizeof(T)) : row_bytes;
+    const int n_groups = (seg_bytes + 127) / 128;  // 8-chunk groups per staged row
+    [[maybe_unused]] const bool first = kp == 0, last = kp == n_kpan - 1;
     const int blk = seg_blk[seg];
     const int n_items = seg_n[seg] * items_per_task;
     for (int item = warp; item < n_items; item += WARPS) {
@@ -240,9 +282,13 @@ __global__ void __launch_bounds__(THREADS, 2) stream_shared_plane_kernel(
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          rowp[mt][h] = stage + static_cast<size_t>(min(r_item + mt * 16 + h * 8 + g,
-                                                        panel_rows - 1)) * row_bytes;
+        for (int h = 0; h < 2; ++h) {
+          const int r = min(r_item + mt * 16 + h * 8 + g, panel_rows - 1);
+          rowp[mt][h] = stage + static_cast<size_t>(r) * seg_stride;
+          if (KPAN && !VEC)  // the segment's offset in its 16-byte envelope
+            rowp[mt][h] += ((static_cast<size_t>(blk) * chunk + panel * panel_rows + r) * row_bytes +
+                            k0 * sizeof(T)) & 15;
+        }
       const float* qrow = qc + (static_cast<size_t>(task) * QS + g) * d;
       float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
       for (int grp = 0; grp < n_groups; ++grp) {
@@ -252,10 +298,10 @@ __global__ void __launch_bounds__(THREADS, 2) stream_shared_plane_kernel(
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const uint4 first = load_chunk<VEC>(rowp[mt][h], grp * 8 + t + 4 * par, row_bytes);
-            const uint4 second = load_chunk<VEC>(rowp[mt][h], grp * 8 + t + 4 * (1 - par), row_bytes);
-            raw[mt][h][0] = par ? second : first;
-            raw[mt][h][1] = par ? first : second;
+            const uint4 w0 = load_chunk<VEC>(rowp[mt][h], grp * 8 + t + 4 * par, seg_bytes);
+            const uint4 w1 = load_chunk<VEC>(rowp[mt][h], grp * 8 + t + 4 * (1 - par), seg_bytes);
+            raw[mt][h][0] = par ? w1 : w0;
+            raw[mt][h][1] = par ? w0 : w1;
           }
         float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
@@ -263,7 +309,7 @@ __global__ void __launch_bounds__(THREADS, 2) stream_shared_plane_kernel(
 #pragma unroll
           for (int piece = 0; piece < E / QV; ++piece) {
             uint32_t qb[QV], qs[QV];
-            load_query<QV, VEC>(qrow, (grp * 8 + t + 4 * cur) * E + piece * QV, d, qb, qs);
+            load_query<QV, VEC>(qrow, k0 + (grp * 8 + t + 4 * cur) * E + piece * QV, d, qb, qs);
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -298,6 +344,19 @@ __global__ void __launch_bounds__(THREADS, 2) stream_shared_plane_kernel(
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][e] += part[mt][e];
       }
+      if constexpr (KPAN) {
+        // Item `item` (< TPC: one per task, panel_rows <= ITEM_ROWS) is this
+        // thread's on every K-panel of the row panel: carry its sums.
+        float* carry = part_s + static_cast<size_t>(item) * 8 * 32 + lane;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (!first) acc[mt][e] += carry[(mt * 4 + e) * 32];
+            if (!last) carry[(mt * 4 + e) * 32] = acc[mt][e];
+          }
+        if (!last) continue;
+      }
       // Epilogue: element e of tile mt is stage row r_item + mt*16 + g +
       // 8*(e >> 1), query row 2t + (e & 1).
       const float scl = sizeof(T) == 1 ? scl_t[task] : 1.f;
@@ -322,48 +381,32 @@ __global__ void __launch_bounds__(THREADS, 2) stream_shared_plane_kernel(
   }
 }
 
-// Panel rows: the largest multiple of 16 that divides `chunk` and keeps a
-// panel within PANEL_TARGET bytes (16 rows at least); 0 if `chunk` is no
-// multiple of 16.
-int panel_rows_for(int chunk, int row_bytes) {
-  if (chunk % 16 != 0) return 0;
-  int best = 16;
-  for (int r = 32; r <= chunk; r += 16)
-    if (chunk % r == 0 && static_cast<size_t>(r) * row_bytes <= PANEL_TARGET) best = r;
-  return best;
-}
-
-// Fits the ring into shared memory: (16 rows, 2 stages), then (8, 2),
-// (8, 1) and (4, 1), the first whose stages fit and whose panel is a whole
-// number of 16-byte units (the bulk copy's). False if none does.
-bool fit_ring(int row_bytes, int& panel_rows, int& stages) {
-  static constexpr int kFallback[][2] = {{16, 2}, {8, 2}, {8, 1}, {4, 1}};
-  const auto fits = [&](int rows, int n) {
-    const size_t bytes = static_cast<size_t>(rows) * row_bytes;
-    return bytes % 16 == 0 && n * bytes <= MAX_RING_BYTES;
-  };
-  if (fits(panel_rows, stages)) return true;
-  for (const auto& rs : kFallback)
-    if (fits(rs[0], rs[1])) {
-      panel_rows = rs[0];
-      stages = rs[1];
-      return true;
-    }
-  return false;
-}
-
+// Checks the wrapper's plan and launches it. Whole rows (kpanel == d): a
+// stage is `panel_rows` contiguous rows, a 16-byte multiple. K-panels
+// (kpanel < d, a multiple of 128 bytes): `panel_rows` <= ITEM_ROWS row
+// segments a stage, and the carried accumulators after the ring.
 template <bool L2, typename T>
 int launch_shared(const void* qc, const void* blk_t, const void* scl_t, const void* vecs,
-                  const void* norms, int t_cap, int chunk, int d, void* plane, cudaStream_t st) {
-  const int row_bytes = d * static_cast<int>(sizeof(T));
-  int panel_rows = panel_rows_for(chunk, row_bytes);
-  if (panel_rows == 0) return static_cast<int>(cudaErrorInvalidValue);
-  int stages = static_cast<size_t>(panel_rows) * row_bytes <= PANEL_TARGET ? MAX_STAGES : 2;
-  if (!fit_ring(row_bytes, panel_rows, stages)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t stage_bytes = static_cast<size_t>(panel_rows) * row_bytes;
-  const size_t smem = stages * stage_bytes;
+                  const void* norms, int t_cap, int chunk, int d, int panel_rows, int stages,
+                  int kpanel, void* plane, cudaStream_t st) {
+  const size_t row_bytes = static_cast<size_t>(d) * sizeof(T);
   const bool vec = row_bytes % 16 == 0;
-  auto kern = vec ? stream_shared_plane_kernel<L2, T, true> : stream_shared_plane_kernel<L2, T, false>;
+  const bool kpan = kpanel < d;
+  if (chunk % 16 != 0 || panel_rows < 1 || chunk % panel_rows != 0 || stages < 1 ||
+      stages > MAX_STAGES || kpanel < 1 || kpanel > d)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t stage_bytes =
+      kpan ? static_cast<size_t>(panel_rows) * (kpanel * sizeof(T) + (vec ? 0 : 32))
+           : static_cast<size_t>(panel_rows) * row_bytes;
+  if (kpan ? (kpanel * sizeof(T)) % 128 != 0 || panel_rows > ITEM_ROWS
+           : stage_bytes % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = stages * stage_bytes + (kpan ? PART_BYTES : 0);
+  if (smem > MAX_RING_BYTES) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = kpan ? (vec ? stream_shared_plane_kernel<L2, T, true, true>
+                          : stream_shared_plane_kernel<L2, T, false, true>)
+                   : (vec ? stream_shared_plane_kernel<L2, T, true, false>
+                          : stream_shared_plane_kernel<L2, T, false, false>);
   if (smem > 40 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
@@ -372,7 +415,7 @@ int launch_shared(const void* qc, const void* blk_t, const void* scl_t, const vo
   kern<<<dim3((t_cap + TPC - 1) / TPC), THREADS, smem, st>>>(
       static_cast<const float*>(qc), static_cast<const int*>(blk_t),
       static_cast<const float*>(scl_t), static_cast<const T*>(vecs),
-      static_cast<const float*>(norms), t_cap, chunk, d, panel_rows, stages,
+      static_cast<const float*>(norms), t_cap, chunk, d, panel_rows, stages, kpanel,
       static_cast<float*>(plane));
   return 0;
 }
@@ -383,13 +426,15 @@ VITORCH_API int vitorch_stream_shared_plane(const void* qc, const void* blk_t,
                                             const void* scl_t, const void* vecs,
                                             const void* norms, int t_cap, int q_share,
                                             int chunk, int d, int is_l2, int row_type,
+                                            int panel_rows, int stages, int kpanel,
                                             void* plane, void* stream) {
   if (q_share != QS) return static_cast<int>(cudaErrorInvalidValue);
   if (t_cap <= 0) return static_cast<int>(cudaGetLastError());
   auto st = static_cast<cudaStream_t>(stream);
   int rc = 0;
 #define VITORCH_K5(L2, T) \
-  rc = launch_shared<L2, T>(qc, blk_t, scl_t, vecs, norms, t_cap, chunk, d, plane, st)
+  rc = launch_shared<L2, T>(qc, blk_t, scl_t, vecs, norms, t_cap, chunk, d, panel_rows, stages, \
+                            kpanel, plane, st)
   switch (row_type) {
     case vitorch::ROW_BF16:
       if (is_l2) VITORCH_K5(true, __nv_bfloat16); else VITORCH_K5(false, __nv_bfloat16);

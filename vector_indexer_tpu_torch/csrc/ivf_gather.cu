@@ -22,8 +22,12 @@
 // concurrent chunked DMAs and ran one matvec over all of them; a Hopper
 // block reads its list's rows in place instead (one warp per row,
 // coalesced across the row's d elements), so there is no scratch budget
-// and no d % 128 requirement. One block per (query, probe); the query
-// sits in shared memory.
+// and no d % 128 requirement. One block per (query, probe); the query's
+// first `qres` elements sit in shared memory (all of it up to d 12,288,
+// 48 KB: the wrapper's plan, ops/ivf_gather.py::ivf_gather_plan), and
+// past them every warp reads the query through L1, where the block's
+// other warps find it; the row's dot and |x|^2 run on over both parts, so
+// any d is served.
 //
 // Bound on the H100: memory. Each row is read once per query that probes
 // it (d * 4 bytes for 2 d FLOPs of dot and 2 d of norm), and the packed
@@ -41,7 +45,7 @@ template <bool L2>
 __global__ void __launch_bounds__(THREADS) ivf_gather_kernel(
     const float* __restrict__ q, const float* __restrict__ vectors,
     const int* __restrict__ starts, const int* __restrict__ lengths,
-    const int* __restrict__ offs, int p, int d, int max_len_pad, int width,
+    const int* __restrict__ offs, int p, int d, int qres, int max_len_pad, int width,
     float* __restrict__ dist, int* __restrict__ rows) {
   extern __shared__ float qs[];
   const int qi = blockIdx.x / p;
@@ -54,21 +58,31 @@ __global__ void __launch_bounds__(THREADS) ivf_gather_kernel(
   const int start = starts[pj];
   const int len = min(lengths[pj], max_len_pad);
   const int n_valid = max(0, min(len, end - off));
-  for (int k = threadIdx.x; k < d; k += THREADS) qs[k] = q[(size_t)qi * d + k];
+  const float* qg = q + (size_t)qi * d;  // past qres: read through L1
+  for (int k = threadIdx.x; k < qres; k += THREADS) qs[k] = qg[k];
   __syncthreads();
   float* drow = dist + (size_t)qi * width + off;
   int* rrow = rows + (size_t)qi * width + off;
   float q_sq = 0.f;
   if (L2) {
-    for (int k = lane; k < d; k += 32) q_sq = fmaf(qs[k], qs[k], q_sq);
+    for (int k = lane; k < qres; k += 32) q_sq = fmaf(qs[k], qs[k], q_sq);
+    for (int k = qres + lane; k < d; k += 32) {
+      const float qv = __ldg(qg + k);
+      q_sq = fmaf(qv, qv, q_sq);
+    }
     q_sq = vitorch::warp_sum(q_sq);
   }
   for (int t = warp; t < n_valid; t += WARPS) {
     const float* x = vectors + (size_t)(start + t) * d;
     float cross = 0.f, nrm = 0.f;
-    for (int k = lane; k < d; k += 32) {
+    for (int k = lane; k < qres; k += 32) {
       const float xv = x[k];
       cross = fmaf(qs[k], xv, cross);
+      nrm = fmaf(xv, xv, nrm);
+    }
+    for (int k = qres + lane; k < d; k += 32) {
+      const float xv = x[k];
+      cross = fmaf(__ldg(qg + k), xv, cross);
       nrm = fmaf(xv, xv, nrm);
     }
     cross = vitorch::warp_sum(cross);
@@ -88,15 +102,19 @@ __global__ void __launch_bounds__(THREADS) ivf_gather_kernel(
 
 // q (nq, d) f32, vectors (n_pad, d) f32, starts / lengths / offs (nq, p)
 // int32; dist (nq, width) f32 and rows (nq, width) int32, every slot
-// written. d * 4 <= 48 KB (checked by the wrapper).
+// written. qres: the query elements held in shared memory (the wrapper's
+// plan: d, or a multiple of 32 below it, at most 48 KB of floats).
 VITORCH_API int vitorch_ivf_gather_distances(const void* q, const void* vectors,
                                              const void* starts, const void* lengths,
-                                             const void* offs, int nq, int p, int d,
+                                             const void* offs, int nq, int p, int d, int qres,
                                              int max_len_pad, int width, int is_l2, void* dist,
                                              void* rows, void* stream) {
+  if (qres < 0 || qres > d || (qres < d && qres % 32 != 0) ||
+      (size_t)qres * sizeof(float) > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nq > 0 && p > 0) {
     const dim3 grid((unsigned)nq * (unsigned)p);
-    const size_t smem = (size_t)d * sizeof(float);
+    const size_t smem = (size_t)qres * sizeof(float);
     auto st = static_cast<cudaStream_t>(stream);
     auto qp = static_cast<const float*>(q);
     auto vp = static_cast<const float*>(vectors);
@@ -106,10 +124,10 @@ VITORCH_API int vitorch_ivf_gather_distances(const void* q, const void* vectors,
     auto dp = static_cast<float*>(dist);
     auto rp = static_cast<int*>(rows);
     if (is_l2)
-      ivf_gather_kernel<true><<<grid, THREADS, smem, st>>>(qp, vp, sp, lp, op, p, d, max_len_pad,
-                                                          width, dp, rp);
+      ivf_gather_kernel<true><<<grid, THREADS, smem, st>>>(qp, vp, sp, lp, op, p, d, qres,
+                                                          max_len_pad, width, dp, rp);
     else
-      ivf_gather_kernel<false><<<grid, THREADS, smem, st>>>(qp, vp, sp, lp, op, p, d,
+      ivf_gather_kernel<false><<<grid, THREADS, smem, st>>>(qp, vp, sp, lp, op, p, d, qres,
                                                            max_len_pad, width, dp, rp);
   }
   return static_cast<int>(cudaGetLastError());

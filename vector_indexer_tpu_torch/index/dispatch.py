@@ -27,8 +27,9 @@ the reference. Differences from the reference:
   ``gather`` when d % 128 != 0, when the (p, max_len, d) VMEM scratch
   would pass 12 MB, or when the budget passes 32,768 slots: limits of the
   TPU kernel (lane tiling, VMEM, slot clamping) that the CUDA kernel does
-  not have. Both programs return the same sets, so the two packages
-  agree on results where their programs differ.
+  not have (it reads each list in place and, past 12,288 dims, the query
+  partly through L1, so it serves any d). Both programs return the same
+  sets, so the two packages agree on results where their programs differ.
 """
 
 from __future__ import annotations

@@ -53,22 +53,22 @@ _SIGNATURES = {
     # x, c, c_sq, n, k, d, csplit, best_score, best_idx, stream
     "vitorch_assign_argmin": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     # queries, cent, cid2d, blk2d, nval2d (or null), bias2d, vecs, norms,
-    # scales, nq, t_fixed, chunk, d, is_l2, row_type, nch, lpr, spb, out,
-    # stream
+    # scales, nq, t_fixed, chunk, d, is_l2, row_type, nch, lpr, spb, panel,
+    # out, stream
     "vitorch_stream_distances": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
     # queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms, scales, nq,
-    # t_fixed, t_sub, chunk, groups, d, is_l2, row_type, dist_plane,
-    # slot_plane, stream
+    # t_fixed, t_sub, chunk, groups, d, is_l2, row_type, nch, lpr, sub_rows,
+    # row_align, panel, stage_bytes, dist_plane, slot_plane, stream
     "vitorch_stream_fused_plane": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-        _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _P, _P, _P,
     ),
     # qc, blk_t, scl_t, vecs, norms, t_cap, q_share, chunk, d, is_l2,
-    # row_type, plane, stream
+    # row_type, panel_rows, stages, kpanel, plane, stream
     "vitorch_stream_shared_plane": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
     # q (or q8), qr8, sq, x (or x8), r8, scales, norms, mask, tile_any, nq,
     # n_rows, d, w, c_groups, splits, mcols, tcols, is_l2, precision, qsplit,
@@ -82,10 +82,10 @@ _SIGNATURES = {
     "vitorch_flat_sweep_minreduce": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
     ),
-    # q, vectors, starts, lengths, offs, nq, p, d, max_len_pad, width,
-    # is_l2, dist, rows, stream
+    # q, vectors, starts, lengths, offs, nq, p, d, qres, max_len_pad,
+    # width, is_l2, dist, rows, stream
     "vitorch_ivf_gather_distances": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
     ),
 }
 

@@ -35,7 +35,8 @@ its CUDA kernel on a CUDA tensor (or raises).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +51,8 @@ FAN = 16  # slots are grouped in FAN fans (fold order of K4; t_fixed % FAN == 0)
 SMEM_TASK_CAP = 30_720  # per-tile task budget (sizes the query tile)
 FUSED_STREAM_MIN_ROWS = 12 << 10  # probed rows/query where K4 engages
 _TARGET_BLOCK_BYTES = 128 << 10
+# f32 bytes of one residual tile of a table build (2^19 rows at d 128).
+_TILE_BYTES = 1 << 28
 
 
 def pick_chunk(lengths_np, d: int, itemsize: int) -> int:
@@ -161,7 +164,8 @@ def _table(vecs, norms, to_main, bases, row_cid, lengths, cent, scales, chunk, d
 def build_stream_table(layout, centroids, dtype: torch.dtype = torch.bfloat16,
                        chunk: Optional[int] = None) -> StreamTable:
     """Re-pack the layout into chunk-aligned cluster blocks of residual rows
-    on the layout's device, in row tiles of 2^19 to bound the f32 transient.
+    on the layout's device, in row tiles of _TILE_BYTES of f32 (2^19 rows
+    at d 128) to bound the transient at any d.
 
     ``dtype=torch.int8`` stores symmetric per-cluster-scaled residuals:
     s_c = max|r| / 127 over the cluster (a scatter-max pass), then
@@ -180,7 +184,7 @@ def build_stream_table(layout, centroids, dtype: torch.dtype = torch.bfloat16,
     to_main_t = torch.as_tensor(to_main, device=dev)
     row_cid_t = torch.as_tensor(row_cid, device=dev)
     real = to_main_t != main_pad_row
-    R = 1 << 19
+    R = max(1, _TILE_BYTES // (4 * d))
 
     def residual(lo, hi):
         res = layout.vectors[to_main_t[lo:hi]]  # gather: a fresh tile
@@ -234,7 +238,7 @@ def build_stream_table_host(layout, centroids, dtype: torch.dtype = torch.int8,
     kc = len(layout.lengths)
     cent = np.asarray(centroids, np.float32)
     real = to_main != main_pad_row
-    R = 1 << 19
+    R = max(1, _TILE_BYTES // (4 * d))
 
     def residual(lo, hi):
         res = vecs_host[to_main[lo:hi]].astype(np.float32, copy=True)
@@ -395,33 +399,158 @@ def stream_distances_reference(queries, cent, cid2d, blk2d, bias2d, vecs, norms,
     return out
 
 
-# K2's launch plan: at most this many consecutive slots of one query per
-# block, as shared memory allows (q - c and the distances of each).
+# Launch plans. Each CUDA launcher takes its kernel's shared-memory layout
+# from these functions and checks it (csrc/block_stream.cu,
+# block_stream_shared.cu); none re-derives it. Every d gets a plan that fits
+# the SMEM_LIMIT bytes a block may opt in to on sm_90.
+SMEM_LIMIT = 232_448
+
+# K2: at most this many consecutive slots of one query per block, as shared
+# memory allows (q - c and the distances of each); past one slot's whole
+# row, q - c is staged K2_PANEL elements at a time.
 K2_SLOTS_PER_BLOCK = 4
 _K2_SMEM = 200 << 10
+K2_PANEL = 4096
 
 
-def stream_distances_plan(d: int, itemsize: int, t_fixed: int, chunk: int):
-    """(chunks per lane, lanes per row, slots per block) of K2 for rows of d
-    elements of ``itemsize`` bytes (csrc/block_stream.cu checks it). A lane
+class K2Plan(NamedTuple):
+    nch: int  # 16-byte chunks of a row per lane (0: the wide mode)
+    lpr: int  # lanes per row
+    spb: int  # slots per block
+    panel: int  # q - c elements staged at a time (the padded row, or K2_PANEL)
+    smem: int  # dynamic shared memory bytes
+
+
+def stream_distances_plan(d: int, itemsize: int, t_fixed: int, chunk: int) -> K2Plan:
+    """K2's launch plan for rows of d elements of ``itemsize`` bytes. A lane
     reads 4 16-byte chunks of a row (fewer where the row is shorter), so a
     row takes few lanes and its dot few shuffles; rows of more than 128
     chunks take the wide mode (0 chunks, 32 lanes per row striding over
     the row). Lanes per row: the fewest (a power of two) that cover the
-    row's chunks, so narrow rows share a warp. Slots per block: up to
-    K2_SLOTS_PER_BLOCK whose q - c and distance rows fit in shared
-    memory."""
+    row's chunks, so narrow rows share a warp. The panel is the whole
+    padded row while one slot's q - c and distance row fit in _K2_SMEM,
+    else K2_PANEL elements (d past ~50,000). Slots per block: up to
+    K2_SLOTS_PER_BLOCK whose panels and distance rows fit."""
     epc = 16 // itemsize
     cpr = -(-d // epc)
+    width = cpr * epc
     nch = 4
     lpr = 1
     while lpr * nch < cpr:
         lpr <<= 1
     if lpr > 32:
         nch, lpr = 0, 32
-    per_slot = 4 * (cpr * epc + chunk)
+    panel = width if 4 * (width + chunk) <= _K2_SMEM else K2_PANEL
+    per_slot = 4 * (panel + chunk)
     spb = max(1, min(K2_SLOTS_PER_BLOCK, t_fixed, _K2_SMEM // per_slot))
-    return nch, lpr, spb
+    return K2Plan(nch, lpr, spb, panel, spb * per_slot)
+
+
+# K4: a ring of K4_STAGES stages of ~K4_STAGE_TARGET bytes; past the wide
+# mode's shared memory, panels of K4_PANEL_BYTES of the row, 8 rows a stage.
+K4_STAGES = 4
+K4_STAGE_TARGET = 16 << 10
+K4_PANEL_BYTES = 2048
+_K4_PANEL_ROWS = 8  # one row per consumer warp
+
+
+class FusedPlan(NamedTuple):
+    nch: int  # 16-byte chunks per lane in registers (0: wide / panel mode)
+    lpr: int  # lanes per row
+    sub_rows: int  # rows per stage
+    row_align: int  # rows a copy is rounded up to (a 16-byte multiple)
+    panel: int  # elements of d per pass (d itself outside the panel mode)
+    stage_bytes: int
+    smem: int  # dynamic shared memory bytes
+
+
+def stream_fused_plan(d: int, itemsize: int, chunk: int) -> FusedPlan:
+    """K4's launch plan (chunk % 16 == 0). Up to 4 chunks per lane in
+    registers for bf16 rows and 2 for int8 (d <= 1024 either way), a wide
+    mode past that (one row per warp, q - c of two slots in shared memory,
+    stages of the fewest rows whose bytes are a 16-byte multiple), and past
+    the wide mode's shared memory (bf16 d ~13,500, int8 ~18,000) the panel
+    mode: K4_PANEL_BYTES of each row per pass, 8 row segments a stage, q - c
+    of two panels and the rows' partial dots in shared memory."""
+    if chunk % 16:
+        raise ValueError("stream_fused_plane: chunk % 16 != 0")
+    epc = 16 // itemsize
+    cpr = -(-d // epc)
+    row_bytes = d * itemsize
+    nch = 1 if cpr <= 32 else 2 if cpr <= 64 else 4 if cpr <= 128 and itemsize == 2 else 0
+    lpr = 32
+    if nch:
+        lpr = 1
+        while lpr * nch < cpr:
+            lpr <<= 1
+        row_align = 16
+        sub_rows = max(16, (K4_STAGE_TARGET // row_bytes) & ~15)
+    else:
+        row_align = 16 // math.gcd(row_bytes, 16)
+        sub_rows = max(row_align, K4_STAGE_TARGET // row_bytes // row_align * row_align)
+    sub_rows = min(sub_rows, chunk)
+    stage = _round_up(sub_rows * row_bytes, 128)
+    fixed = K4_STAGES * stage + 16 * chunk + 16 * K4_STAGES
+    smem = fixed + (0 if nch else 8 * cpr * epc)
+    if smem <= SMEM_LIMIT:
+        return FusedPlan(nch, lpr, sub_rows, row_align, d, stage, smem)
+    panel = K4_PANEL_BYTES // itemsize
+    sub_rows = min(_K4_PANEL_ROWS, chunk)
+    seg_stride = K4_PANEL_BYTES + (0 if row_bytes % 16 == 0 else 32)
+    stage = _round_up(sub_rows * seg_stride, 128)
+    smem = K4_STAGES * stage + 16 * chunk + 16 * K4_STAGES + 4 * (2 * panel + chunk)
+    return FusedPlan(0, 32, sub_rows, 1, panel, stage, smem)
+
+
+# K5: panels of whole rows (~K5_PANEL_TARGET bytes, up to K5_MAX_STAGES
+# stages in K5_RING_BYTES), narrower panels and one stage for wider rows,
+# and K-panels of K5_KPANEL_BYTES of 32 rows past those.
+K5_PANEL_TARGET = 32 << 10
+K5_MAX_STAGES = 3
+K5_RING_BYTES = 227 * 1024 - 1024
+K5_KPANEL_BYTES = 1024
+_K5_ITEM_ROWS = 32
+_K5_PART_BYTES = 4 * 16 * 8 * 32  # carried accumulators: 16 tasks x 8 x 32 lanes
+
+
+class SharedPlan(NamedTuple):
+    panel_rows: int  # rows per stage
+    stages: int
+    kpanel: int  # elements of d per stage (d itself: whole rows)
+    smem: int  # dynamic shared memory bytes
+
+
+def stream_shared_plan(d: int, itemsize: int, chunk: int) -> SharedPlan:
+    """K5's launch plan (chunk % 16 == 0). Panel rows: the largest multiple
+    of 16 that divides ``chunk`` within K5_PANEL_TARGET bytes (16 at
+    least), 3 stages when one fits the target, else 2; if those pass
+    K5_RING_BYTES, (16, 2), (8, 2), (8, 1) or (4, 1) rows and stages, the
+    first that fits with 16-byte-multiple panels; past them (f32 d
+    ~14,400, bf16 ~28,900, int8 ~57,800, or rows whose 8- and 4-row
+    panels are no 16-byte multiple) K-panels: K5_KPANEL_BYTES of each of
+    32 rows a stage (16 if chunk % 32), two stages, and the carried
+    accumulators."""
+    if chunk % 16:
+        raise ValueError("stream_shared_plane: chunk % 16 != 0")
+    row_bytes = d * itemsize
+    rows = 16
+    for r in range(32, chunk + 1, 16):
+        if chunk % r == 0 and r * row_bytes <= K5_PANEL_TARGET:
+            rows = r
+    stages = K5_MAX_STAGES if rows * row_bytes <= K5_PANEL_TARGET else 2
+    for r, n in ((rows, stages), (16, 2), (8, 2), (8, 1), (4, 1)):
+        b = r * row_bytes
+        if b % 16 == 0 and n * b <= K5_RING_BYTES:
+            return SharedPlan(r, n, d, n * b)
+    rows = _K5_ITEM_ROWS if chunk % _K5_ITEM_ROWS == 0 else 16
+    seg_stride = K5_KPANEL_BYTES + (0 if row_bytes % 16 == 0 else 32)
+    return SharedPlan(rows, 2, K5_KPANEL_BYTES // itemsize, 2 * rows * seg_stride + _K5_PART_BYTES)
+
+
+def _require_aligned(name: str, vecs) -> None:
+    """K4 and K5 copy rows by cp.async.bulk, from 16-byte aligned sources."""
+    if vecs.data_ptr() % 16:
+        raise ValueError(f"{name}: the table must start on a 16-byte boundary")
 
 
 def _row_type(name: str, vecs, scales, allowed=STREAM_DTYPES):
@@ -456,12 +585,13 @@ def stream_distances(queries, cent, cid2d, blk2d, bias2d, vecs, norms,
     rest = [bias2d.contiguous(), vecs, norms]
     kb.require_cuda("stream_distances", *args, *rest,
                     *[x for x in (nval, scl) if x is not None])
-    nch, lpr, spb = stream_distances_plan(d, vecs.element_size(), t, chunk)
+    plan = stream_distances_plan(d, vecs.element_size(), t, chunk)
     out = torch.empty((nq, t, chunk), dtype=torch.float32, device=queries.device)
     kb.launch(
         f"stream_distances[{label}]", "vitorch_stream_distances",
         *map(kb.ptr, args), kb.ptr(nval), *map(kb.ptr, rest), kb.ptr(scl), nq, t, chunk, d,
-        int(metric == "l2"), code, nch, lpr, spb, kb.ptr(out), kb.stream_of(out),
+        int(metric == "l2"), code, plan.nch, plan.lpr, plan.spb, plan.panel, kb.ptr(out),
+        kb.stream_of(out),
     )
     return out
 
@@ -508,12 +638,6 @@ def stream_fused_plane_reference(queries, cent, cid2d, blk2d, nval2d, bias2d, ve
     )
 
 
-# K4's widest row (at chunk <= 1024): its shared memory holds a ring of
-# >= 16 KB sub-blocks and, past d 1024, q - c for two slots
-# (csrc/block_stream.cu).
-K4_MAX_D = 12288
-
-
 def stream_fused_plane(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms,
                        *, chunk: int, groups: int, metric: str, scales=None):
     """K4 (bf16 and int8 tables). CPU tensors -> plain version; CUDA
@@ -529,20 +653,21 @@ def stream_fused_plane(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms,
     if t_fixed % FAN:
         raise ValueError(f"stream_fused_plane: t_fixed must be a multiple of {FAN}")
     d = queries.shape[1]
-    if d > K4_MAX_D or chunk % 16:
-        raise ValueError(f"stream_fused_plane kernel: d <= {K4_MAX_D} and chunk % 16 == 0")
+    plan = stream_fused_plan(d, vecs.element_size(), chunk)
     i32 = torch.int32
     args = [queries.contiguous(), cent.contiguous(), cid2d.to(i32).contiguous(),
             blk2d.to(i32).contiguous(), nval2d.to(i32).contiguous(),
             bias2d.contiguous(), vecs, norms]
     kb.require_cuda("stream_fused_plane", *args, *([scl] if scl is not None else []))
+    _require_aligned("stream_fused_plane", vecs)
     width = 2 * groups * chunk
     dist_plane = torch.empty((nq, width), dtype=torch.float32, device=queries.device)
     slot_plane = torch.empty((nq, width), dtype=i32, device=queries.device)
     kb.launch(
         f"stream_fused_plane[{label}]", "vitorch_stream_fused_plane",
         *map(kb.ptr, args), kb.ptr(scl), nq, t_fixed, t_fixed // FAN, chunk, groups, d,
-        int(metric == "l2"), code, kb.ptr(dist_plane), kb.ptr(slot_plane),
+        int(metric == "l2"), code, plan.nch, plan.lpr, plan.sub_rows, plan.row_align,
+        plan.panel, plan.stage_bytes, kb.ptr(dist_plane), kb.ptr(slot_plane),
         kb.stream_of(dist_plane),
     )
     return dist_plane, slot_plane
@@ -759,14 +884,16 @@ def stream_shared_plane(qc, blk_t, scl_t, vecs, norms, *, chunk: int, metric: st
                                              metric=metric)
     code, label, _ = _row_type("stream_shared_plane", vecs, scl_t)
     t_cap, q_share, d = qc.shape
+    plan = stream_shared_plan(d, vecs.element_size(), chunk)
     args = [qc.contiguous(), blk_t.to(torch.int32).contiguous(), scl_t.contiguous(),
             vecs, norms]
     kb.require_cuda("stream_shared_plane", *args)
+    _require_aligned("stream_shared_plane", vecs)
     plane = torch.empty((t_cap, q_share, chunk), dtype=torch.float32, device=qc.device)
     kb.launch(
         f"stream_shared_plane[{label}]", "vitorch_stream_shared_plane",
         *map(kb.ptr, args), t_cap, q_share, chunk, d, int(metric == "l2"), code,
-        kb.ptr(plane), kb.stream_of(plane),
+        plan.panel_rows, plan.stages, plan.kpanel, kb.ptr(plane), kb.stream_of(plane),
     )
     return plane
 

@@ -26,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .block_stream import StreamTable, _stream_maps
+from .block_stream import _TILE_BYTES, StreamTable, _stream_maps
 
 _SENTINEL = 1e30
 
@@ -70,7 +70,8 @@ def _maps(layout, st: StreamTable, n_pad: int):
 
 def build_correction_table(layout, st: StreamTable) -> CorrectionTable:
     """Device build (``offload_main_table``: layout.vectors still on the
-    device). Two passes over row tiles of 2^19: the per-cluster max|err|,
+    device). Two passes over row tiles of _TILE_BYTES of f32 (2^19 rows at
+    d 128): the per-cluster max|err|,
     then quantize and take the absolute norms. The first layer is read from
     the live stream table, so the correction is exact against what the
     kernels sweep."""
@@ -82,7 +83,7 @@ def build_correction_table(layout, st: StreamTable) -> CorrectionTable:
     to_main_t = torch.as_tensor(to_main, device=dev)
     row_cid_t = torch.as_tensor(row_cid, device=dev)
     real = to_main_t != main_pad_row
-    R = 1 << 19
+    R = max(1, _TILE_BYTES // (4 * layout.dim))
 
     def err_tile(lo, hi):
         ct = row_cid_t[lo:hi]
@@ -132,7 +133,7 @@ def build_correction_table_host(layout, st: StreamTable) -> CorrectionTable:
     cent = st.cent.cpu().numpy()
     s1 = st.scales.cpu().numpy()
     real = to_main != main_pad_row
-    R = 1 << 19
+    R = max(1, _TILE_BYTES // (4 * layout.dim))
 
     def err_tile(lo, hi):
         cids = row_cid[lo:hi]

@@ -19,17 +19,35 @@ slot by slot:
 
 The TPU kernel copied every list into VMEM scratch with concurrent chunked
 DMAs, which is why its caller gated it on a scratch budget and on d % 128.
-The CUDA kernel reads the rows in place and has neither limit.
+The CUDA kernel reads the rows in place, so it has neither limit, and
+serves any d: its launch plan (``ivf_gather_plan``) keeps the query's first
+K6_RESIDENT_D elements in shared memory and the kernel reads the rest of
+the query through L1.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ..kernels import build as kb
 
 _DMA_CHUNK = 512  # the reference's rows per sub-DMA; it sets max_len_pad
-_MAX_D = 12288  # the kernel stages the query in <= 48 KB of shared memory
+K6_RESIDENT_D = 12_288  # query elements held in shared memory (48 KB, no opt-in)
+
+
+class GatherPlan(NamedTuple):
+    qres: int  # query elements in shared memory (d, or K6_RESIDENT_D below it)
+    smem: int  # dynamic shared memory bytes
+
+
+def ivf_gather_plan(d: int) -> GatherPlan:
+    """K6's launch plan: the whole query in shared memory up to
+    K6_RESIDENT_D elements; past that its first K6_RESIDENT_D, the rest
+    read through L1 (csrc/ivf_gather.cu checks the plan)."""
+    qres = min(d, K6_RESIDENT_D)
+    return GatherPlan(qres, 4 * qres)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -116,8 +134,6 @@ def ivf_gather_distances(queries, vectors, starts, lengths, *, max_len: int, bud
     _check(queries, vectors, starts, lengths)
     nq, d = queries.shape
     p = starts.shape[1]
-    if d > _MAX_D:
-        raise ValueError(f"ivf_gather_distances kernel: d > {_MAX_D}")
     width = output_width(p, max_len, budget)
     if p == 0 or nq == 0:
         return (torch.full((nq, width), float("inf"), device=queries.device),
@@ -131,7 +147,7 @@ def ivf_gather_distances(queries, vectors, starts, lengths, *, max_len: int, bud
     kb.require_cuda("ivf_gather_distances", *ops)
     kb.launch(
         "ivf_gather_distances", "vitorch_ivf_gather_distances",
-        *(kb.ptr(t) for t in ops), nq, p, d, max_len_pad(max_len), width,
+        *(kb.ptr(t) for t in ops), nq, p, d, ivf_gather_plan(d).qres, max_len_pad(max_len), width,
         int(metric == "l2"), kb.ptr(dist), kb.ptr(rows), kb.stream_of(dist),
     )
     return dist, rows
