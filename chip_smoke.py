@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py                  # on the first CUDA device
     python3 chip_smoke.py --kernels-only   # phases 1-3 only
+    python3 chip_smoke.py --wide-only      # phases 1-2 and 11, no CPU twins
 
-``--kernels-only`` stops after phase 3 and prints no JSON lines. Copied into
+``--kernels-only`` stops after phase 3 and prints no JSON lines;
+``--wide-only`` runs phase 11 alone without its CPU twins and offloaded
+runs, and prints its K4 / K6 timings as JSON lines. Copied into
 the root of another checkout (an unpacked earlier commit), the script
 builds, checks and times that checkout's kernels with this script's code:
 the way two kernel designs are compared in one call.
@@ -132,18 +135,20 @@ Phases (each prints its own lines; any failure exits non-zero):
    and K3 launched in the phase.
 11. Wide rows: K2 (with and without nval2d), K4, K5 in every table type
    they take, and K6, against their plain versions at d 16,384, 20,000
-   and 65,536 on small tables (l2 and ip; each check names its launch
-   plan), then a 100,000 x 16,384 clustered corpus drawn on the card
-   (seed 11) and built with ``IvfIndex.fit`` (Lloyd, 10 iterations, and
-   K1 at that width): ``auto`` at nq 1 (16 single-query calls) and 16 at
+   and 65,536 on small tables (l2 and ip; 8 queries; K4 also at 1 and 40,
+   so both its split launch and one block per (query, group) run; each
+   check names its launch plan), then a 100,000 x 16,384 clustered corpus
+   drawn on the card (seed 11) and built with ``IvfIndex.fit`` (Lloyd, 10
+   iterations, and K1 at that width): ``auto`` at nq 1 (16 single-query calls) and 16 at
    n_probe 8 / 32 / 64 (plus the first n_probe that ``resolve`` sends to
    K4 where none of those does), ``gather_dma`` (K6) and
    ``stream_shared_exact`` (K5 f32) at nq 16, n_probe 8, and, after
    ``offload_main_table(rerank='device')``, ``search_batch`` at n_probe 8
    and K4's n_probe (K2 / K4 int8); each run against a CPU twin (the same
    tables copied to the CPU), rank by rank; a launch check of each part;
-   K4 bf16 and K6 at those runs' shapes checked and timed by graph replay
-   beside their bounds (``wide_rows`` in the kernels line).
+   K4 bf16 (at every (nq, n_probe) of those runs that took it) and K6 at
+   those runs' shapes checked and timed by graph replay beside their
+   bounds and sharing factors (``wide_rows`` in the kernels line).
 
 The line before the last is a JSON object describing each kernel (its
 ``launches`` from the phase that must launch it, and ``launches_by_phase``
@@ -198,7 +203,9 @@ RTOL = 1e-5  # of the magnitude of the terms each distance is summed from
 K1_DIFF_SHARE = 1e-3
 # nvcc's register / spill report is printed for every instantiation of these.
 PTXAS_KERNELS = ("assign_argmin_kernel", "stream_distances_kernel", "flat_sweep_kernel",
-                 "stream_fused_plane_kernel", "stream_shared_plane_kernel", "ivf_gather_kernel")
+                 "stream_fused_plane_kernel", "stream_fused_partial_kernel",
+                 "stream_fused_fold_kernel", "stream_shared_plane_kernel", "ivf_gather_kernel",
+                 "ivf_gather_items_kernel")
 # Published peaks of one H100 SXM (dense, 700 W), for each kernel's bound:
 # the larger of its bytes over the memory rate and its operations over the
 # peak rate of their type (f32 outside the tensor cores; TF32 and s8 on them).
@@ -316,6 +323,9 @@ WIDE_N, WIDE_D, WIDE_SEED, WIDE_ITERS = 100_000, 16_384, 11, 10
 WIDE_N_PROBES = (8, 32, 64)
 WIDE_NQ = (1, 16)
 WIDE_TWIN = 16
+# K4 at the kernel checks' widths: 1 and 8 queries take the split launch,
+# WIDE_CHECK_NQ (with G 4, past the SMs) one block per (query, group).
+WIDE_CHECK_NQ = 40
 WIDE_KERNELS = ("assign_argmin", "stream_distances[bf16]", "stream_fused_plane[bf16]",
                 "ivf_gather_distances", "stream_shared_plane[f32]")
 WIDE_OFFLOAD_KERNELS = ("stream_distances[int8]", "stream_fused_plane[int8]")
@@ -378,18 +388,25 @@ def assign_bound(n: int, k: int, d: int) -> dict:
     return bound((n + k) * d * 4 + n * 8, 3 * 2.0 * n * k * d, TF32_FLOP_S)
 
 
-def stream_bound(q, table, grid, out_bytes: int) -> dict:
-    """K2 / K4: each probed block's valid rows (and norms) read once, the
-    queries, the outputs; 2 d operations per valid (query, row) pair."""
+def distinct_rows(table, grid) -> int:
+    """The valid rows of a stream task grid's distinct probed blocks."""
     import torch
 
     nval = grid["nval"].clamp_min(0)
     used = nval > 0
-    rows = torch.zeros(table.vecs.shape[0] // table.chunk, dtype=torch.int64, device=q.device)
+    rows = torch.zeros(table.vecs.shape[0] // table.chunk, dtype=torch.int64,
+                       device=nval.device)
     rows.scatter_(0, grid["blk"][used].long(), nval[used].long())  # a block's count is its own
+    return int(rows.sum())
+
+
+def stream_bound(q, table, grid, out_bytes: int) -> dict:
+    """K2 / K4: each probed block's valid rows (and norms) read once, the
+    queries, the outputs; 2 d operations per valid (query, row) pair."""
     d = q.shape[1]
-    nbytes = int(rows.sum()) * (d * table.vecs.element_size() + 4) + q.numel() * 4 + out_bytes
-    return bound(nbytes, 2.0 * float(nval.sum()) * d, F32_FLOP_S)
+    nbytes = distinct_rows(table, grid) * (d * table.vecs.element_size() + 4) + q.numel() * 4 \
+        + out_bytes
+    return bound(nbytes, 2.0 * float(grid["nval"].clamp_min(0).sum()) * d, F32_FLOP_S)
 
 
 def sweep_bound(q, n_rows: int, mask, precision: str, out_bytes: int) -> dict:
@@ -2577,22 +2594,58 @@ def clustered_on_card(torch, n: int, d: int, nq: int, seed: int, dev):
     return xb, centers[lab] + torch.randn((nq, d), generator=g, device=dev)
 
 
+def stream_sharing(table, grid) -> float:
+    """Probed rows over distinct rows of a stream task grid: how many
+    queries read a probed row on average (the bound counts each once)."""
+    return float(grid["nval"].clamp_min(0).sum()) / max(distinct_rows(table, grid), 1)
+
+
+def k4_launch(q, table, t_fixed: int) -> str:
+    """Which K4 launch these operands take: the split plan (slices of d x
+    parts of each query's rows), or one block per (query, group)."""
+    from vector_indexer_tpu_torch.kernels import build as kb
+    from vector_indexer_tpu_torch.ops import block_stream as bs
+
+    G = bs.pick_stream_groups(table.chunk)
+    plan_of = getattr(bs, "stream_fused_split_plan", None)  # absent before the split launch
+    p = None if plan_of is None else plan_of(q.shape[1], table.vecs.element_size(), table.chunk,
+                                             q.shape[0], G, t_fixed, kb.sm_count(q.device))
+    if p is None:
+        return f"one block per (query, group): {q.shape[0] * G} blocks"
+    return (f"split: {p.n_slices} slices of {p.slice} x {p.parts} parts of the rows, "
+            f"{p.blocks} blocks, {p.sub_rows} rows a stage")
+
+
+def k6_launch(d: int, max_len: int) -> str:
+    """Which K6 launch rows of d take: items (rows per item, items per
+    probe, query panel) or one block per (query, probe)."""
+    from vector_indexer_tpu_torch.ops import ivf_gather as ig
+
+    plan_of = getattr(ig, "ivf_gather_item_plan", None)  # absent before the item launch
+    p = None if plan_of is None else plan_of(d, ig.max_len_pad(max_len))
+    if p is None:
+        return f"one block per (query, probe), {ig.ivf_gather_plan(d).qres} query elements in " \
+               f"shared memory"
+    return f"items of {p.rows} rows, {p.items} per probe, query panel {p.panel}"
+
+
 def wide_kernel_checks(torch, np, check, dev):
     """K2 (with and without nval2d; bf16 / int8 / f32), K4 (bf16 / int8), K5
     (bf16 / int8 / f32) and K6 against their plain versions at each d of
     ``dims``, l2 and ip, on a small index of that width (2,048 points, 8
-    lists, chunk 256, 8 queries probing 3 lists); each check names the
-    launch plan (panel, rows, stages) its kernel took."""
+    lists, chunk 256, 8 queries probing 3 lists; K4 also at 1 and
+    WIDE_CHECK_NQ queries); each check names the launch plan (panel, rows,
+    stages; K4's split or not, K6's items) its kernel took."""
     from vector_indexer_tpu_torch.index.ivf import IvfIndex
     from vector_indexer_tpu_torch.kernels import build as kb
     from vector_indexer_tpu_torch.ops import block_stream as bs
-    from vector_indexer_tpu_torch.ops import ivf_gather as ig
     from vector_indexer_tpu_torch.storage.vector_store import VectorStore
 
     n, nq, n_probe, chunk = 2048, 8, 3, 256
     for d in WIDE_DIMS:
         t0 = time.perf_counter()
-        xb, q = clustered_on_card(torch, n, d, nq, d, dev)
+        xb, q_all = clustered_on_card(torch, n, d, WIDE_CHECK_NQ, d, dev)
+        q = q_all[:nq]
         store = VectorStore(external_ids=np.arange(n, dtype=np.uint64), vectors=xb.cpu().numpy())
         del xb
         idx = IvfIndex.fit(store, seed=1, nlist=8, max_iters=3, device=dev)
@@ -2613,10 +2666,14 @@ def wide_kernel_checks(torch, np, check, dev):
                               f"max |err| {err:.3e}")
                 if not exact:
                     p4 = bs.stream_fused_plan(d, item, chunk)
-                    ok, n_mism, err = check_k4(q, tb, grid, metric)
-                    check(ok, f"K4 wide {what} (panel {p4.panel}, {p4.sub_rows} rows a stage, "
-                              f"{p4.smem} B): planes within {RTOL:g}*(query term scale), "
-                              f"{n_mism} slot differences all near-ties; max |err| {err:.3e}")
+                    for qs in (q[:1], q, q_all):
+                        g4 = grid if qs is q else stream_grid(qs, tb, c, c_sq, lengths, n_probe,
+                                                              metric)
+                        ok, n_mism, err = check_k4(qs, tb, g4, metric)
+                        launch = k4_launch(qs, tb, grid["t_fixed"])
+                        check(ok, f"K4 wide {what} nq={len(qs)} (panel {p4.panel}, {p4.sub_rows} "
+                                  f"rows a stage, {p4.smem} B; {launch}): planes within {RTOL:g}*(query term scale), {n_mism} slot "
+                                  f"differences all near-ties; max |err| {err:.3e}")
                 t_cap = bs.shared_task_cap(lengths, n_probe, nq, grid["t_fixed"],
                                            worst_case=exact, chunk=chunk)
                 tasks = shared_tasks(q, tb, c, c_sq, lengths, n_probe, grid["t_fixed"], t_cap,
@@ -2630,10 +2687,9 @@ def wide_kernel_checks(torch, np, check, dev):
         starts, lens, max_len, budget = gather_operands(q, idx, n_probe)
         for metric in ("l2", "ip"):
             ok, err = check_k6(q, idx.layout.vectors, starts, lens, max_len, budget, metric)
-            check(ok, f"K6 wide d={d} {metric} (query elements in shared memory "
-                      f"{ig.ivf_gather_plan(d).qres}): equal rows and holes, distances within "
-                      f"{RTOL:g}*(terms); max |err| {err:.3e}")
-        del idx, q
+            check(ok, f"K6 wide d={d} {metric} ({k6_launch(d, max_len)}): equal rows and "
+                      f"holes, distances within {RTOL:g}*(terms); max |err| {err:.3e}")
+        del idx, q, q_all
         gc_collect(torch)
         log(f"  wide kernel checks at d={d}: {time.perf_counter() - t0:.2f}s")
 
@@ -2688,15 +2744,17 @@ def twin_check(np, check, what, card, cpu, scale):
           f"by near-tie swaps at rank {Dc.shape[1]} ({same:.4f} >= {TWIN_SAME_FLOOR})")
 
 
-def wide_phase(torch, np, check, dev, results):
+def wide_phase(torch, np, check, dev, results, twins: bool = True):
     """Phase 11 (wide rows): the kernels against their plain versions at
     WIDE_DIMS, then a WIDE_N x WIDE_D clustered corpus built on the card
     (Lloyd and K1 at that width) and served through 'auto' at nq 1 and 16
     (K2 and K4 bf16), 'gather_dma' (K6), 'stream_shared_exact' (K5 f32)
     and, offloaded with rerank='device', 'auto' (K2 / K4 int8); each run
-    against a CPU twin of WIDE_TWIN queries; K4 and K6 timed at their
-    shapes by graph replay beside their bounds (into ``results``). Returns
-    the launch counts of the build and the searches."""
+    against a CPU twin of WIDE_TWIN queries (``twins``); K4 (at nq 16 and
+    at nq 1 for each n_probe 'auto' sends there) and K6 timed at their
+    shapes by graph replay beside their bounds and sharing factors (into
+    ``results``). Returns the launch counts of the build and the
+    searches."""
     from vector_indexer_tpu_torch.index.dispatch import resolve
     from vector_indexer_tpu_torch.index.ivf import IvfIndex
     from vector_indexer_tpu_torch.kernels import build as kb
@@ -2778,34 +2836,53 @@ def wide_phase(torch, np, check, dev, results):
     # K4 and K6 at this width, timed by graph replay beside their bounds.
     c, c_sq = idx._device_tables()
     tb = idx._stream_table()
-    # K4's shape: the batched K4 run (nq 16) if there is one.
-    k4_runs = sorted((nq, p) for m, nq, p, r in runs if r == "stream/K4")
-    p4 = k4_runs[-1][1] if k4_runs else max(WIDE_N_PROBES)
-    grid = stream_grid(xq_dev, tb, c, c_sq, idx.layout.lengths, p4, "l2")
     G = bs.pick_stream_groups(tb.chunk)
     kw = dict(chunk=tb.chunk, groups=G, metric="l2", scales=tb.scales)
-    ok, n_mism, err = check_k4(xq_dev, tb, grid, "l2")
-    check(ok, f"K4 bf16 at the wide runs' shape (nq={WIDE_TWIN}, n_probe={p4}, t_fixed="
-              f"{grid['t_fixed']}, d={d}): planes within {RTOL:g}*(query term scale), {n_mism} "
-              f"slot differences all near-ties; max |err| {err:.3e}")
-    results["wide_k4"] = dict(
-        max_abs_err=err, ms=graph_ms(torch, lambda: bs.stream_fused_plane(
-            *k4_args(xq_dev, tb, grid), **kw)),
-        plain_ms=cuda_ms(torch, lambda: bs.stream_fused_plane_reference(
-            *k4_args(xq_dev, tb, grid), **kw), reps=1),
-        shape=f"nq={WIDE_TWIN} n_probe={p4} t_fixed={grid['t_fixed']} chunk={tb.chunk} d={d}",
-        **stream_bound(xq_dev, tb, grid, WIDE_TWIN * 2 * G * tb.chunk * 8))
+
+    def k4_entry(nq, n_probe):
+        qs = xq_dev[:nq]
+        grid = stream_grid(qs, tb, c, c_sq, idx.layout.lengths, n_probe, "l2")
+        launch = k4_launch(qs, tb, grid["t_fixed"])
+        ok, n_mism, err = check_k4(qs, tb, grid, "l2")
+        check(ok, f"K4 bf16 at a wide run's shape (nq={nq}, n_probe={n_probe}, t_fixed="
+                  f"{grid['t_fixed']}, d={d}; {launch}): planes within {RTOL:g}*(query term "
+                  f"scale), {n_mism} slot differences all near-ties; max |err| {err:.3e}")
+        sharing = stream_sharing(tb, grid)
+        return dict(
+            max_abs_err=err, ms=graph_ms(torch, lambda: bs.stream_fused_plane(
+                *k4_args(qs, tb, grid), **kw)),
+            plain_ms=cuda_ms(torch, lambda: bs.stream_fused_plane_reference(
+                *k4_args(qs, tb, grid), **kw), reps=1),
+            sharing=sharing, launch=launch,
+            shape=f"nq={nq} n_probe={n_probe} t_fixed={grid['t_fixed']} chunk={tb.chunk} d={d}, "
+                  f"sharing factor {sharing:.3f}",
+            **stream_bound(qs, tb, grid, nq * 2 * G * tb.chunk * 8))
+
+    # K4's shapes: each (nq, n_probe) of the runs that took K4 ('auto' at
+    # nq 1 and 16), the batched one first.
+    k4_runs = sorted({(nq, p) for m, nq, p, r in runs if r == "stream/K4"},
+                     key=lambda r: (-r[0], r[1]))
+    results["wide_k4"] = [k4_entry(nq, p) for nq, p in k4_runs or [(WIDE_TWIN, max(WIDE_N_PROBES))]]
+    p4 = max(p for _, p in k4_runs) if k4_runs else max(WIDE_N_PROBES)
     starts, lens, max_len, budget = gather_operands(xq_dev, idx, 8)
     ok, err = check_k6(xq_dev, idx.layout.vectors, starts, lens, max_len, budget, "l2")
-    check(ok, f"K6 at the wide runs' shape (nq={WIDE_TWIN}, n_probe=8, d={d}): equal rows and "
-              f"holes, distances within {RTOL:g}*(terms); max |err| {err:.3e}")
-    results["wide_k6"] = k6_entry(torch, xq_dev, idx.layout.vectors, starts, lens, max_len,
-                                  budget, err)
+    check(ok, f"K6 at the wide runs' shape (nq={WIDE_TWIN}, n_probe=8, d={d}; "
+              f"{k6_launch(d, max_len)}): equal rows and holes, distances within {RTOL:g}*(terms); "
+              f"max |err| {err:.3e}")
+    results["wide_k6"] = [dict(k6_entry(torch, xq_dev, idx.layout.vectors, starts, lens, max_len,
+                                        budget, err), launch=k6_launch(d, max_len))]
     for name in ("wide_k4", "wide_k6"):
-        r = results[name]
-        log(f"  {name}: kernel {r['ms']:.3f} ms (graph replay), plain {r['plain_ms']:.3f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) ({r['shape']}; {gpu})")
-    del grid, starts, lens
+        for r in results[name]:
+            log(f"  {name}: kernel {r['ms']:.4f} ms (graph replay), plain {r['plain_ms']:.3f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of "
+                f"the bound ({r['shape']}; {r['launch']}; {gpu})")
+    del starts, lens
+    if not twins:
+        del tb, idx
+        gc_collect(torch)
+        log(f"  launch counts in phase 11 (no CPU twins): {counts}; phase 11 "
+            f"{time.perf_counter() - t_ph:.2f}s")
+        return counts
 
     # The CPU twin: the same tables, the plain versions.
     t0 = time.perf_counter()
@@ -2866,6 +2943,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true", help="stop after phase 3")
+    ap.add_argument("--wide-only", action="store_true",
+                    help="run phase 11 alone (its kernel checks, corpus, build, searches and "
+                         "kernel timings) without the CPU twins and the offloaded runs")
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -2897,6 +2977,21 @@ def main() -> int:
     for line in info.get("log", "").splitlines():
         if "warning" in line.lower() or "error" in line.lower():
             log(f"  nvcc: {line.strip()}")
+
+    if args.wide_only:
+        for line in ptxas_lines(info.get("log", ""), PTXAS_KERNELS):
+            log(f"  ptxas {line}")
+        log("== 11. wide rows (alone, no CPU twins)")
+        results = {}
+        t0 = time.perf_counter()
+        counts = wide_phase(torch, np, check, dev, results, twins=False)
+        log(f"  phase 11: {time.perf_counter() - t0:.2f}s")
+        for name in ("wide_k4", "wide_k6"):
+            print(json.dumps({name: results[name]}), flush=True)
+        log(f"== {check.n} checks in {time.perf_counter() - t_start:.1f}s")
+        if check.failures:
+            log(f"FAILED: {len(check.failures)} check(s): {check.failures}")
+        return 1 if check.failures else 0
 
     ds = load_datasets()
     t0 = time.perf_counter()
@@ -2958,14 +3053,15 @@ def main() -> int:
     counts["flat_sweep_minreduce"] = results["flat_sweep_minreduce"]["launches"]  # phase 3
     wide = {"stream_fused_plane[bf16]": results["wide_k4"],
             "ivf_gather_distances": results["wide_k6"]}
+    wide_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "sharing", "launch",
+                 "shape")
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
              launches_by_phase={p: c.get(name, 0) for p, c in by_phase.items()},
              **{key: results[name][key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "library_call", "shape")},
-             **({"wide_rows": {key: wide[name][key] for key in (
-                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "shape")}}
+             **({"wide_rows": [{key: e[key] for key in wide_keys} for e in wide[name]]}
                 if name in wide else {}))
         for name, (src, rep) in SOURCES.items()
     ]

@@ -13,10 +13,12 @@ rows that are not 16-byte multiples and panels of 16 rows; K2, K4 and K5 on
 rows too wide for K5's 16-row ring (8- and 4-row panels) and past each
 kernel's wide-row mode change (K4's panels past ~13,500 dims, K5's
 K-panels past ~14,400-57,800, K2's panels past ~50,000) up to d 65,536,
-odd widths included; K3 f32 / int8 / int8x1, at d on both sides of each
+odd widths included; K4 also at nq 1, its split launch; K3 f32 / int8 /
+int8x1, at d on both sides of each
 kernel's mode changes), windows, group counts, list lengths (K6: short and
-long lists, empty probes, and d past the 12,288 query elements it keeps in
-shared memory) and both metrics, then searches one saved index on the card
+long lists, empty probes, its item launch past d 12,288 or ~1 MB of a
+segment's rows, and the query in panels past 57,344 dims) and both
+metrics, then searches one saved index on the card
 and on the CPU (where every kernel runs its plain version) for each search
 method of the port, and offloaded in each re-rank mode, for both metrics,
 and compares the results rank by rank. Exits 1 if any check fails. Needs
@@ -83,10 +85,13 @@ SWEEP_NQ = (1, 37, 300)
 # K3's int8 modes and K7; 'int8' streams its query tile past d 1280.
 INT8_DIMS = (128, 256, 1280, 2048)
 K7_WINDOWS = (8, 16, 32)
-# K6: (d, max_len, probes per query, every how many lists is empty)
+# K6: (d, max_len, probes per query, every how many lists is empty); one
+# block per (query, probe) where d <= 12,288 and one ~1 MB item holds a
+# segment (d 128 up to 2,048 slots), items past that (d 128 at 4,100 slots,
+# d 2048 at 2,000), the query in panels past 57,344 dims.
 K6_CASES = ((16, 40, 4, 3), (96, 300, 8, 5), (128, 700, 32, 4), (128, 2000, 6, 2),
-            (12_289, 300, 8, 5), (16_384, 700, 8, 4), (16_385, 200, 6, 3),
-            (65_536, 300, 4, 3))
+            (128, 4100, 6, 2), (2048, 2000, 6, 3), (12_289, 300, 8, 5), (16_384, 700, 8, 4),
+            (16_385, 200, 6, 3), (57_345, 40, 4, 3), (65_536, 300, 4, 3))
 
 
 def main() -> int:
@@ -180,6 +185,10 @@ def main() -> int:
                 if not exact:
                     ok, n_mism, err = check_k4(q, table, grid, metric)
                     check(ok, f"K4 {what}: {n_mism} near-tie slot differences, max |err| {err:.3e}")
+                    g1 = stream_grid(q[:1], table, c, c_sq, lengths, 5, metric)
+                    ok, n_mism, err = check_k4(q[:1], table, g1, metric)
+                    check(ok, f"K4 {what} nq=1 ({chip_smoke.k4_launch(q[:1], table, g1['t_fixed'])}"
+                              f"): {n_mism} near-tie slot differences, max |err| {err:.3e}")
                 t_cap = bs.shared_task_cap(lengths, 5, len(q), grid["t_fixed"], worst_case=exact,
                                            chunk=chunk)
                 tasks = shared_tasks(q, table, c, c_sq, lengths, 5, grid["t_fixed"], t_cap, metric)

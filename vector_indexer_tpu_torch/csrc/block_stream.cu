@@ -59,10 +59,15 @@
 // panel in shared memory (double-buffered), every valid row of the slot
 // streamed panel by panel (one bulk copy per row segment, 8 rows a stage),
 // and each row's partial dot kept in shared memory until its last panel,
-// where the scale and the norm are applied once and the row is folded. K4
-// takes bf16 and int8 tables (the f32 table serves stream_exact, which
-// never fuses) at any d; its launch plan comes from the wrapper
-// (ops/block_stream.py::stream_fused_plan) and is checked here.
+// where the scale and the norm are applied once and the row is folded.
+// Past the register modes, where nq * G blocks leave SMs idle (4 blocks at
+// nq 1), K4 takes a split launch instead (below): d in slices and each
+// query's valid rows in equal parts, the partial dots through device
+// memory, and a fold kernel in the reference's order. K4 takes bf16 and
+// int8 tables (the f32 table serves stream_exact, which never fuses) at
+// any d; its launch plans come from the wrapper
+// (ops/block_stream.py::stream_fused_plan, stream_fused_split_plan) and
+// are checked here.
 //
 // Bound on the H100: bytes. K2 with nval2d and K4 read only a task's valid
 // rows (at most chunk * d * itemsize bytes: 64 KB at chunk 256, d 128,
@@ -664,6 +669,249 @@ __global__ void __launch_bounds__(K4_THREADS, NCH == 4 ? 1 : 2) stream_fused_pla
   }
 }
 
+// ---- K4 split: a few queries over every SM -----------------------------------
+//
+// One block per (query, group) leaves most SMs idle when nq * G is below
+// the SM count (4 blocks at nq 1). The split launch cuts the work twice
+// over instead: d into `n_slices` slices of `slice` elements, and each
+// query's valid rows, taken in slot order as one sequence, into `parts`
+// runs of equal length (a part may start and end inside a slot, so a long
+// list is spread like any other). Block (query, part, slice) streams the
+// slice's segment of every row of its part and writes each row's partial
+// dot (q - c restricted to the slice, times the row's segment) to
+// part_dots[task][slice][lane]. A second kernel sums each row's partials in
+// slice order, applies the scale, bias and norm, and folds the rows per
+// (group, lane) in the reference's order: the planes keep the fold order
+// exactly, and only the dot's summation order differs from the
+// one-block-per-group launch.
+
+constexpr int K4S_CONSUMERS = 256;               // 8 consumer warps
+constexpr int K4S_THREADS = K4S_CONSUMERS + 32;  // + one producer warp
+constexpr int K4S_STAGES = 3;
+constexpr int K4F_THREADS = 256;                 // the fold kernel
+constexpr int K4F_LANES = 32;                    // lanes per fold block
+constexpr int K4F_BATCH = 32;                    // slots whose distances are staged at a time
+
+// Inclusive prefix sum across a warp.
+__device__ __forceinline__ int warp_scan(int v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += u;
+  }
+  return v;
+}
+
+// Block (q * parts + part, k). The producer warp first finds the part's
+// rows: the query's valid-row total T, the part's run [part * ceil(T /
+// parts), ...) of the flattened rows, and the slot and row it starts at.
+// Then it streams, slot by slot, the slice's segment of each of those rows
+// (one cp.async.bulk per row over the segment's 16-byte envelope, issued
+// by the warp's lanes together; stages of `sub_rows` segments,
+// `seg_stride` bytes apart); the consumer warps take q - c of the slice
+// into shared memory (double-buffered per slot, as in the panel mode),
+// then score the staged segments one row per warp.
+template <bool L2, typename T, bool VEC>
+__global__ void __launch_bounds__(K4S_THREADS, 2) stream_fused_partial_kernel(
+    const float* __restrict__ queries, const float* __restrict__ cent,
+    const int* __restrict__ cid2d, const int* __restrict__ blk2d,
+    const int* __restrict__ nval2d, const T* __restrict__ vecs, int t_fixed, int chunk, int d,
+    int parts, int slice, int n_slices, int sub_rows, int seg_stride, int stage_bytes,
+    float* __restrict__ part_dots) {
+  constexpr int EPC = 16 / sizeof(T);
+  constexpr int PRODUCER = K4S_CONSUMERS / 32;
+  extern __shared__ __align__(128) uint8_t smem_k4s[];
+  __shared__ int s_begin, r_begin, n_rows;
+  uint8_t* ring = smem_k4s;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + K4S_STAGES * stage_bytes);
+  uint64_t* empty = full + K4S_STAGES;
+  float* qc_s = reinterpret_cast<float*>(empty + K4S_STAGES);  // 2 x slice
+  const int q = blockIdx.x / parts, part = blockIdx.x % parts, k = blockIdx.y;
+  const int k0 = k * slice, pe = min(slice, d - k0);  // this slice's elements
+  const int seg = pe * static_cast<int>(sizeof(T));
+  const size_t row_bytes = static_cast<size_t>(d) * sizeof(T);
+  const int* nv = nval2d + static_cast<size_t>(q) * t_fixed;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    for (int s = 0; s < K4S_STAGES; ++s) {
+      vitorch::mbar_init(&full[s], 1);
+      vitorch::mbar_init(&empty[s], K4S_CONSUMERS / 32);
+    }
+    vitorch::mbar_init_fence();
+  }
+  if (warp == PRODUCER) {
+    int total = 0;
+    for (int b = 0; b < t_fixed; b += 32)
+      total += __reduce_add_sync(0xffffffffu, b + lane < t_fixed ? max(nv[b + lane], 0) : 0);
+    const int per = (total + parts - 1) / parts;
+    const int lo = min(part * per, total), hi = min(lo + per, total);
+    int sb = t_fixed, rb = 0, acc = 0;
+    for (int b = 0; b < t_fixed && sb == t_fixed && lo < hi; b += 32) {
+      const int v = b + lane < t_fixed ? max(nv[b + lane], 0) : 0;
+      const int incl = warp_scan(v, lane);
+      const unsigned hit = __ballot_sync(0xffffffffu, acc + incl - v <= lo && lo < acc + incl);
+      if (hit) {
+        const int l = __ffs(hit) - 1;
+        sb = b + l;
+        rb = lo - acc - __shfl_sync(0xffffffffu, incl - v, l);
+      }
+      acc += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) {
+      s_begin = sb;
+      r_begin = rb;
+      n_rows = hi - lo;
+    }
+  }
+  __syncthreads();
+
+  if (warp == PRODUCER) {
+    // ---- producer warp: lane 0 arms each stage, every lane copies rows ----
+    const uint8_t* table = reinterpret_cast<const uint8_t*>(vecs);
+    int n = 0, left = n_rows;
+    for (int s = s_begin, r = r_begin; left > 0; ++s, r = 0) {
+      const size_t task = static_cast<size_t>(q) * t_fixed + s;
+      const int take = min(max(nv[s], 0) - r, left);
+      if (take <= 0) continue;  // an empty slot has no rows
+      left -= take;
+      const size_t a0 = static_cast<size_t>(blk2d[task]) * chunk * row_bytes + k0 * sizeof(T);
+      for (int r0 = r; r0 < r + take; r0 += sub_rows, ++n) {
+        const int st = n % K4S_STAGES;
+        if (n >= K4S_STAGES) vitorch::mbar_wait(&empty[st], ((n / K4S_STAGES) - 1) & 1);
+        const int nr = min(sub_rows, r + take - r0);
+        uint32_t mine = 0;
+        for (int i = lane; i < nr; i += 32) mine += envelope(a0 + (r0 + i) * row_bytes, seg);
+        const uint32_t bytes = __reduce_add_sync(0xffffffffu, mine);
+        if (lane == 0) vitorch::mbar_expect_tx(&full[st], bytes);
+        __syncwarp();
+        for (int i = lane; i < nr; i += 32) {
+          const size_t a = a0 + (r0 + i) * row_bytes;
+          vitorch::bulk_copy_g2s(ring + st * stage_bytes + i * seg_stride,
+                                 table + (a & ~static_cast<size_t>(15)), envelope(a, seg),
+                                 &full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers --------------------------------------------------------------
+  const int cpp = (pe + EPC - 1) / EPC;  // the slice's 16-byte chunks
+  int n = 0, slots = 0, left = n_rows;
+  for (int s = s_begin, r = r_begin; left > 0; ++s, r = 0) {
+    const size_t task = static_cast<size_t>(q) * t_fixed + s;
+    const int take = min(max(nv[s], 0) - r, left);
+    if (take <= 0) continue;
+    left -= take;
+    const int cid = cid2d[task];
+    const size_t base = static_cast<size_t>(blk2d[task]) * chunk;
+    float* qcw = qc_s + (slots++ & 1) * slice;
+    for (int e = tid; e < pe; e += K4S_CONSUMERS) {
+      float v = queries[static_cast<size_t>(q) * d + k0 + e];
+      if (L2) v -= cent[static_cast<size_t>(cid) * d + k0 + e];
+      qcw[e] = v;
+    }
+    vitorch::named_bar_sync(1, K4S_CONSUMERS);
+    float* prow = part_dots + (task * n_slices + k) * chunk;
+    for (int r0 = r; r0 < r + take; r0 += sub_rows, ++n) {
+      const int st = n % K4S_STAGES;
+      vitorch::mbar_wait(&full[st], (n / K4S_STAGES) & 1);
+      const uint8_t* buf = ring + st * stage_bytes;
+      const int nr = min(sub_rows, r + take - r0);
+      for (int rl = warp; rl < nr; rl += K4S_CONSUMERS / 32) {
+        const size_t a = (base + r0 + rl) * row_bytes + k0 * sizeof(T);
+        const uint8_t* sp = buf + rl * seg_stride + (a & 15);
+        float dot = 0.f;
+        for (int c = lane; c < cpp; c += 32) {
+          float qv[EPC];
+#pragma unroll
+          for (int e = 0; e < EPC; e += 4) {
+            const float4 f4 = *reinterpret_cast<const float4*>(qcw + c * EPC + e);
+            qv[e] = f4.x;
+            qv[e + 1] = f4.y;
+            qv[e + 2] = f4.z;
+            qv[e + 3] = f4.w;
+          }
+          dot += chunk_dot<VEC>(qv, sp, c, pe, T());
+        }
+        dot = vitorch::warp_sum(dot);
+        if (lane == 0) prow[r0 + rl] = dot;
+      }
+      __syncwarp();
+      if (lane == 0) vitorch::mbar_arrive(&empty[st]);  // this warp is done with the stage
+    }
+  }
+}
+
+// Block (q, g, lane tile): K4F_LANES lanes of group g. The group's slots
+// are taken in the reference's fold order (u outer, f = g, g + G, ...
+// inner) in batches of K4F_BATCH: every thread sums some (slot, lane)
+// pairs' partials in slice order into that pair's distance in shared
+// memory (+inf past the slot's valid count), then warp 0 folds the batch,
+// one lane per thread, with strict '<'.
+template <bool L2, typename T>
+__global__ void __launch_bounds__(K4F_THREADS) stream_fused_fold_kernel(
+    const int* __restrict__ cid2d, const int* __restrict__ blk2d,
+    const int* __restrict__ nval2d, const float* __restrict__ bias2d,
+    const float* __restrict__ norms, const float* __restrict__ scales,
+    const float* __restrict__ part_dots, int t_fixed, int t_sub, int chunk, int groups,
+    int n_slices, float* __restrict__ dist_plane, int* __restrict__ slot_plane) {
+  __shared__ float dist_s[K4F_BATCH][K4F_LANES];
+  const int q = blockIdx.x, g = blockIdx.y, lane0 = blockIdx.z * K4F_LANES;
+  const int fpg = t_fixed / t_sub / groups;  // fans per group
+  const int n_group = t_sub * fpg;           // the group's slots
+  const int tid = threadIdx.x;
+  float bv = vitorch::inf_f(), sv = vitorch::inf_f();
+  int bi = -1, si = -1;
+  for (int i0 = 0; i0 < n_group; i0 += K4F_BATCH) {
+    const int nb = min(K4F_BATCH, n_group - i0);
+    for (int e = tid; e < nb * K4F_LANES; e += K4F_THREADS) {
+      const int i = i0 + e / K4F_LANES, l = lane0 + e % K4F_LANES;
+      const int s = (g + (i % fpg) * groups) * t_sub + i / fpg;
+      const size_t task = static_cast<size_t>(q) * t_fixed + s;
+      float dv = vitorch::inf_f();
+      if (l < chunk && l < nval2d[task]) {
+        const float* pp = part_dots + task * n_slices * chunk + l;
+        float dot = 0.f;
+#pragma unroll 8
+        for (int k = 0; k < n_slices; ++k) dot += pp[static_cast<size_t>(k) * chunk];
+        dv = task_distance<L2>(bias2d[task], dot * vitorch::row_scale<T>(scales, cid2d[task]),
+                               norms[static_cast<size_t>(blk2d[task]) * chunk + l]);
+      }
+      dist_s[e / K4F_LANES][e % K4F_LANES] = dv;
+    }
+    __syncthreads();
+    if (tid < K4F_LANES) {
+      for (int j = 0; j < nb; ++j) {
+        const int i = i0 + j;
+        const int s = (g + (i % fpg) * groups) * t_sub + i / fpg;
+        const float dv = dist_s[j][tid];
+        const bool better = dv < bv;
+        const float disp = better ? bv : dv;  // the displaced candidate
+        const int disp_i = better ? bi : s;
+        if (better) {
+          bv = dv;
+          bi = s;
+        }
+        if (disp < sv) {
+          sv = disp;
+          si = disp_i;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  const int l = lane0 + tid;
+  if (tid < K4F_LANES && l < chunk) {
+    const int width = groups * chunk;
+    const size_t row = static_cast<size_t>(q) * 2 * width + static_cast<size_t>(g) * chunk + l;
+    dist_plane[row] = bv;
+    dist_plane[row + width] = sv;
+    slot_plane[row] = bi;
+    slot_plane[row + width] = si;
+  }
+}
+
 template <bool L2, typename T, int NCH, bool VEC>
 int launch_distances_mode(const void* queries, const void* cent, const void* cid2d,
                           const void* blk2d, const void* nval2d, const void* bias2d,
@@ -797,6 +1045,56 @@ int launch_fused(const void* queries, const void* cent, const void* cid2d,
 #undef VITORCH_K4_MODE
 }
 
+// The split plan (slice, parts, sub_rows, stage_bytes) comes from the
+// wrapper (ops/block_stream.py::stream_fused_split_plan); it is checked
+// here. part_dots holds nq * t_fixed * n_slices * chunk floats; only the
+// valid rows' entries are written and read.
+template <bool L2, typename T>
+int launch_fused_split(const void* queries, const void* cent, const void* cid2d,
+                       const void* blk2d, const void* nval2d, const void* bias2d,
+                       const void* vecs, const void* norms, const void* scales, int nq,
+                       int t_fixed, int t_sub, int chunk, int groups, int d, int slice, int parts,
+                       int sub_rows, int stage_bytes, void* part_dots, void* dist_plane,
+                       void* slot_plane, cudaStream_t st) {
+  constexpr int EPC = 16 / sizeof(T);
+  const bool vec = (static_cast<size_t>(d) * sizeof(T)) % 16 == 0;
+  if (chunk % 16 != 0 || t_sub < 1 || t_fixed % t_sub != 0 || groups < 1 ||
+      (t_fixed / t_sub) % groups != 0 || slice < EPC || slice % EPC != 0 || parts < 1 ||
+      sub_rows < 1 || sub_rows > chunk || stage_bytes % 128 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_slices = (d + slice - 1) / slice;
+  // A segment's stride in a stage leaves room for an unaligned envelope.
+  const int seg_stride = slice * static_cast<int>(sizeof(T)) + (vec ? 0 : 32);
+  const size_t smem = static_cast<size_t>(K4S_STAGES) * stage_bytes +
+                      2 * K4S_STAGES * sizeof(uint64_t) + 2 * sizeof(float) * slice;
+  if (static_cast<size_t>(stage_bytes) < static_cast<size_t>(sub_rows) * seg_stride ||
+      smem > static_cast<size_t>(K4_SMEM_LIMIT) || n_slices > 65535 ||
+      static_cast<size_t>(nq) * parts > 0x7fffffffu)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = vec ? &stream_fused_partial_kernel<L2, T, true>
+                  : &stream_fused_partial_kernel<L2, T, false>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kern<<<dim3(static_cast<unsigned>(nq) * parts, n_slices), K4S_THREADS, smem, st>>>(
+      static_cast<const float*>(queries), static_cast<const float*>(cent),
+      static_cast<const int*>(cid2d), static_cast<const int*>(blk2d),
+      static_cast<const int*>(nval2d), static_cast<const T*>(vecs), t_fixed, chunk, d, parts,
+      slice, n_slices, sub_rows, seg_stride, stage_bytes, static_cast<float*>(part_dots));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stream_fused_fold_kernel<L2, T><<<dim3(nq, groups, (chunk + K4F_LANES - 1) / K4F_LANES),
+                                    K4F_THREADS, 0, st>>>(
+      static_cast<const int*>(cid2d), static_cast<const int*>(blk2d),
+      static_cast<const int*>(nval2d), static_cast<const float*>(bias2d),
+      static_cast<const float*>(norms), static_cast<const float*>(scales),
+      static_cast<const float*>(part_dots), t_fixed, t_sub, chunk, groups, n_slices,
+      static_cast<float*>(dist_plane), static_cast<int*>(slot_plane));
+  return 0;
+}
+
 }  // namespace
 
 // nval2d may be null (every lane computed); nch / lpr / spb / panel: the
@@ -855,6 +1153,36 @@ VITORCH_API int vitorch_stream_fused_plane(
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef VITORCH_K4
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4's split launch (the partial dots, then the fold): slice / parts /
+// sub_rows / stage_bytes are the wrapper's plan; part_dots is its scratch.
+VITORCH_API int vitorch_stream_fused_split(
+    const void* queries, const void* cent, const void* cid2d, const void* blk2d,
+    const void* nval2d, const void* bias2d, const void* vecs, const void* norms,
+    const void* scales, int nq, int t_fixed, int t_sub, int chunk, int groups, int d,
+    int is_l2, int row_type, int slice, int parts, int sub_rows, int stage_bytes,
+    void* part_dots, void* dist_plane, void* slot_plane, void* stream) {
+  if (nq <= 0) return static_cast<int>(cudaGetLastError());
+  auto st = static_cast<cudaStream_t>(stream);
+  int rc = 0;
+#define VITORCH_K4S(L2, T)                                                                      \
+  rc = launch_fused_split<L2, T>(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms, scales, \
+                                 nq, t_fixed, t_sub, chunk, groups, d, slice, parts, sub_rows,   \
+                                 stage_bytes, part_dots, dist_plane, slot_plane, st)
+  switch (row_type) {
+    case vitorch::ROW_BF16:
+      if (is_l2) VITORCH_K4S(true, __nv_bfloat16); else VITORCH_K4S(false, __nv_bfloat16);
+      break;
+    case vitorch::ROW_INT8:
+      if (is_l2) VITORCH_K4S(true, int8_t); else VITORCH_K4S(false, int8_t);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef VITORCH_K4S
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

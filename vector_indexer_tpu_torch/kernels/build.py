@@ -26,6 +26,7 @@ it to prove which kernels (and modes) the run went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -65,6 +66,13 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _I, _P, _P, _P,
     ),
+    # queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms, scales, nq,
+    # t_fixed, t_sub, chunk, groups, d, is_l2, row_type, slice, parts,
+    # sub_rows, stage_bytes, part_dots, dist_plane, slot_plane, stream
+    "vitorch_stream_fused_split": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _P, _P, _P, _P,
+    ),
     # qc, blk_t, scl_t, vecs, norms, t_cap, q_share, chunk, d, is_l2,
     # row_type, panel_rows, stages, kpanel, plane, stream
     "vitorch_stream_shared_plane": (
@@ -86,6 +94,11 @@ _SIGNATURES = {
     # width, is_l2, dist, rows, stream
     "vitorch_ivf_gather_distances": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+    ),
+    # q, vectors, starts, lengths, offs, nq, p, d, item_rows, items, panel,
+    # max_len_pad, width, is_l2, dist, rows, stream
+    "vitorch_ivf_gather_items": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
     ),
 }
 
@@ -211,6 +224,13 @@ def library() -> ctypes.CDLL:
         lib.vitorch_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (an input of the launch
+    plans that spread a few queries over the whole card)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -502,6 +502,67 @@ def stream_fused_plan(d: int, itemsize: int, chunk: int) -> FusedPlan:
     return FusedPlan(0, 32, sub_rows, 1, panel, stage, smem)
 
 
+# K4's split launch: past the register modes, while nq * G blocks leave SMs
+# idle, d is cut into slices of at most K4_SLICE_BYTES of a row (at least
+# K4_MIN_SLICE_BYTES) and each query's valid rows into equal parts (at
+# most one per K4_PART_ROWS lanes of its slots), for up to
+# K4_SPLIT_BLOCKS_PER_SM blocks per SM, two of them resident
+# (K4_SPLIT_SMEM bytes each); each block streams its row
+# segments through K4_SPLIT_STAGES stages of about K4_SPLIT_STAGE_TARGET
+# bytes.
+K4_SLICE_BYTES = 4096
+K4_MIN_SLICE_BYTES = 256
+K4_PART_ROWS = 128
+K4_SPLIT_BLOCKS_PER_SM = 16
+K4_SPLIT_STAGES = 3
+K4_SPLIT_STAGE_TARGET = 32 << 10
+K4_SPLIT_SMEM = 115_712  # half an SM's 228 KB, less the 1 KB each block reserves
+
+
+class SplitPlan(NamedTuple):
+    slice: int  # elements of d per block (a multiple of the 16-byte chunk)
+    n_slices: int
+    parts: int  # equal runs of each query's valid rows (in slot order)
+    sub_rows: int  # row segments per stage
+    stage_bytes: int
+    smem: int  # dynamic shared memory bytes of the partial-dot kernel
+    blocks: int  # blocks of the partial-dot launch: nq * parts * n_slices
+
+
+def stream_fused_split_plan(d: int, itemsize: int, chunk: int, nq: int, groups: int,
+                            t_fixed: int, n_sm: int) -> Optional[SplitPlan]:
+    """K4's split plan, or None where the one-block-per-(query, group)
+    launch stays: the register modes (d <= 1024), and wherever nq * groups
+    blocks already fill the ``n_sm`` SMs (the main path's nq 1000, any nq
+    past n_sm / groups). Otherwise, for about K4_SPLIT_BLOCKS_PER_SM * n_sm
+    blocks: slices of at most K4_SLICE_BYTES of a row; parts of each
+    query's valid rows (at most one per K4_PART_ROWS of its t_fixed * chunk
+    lanes); and, where those give fewer than two blocks an SM, more slices
+    (down to K4_MIN_SLICE_BYTES of a row). A stage holds as many row
+    segments as fit K4_SPLIT_STAGE_TARGET bytes and two blocks an SM."""
+    if nq * groups >= n_sm or stream_fused_plan(d, itemsize, chunk).nch:
+        return None
+    epc = 16 // itemsize
+    row_bytes = d * itemsize
+    target = K4_SPLIT_BLOCKS_PER_SM * n_sm
+    n_slices = -(-row_bytes // K4_SLICE_BYTES)
+    parts = max(1, min(t_fixed * chunk // K4_PART_ROWS, -(-target // (nq * n_slices))))
+    wave = 2 * n_sm  # one resident wave: more slices where the parts give fewer blocks
+    n_slices = max(n_slices, min(-(-row_bytes // K4_MIN_SLICE_BYTES), -(-wave // (nq * parts))))
+    slice_ = _round_up(-(-d // n_slices), epc)
+    n_slices = -(-d // slice_)
+    seg_stride = slice_ * itemsize + (0 if row_bytes % 16 == 0 else 32)
+    fixed = 16 * K4_SPLIT_STAGES + 8 * slice_  # the barriers, two q - c slices
+    sub_rows = max(1, min(chunk, K4_SPLIT_STAGE_TARGET // seg_stride,
+                          (K4_SPLIT_SMEM - fixed) // (K4_SPLIT_STAGES * seg_stride)))
+    stage = _round_up(sub_rows * seg_stride, 128)
+    while sub_rows > 1 and K4_SPLIT_STAGES * stage + fixed > K4_SPLIT_SMEM:
+        sub_rows -= 1
+        stage = _round_up(sub_rows * seg_stride, 128)
+    return SplitPlan(slice_, n_slices, parts, sub_rows, stage, K4_SPLIT_STAGES * stage + fixed,
+                     nq * parts * n_slices)
+
+
 # K5: panels of whole rows (~K5_PANEL_TARGET bytes, up to K5_MAX_STAGES
 # stages in K5_RING_BYTES), narrower panels and one stage for wider rows,
 # and K-panels of K5_KPANEL_BYTES of 32 rows past those.
@@ -638,10 +699,79 @@ def stream_fused_plane_reference(queries, cent, cid2d, blk2d, nval2d, bias2d, ve
     )
 
 
+def stream_fused_plane_split_reference(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs,
+                                       norms, *, chunk: int, groups: int, metric: str,
+                                       slice_: int, scales=None):
+    """Plain version of K4's split launch: each valid row's dot with q - c
+    (ip: q) taken slice by slice (``slice_`` elements of d at a time), the
+    slices' partial dots summed in slice order, then the scale, bias and
+    norm applied and the rows folded exactly as
+    ``stream_fused_plane_reference`` folds them. Only the dot's summation
+    order differs from it: the planes hold the same values up to f32
+    rounding, and the same slots wherever no two candidates of a lane
+    tie."""
+    nq, t_fixed = blk2d.shape
+    d = queries.shape[1]
+    blocks = vecs.view(-1, chunk, d)
+    qc = queries[:, None, :] - cent[cid2d.long()] if metric == "l2" else \
+        queries[:, None, :].expand(-1, t_fixed, -1)
+    rows = blocks[blk2d.long()].to(torch.float32)  # (nq, t_fixed, chunk, d)
+    cross = torch.zeros((nq, t_fixed, chunk), dtype=torch.float32, device=queries.device)
+    for k0 in range(0, d, slice_):
+        cross = cross + torch.matmul(rows[..., k0:k0 + slice_],
+                                     qc[..., k0:k0 + slice_].unsqueeze(-1)).squeeze(-1)
+    slot_scl = _slot_scales(scales, cid2d, vecs)
+    if slot_scl is not None:
+        cross = cross * slot_scl[:, :, None]
+    nrm = norms.view(-1, chunk)[blk2d.long()]
+    bias = bias2d[:, :, None]
+    if metric == "l2":
+        dist = bias - 2.0 * cross + nrm
+    else:
+        dist = bias - cross + torch.where(nrm >= 1e29, nrm, torch.zeros_like(nrm))
+    lane = torch.arange(chunk, device=dist.device)
+    dist = torch.where(lane[None, None, :] < nval2d[:, :, None], dist, float("inf"))
+    return fold_planes(dist, groups)
+
+
+def fold_planes(dist, groups: int):
+    """The reference's fold of an (nq, t_fixed, chunk) distance plane into
+    per-(group, lane) best / second planes and their slots (local slot u
+    outer, fan f inner, group f % G, strict '<'). -> (dist_plane,
+    slot_plane). Written apart from stream_fused_plane_reference's own
+    fold, which stays the oracle the split rule is held to."""
+    nq, t_fixed, chunk = dist.shape
+    t_sub = t_fixed // FAN
+    inf = float("inf")
+    bv = torch.full((nq, groups, chunk), inf, device=dist.device)
+    bs = torch.full((nq, groups, chunk), -1, dtype=torch.int32, device=dist.device)
+    sv, ss = bv.clone(), bs.clone()
+    for u in range(t_sub):
+        for f in range(FAN):
+            s = f * t_sub + u
+            g = f % groups
+            dv = dist[:, s]
+            b, bi, s2, si = bv[:, g], bs[:, g], sv[:, g], ss[:, g]
+            better = dv < b
+            disp = torch.where(better, b, dv)  # the displaced candidate
+            disp_i = torch.where(better, bi, s)
+            sec = disp < s2
+            sv[:, g] = torch.where(sec, disp, s2)
+            ss[:, g] = torch.where(sec, disp_i, si)
+            bv[:, g] = torch.where(better, dv, b)
+            bs[:, g] = torch.where(better, s, bi)
+    return (
+        torch.cat([bv.reshape(nq, -1), sv.reshape(nq, -1)], dim=1),
+        torch.cat([bs.reshape(nq, -1), ss.reshape(nq, -1)], dim=1),
+    )
+
+
 def stream_fused_plane(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms,
                        *, chunk: int, groups: int, metric: str, scales=None):
     """K4 (bf16 and int8 tables). CPU tensors -> plain version; CUDA
-    tensors -> the kernel."""
+    tensors -> the kernel: one block per (query, group), or, where those
+    blocks leave SMs idle past the register modes, the split launch
+    (``stream_fused_split_plan``)."""
     if queries.device.type == "cpu":
         return stream_fused_plane_reference(
             queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms,
@@ -663,6 +793,19 @@ def stream_fused_plane(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms,
     width = 2 * groups * chunk
     dist_plane = torch.empty((nq, width), dtype=torch.float32, device=queries.device)
     slot_plane = torch.empty((nq, width), dtype=i32, device=queries.device)
+    split = stream_fused_split_plan(d, vecs.element_size(), chunk, nq, groups, t_fixed,
+                                    kb.sm_count(queries.device))
+    if split is not None:
+        part = torch.empty(nq * t_fixed * split.n_slices * chunk, dtype=torch.float32,
+                           device=queries.device)
+        kb.launch(
+            f"stream_fused_plane[{label}]", "vitorch_stream_fused_split",
+            *map(kb.ptr, args), kb.ptr(scl), nq, t_fixed, t_fixed // FAN, chunk, groups, d,
+            int(metric == "l2"), code, split.slice, split.parts, split.sub_rows,
+            split.stage_bytes, kb.ptr(part), kb.ptr(dist_plane), kb.ptr(slot_plane),
+            kb.stream_of(dist_plane),
+        )
+        return dist_plane, slot_plane
     kb.launch(
         f"stream_fused_plane[{label}]", "vitorch_stream_fused_plane",
         *map(kb.ptr, args), kb.ptr(scl), nq, t_fixed, t_fixed // FAN, chunk, groups, d,

@@ -20,14 +20,16 @@ slot by slot:
 The TPU kernel copied every list into VMEM scratch with concurrent chunked
 DMAs, which is why its caller gated it on a scratch budget and on d % 128.
 The CUDA kernel reads the rows in place, so it has neither limit, and
-serves any d: its launch plan (``ivf_gather_plan``) keeps the query's first
-K6_RESIDENT_D elements in shared memory and the kernel reads the rest of
-the query through L1.
+serves any d. Up to K6_RESIDENT_D dims, where one item holds a probe's
+whole segment, it runs one block per (query, probe) with the query in
+shared memory (``ivf_gather_plan``); past that, each probe's slots are cut
+into items of ~K6_ITEM_BYTES of rows, one block each, so that a long list
+is spread over many SMs (``ivf_gather_item_plan``, ``item_slots``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -48,6 +50,60 @@ def ivf_gather_plan(d: int) -> GatherPlan:
     read through L1 (csrc/ivf_gather.cu checks the plan)."""
     qres = min(d, K6_RESIDENT_D)
     return GatherPlan(qres, 4 * qres)
+
+
+# Wide rows: each probe's slots in items of about K6_ITEM_BYTES of rows (at
+# least one row per warp), the query in shared memory up to K6_QUERY_SMEM
+# bytes (the opt-in's 227 KB, less the kernel's own), in panels past that.
+K6_ITEM_BYTES = 1 << 20
+K6_QUERY_SMEM = 224 << 10
+K6_WARPS = 8
+_GRID_Y = 65_535
+
+
+class ItemPlan(NamedTuple):
+    rows: int  # slots per item (R)
+    items: int  # items per probe: ceil(max_len_pad / R), the grid's second dimension
+    panel: int  # query elements in shared memory at a time (d, or a multiple of 4)
+    smem: int  # dynamic shared memory bytes
+
+
+def ivf_gather_item_plan(d: int, max_len_pad: int) -> Optional[ItemPlan]:
+    """K6's item plan, or None where the one-block-per-(query, probe)
+    launch stays: d within K6_RESIDENT_D and one item of K6_ITEM_BYTES
+    holding a whole segment (d 128: 2,048 rows). R: the rows of
+    K6_ITEM_BYTES, at least K6_WARPS (16 at d 16,384), more where the
+    items would pass the grid's 65,535; past K6_QUERY_SMEM bytes of query
+    the panels are K6_QUERY_SMEM / 4 elements and R is K6_WARPS (a warp's
+    one row carries its partial dot across the panels)."""
+    rows = max(K6_WARPS, K6_ITEM_BYTES // (4 * d), -(-max_len_pad // _GRID_Y))
+    if d <= K6_RESIDENT_D and rows >= max_len_pad:
+        return None
+    panel = d
+    if 4 * d > K6_QUERY_SMEM:
+        panel, rows = K6_QUERY_SMEM // 4, K6_WARPS
+    return ItemPlan(rows, -(-max_len_pad // rows), panel, 4 * panel)
+
+
+def item_slots(offs, width: int, rows: int, items: int):
+    """The item launch's rule, plainly: for one query's clamped segment
+    offsets ``offs`` (p ints), the (probe, first slot, end slot) of every
+    item that is not empty. Item y of probe j holds slots
+    [off_j + y R, off_j + (y + 1) R) of the probe's range [off_j,
+    off_{j+1}) (the last probe's up to ``width``), the last item also the
+    rest of the range."""
+    out = []
+    p = len(offs)
+    for j in range(p):
+        off = int(offs[j])
+        span = (int(offs[j + 1]) if j + 1 < p else width) - off
+        for y in range(items):
+            lo = y * rows
+            if lo >= span:
+                break
+            hi = span if y == items - 1 else min(lo + rows, span)
+            out.append((j, off + lo, off + hi))
+    return out
 
 
 def _round_up(x: int, m: int) -> int:
@@ -145,6 +201,15 @@ def ivf_gather_distances(queries, vectors, starts, lengths, *, max_len: int, bud
            lengths.to(torch.int32).contiguous(),
            slot_offsets(lengths, max_len, budget).to(torch.int32).contiguous()]
     kb.require_cuda("ivf_gather_distances", *ops)
+    plan = ivf_gather_item_plan(d, max_len_pad(max_len))
+    if plan is not None:
+        kb.launch(
+            "ivf_gather_distances", "vitorch_ivf_gather_items",
+            *(kb.ptr(t) for t in ops), nq, p, d, plan.rows, plan.items, plan.panel,
+            max_len_pad(max_len), width, int(metric == "l2"), kb.ptr(dist), kb.ptr(rows),
+            kb.stream_of(dist),
+        )
+        return dist, rows
     kb.launch(
         "ivf_gather_distances", "vitorch_ivf_gather_distances",
         *(kb.ptr(t) for t in ops), nq, p, d, ivf_gather_plan(d).qres, max_len_pad(max_len), width,
