@@ -7,10 +7,11 @@
 
 ``--kernels-only`` stops after phase 3 and prints no JSON lines;
 ``--wide-only`` runs phase 11 alone without its CPU twins and offloaded
-runs, and prints its K4 / K6 timings as JSON lines. Copied into
-the root of another checkout (an unpacked earlier commit), the script
-builds, checks and times that checkout's kernels with this script's code:
-the way two kernel designs are compared in one call.
+runs, and prints its K2 / K4 / K5 / K6 timings as JSON lines. Copied into
+the root of another checkout (an unpacked commit whose wrappers have the
+same plan functions), the script builds, checks and times that
+checkout's kernels with this script's code: the way two kernel designs
+are compared in one call.
 
 Phases (each prints its own lines; any failure exits non-zero):
 
@@ -133,22 +134,30 @@ Phases (each prints its own lines; any failure exits non-zero):
    x 128) builds, then loads, on the card with the same ids as this
    process's ``VectorIndexer.load`` + ``search_sync``; K2 bf16, K4 bf16
    and K3 launched in the phase.
-11. Wide rows: K2 (with and without nval2d), K4, K5 in every table type
-   they take, and K6, against their plain versions at d 16,384, 20,000
-   and 65,536 on small tables (l2 and ip; 8 queries; K4 also at 1 and 40,
-   so both its split launch and one block per (query, group) run; each
-   check names its launch plan), then a 100,000 x 16,384 clustered corpus
-   drawn on the card (seed 11) and built with ``IvfIndex.fit`` (Lloyd, 10
-   iterations, and K1 at that width): ``auto`` at nq 1 (16 single-query calls) and 16 at
-   n_probe 8 / 32 / 64 (plus the first n_probe that ``resolve`` sends to
-   K4 where none of those does), ``gather_dma`` (K6) and
-   ``stream_shared_exact`` (K5 f32) at nq 16, n_probe 8, and, after
+11. Wide rows: K2 (with and without nval2d, at 1, 8 and 40 queries, and
+   twice, bit for bit), K4, K5 in every table type they take, and K6,
+   against their plain versions at d 1,536, 16,384, 20,000 and 65,536 on
+   small tables (l2 and ip; 8 queries; K4 also at 1 and 40, in its split
+   launch, which it takes at every nq past d 1024; each check names its
+   launch plan), and nvcc's report of every K2 instantiation (no spill);
+   then a 100,000 x 16,384 clustered corpus drawn on the card (seed 11)
+   and built with ``IvfIndex.fit`` (Lloyd, 10 iterations, and K1 at that
+   width): ``auto`` at nq 1 (16 single-query calls) and 16 at n_probe 8 /
+   20 / 32 / 64 (plus the first n_probe that ``resolve`` sends to K4 where
+   none of those does; the routes logged), ``gather_dma`` (K6)
+   and ``stream_shared_exact`` (K5 f32) at nq 16, n_probe 8, and, after
    ``offload_main_table(rerank='device')``, ``search_batch`` at n_probe 8
    and K4's n_probe (K2 / K4 int8); each run against a CPU twin (the same
    tables copied to the CPU), rank by rank; a launch check of each part;
-   K4 bf16 (at every (nq, n_probe) of those runs that took it) and K6 at
-   those runs' shapes checked and timed by graph replay beside their
-   bounds and sharing factors (``wide_rows`` in the kernels line).
+   K4 bf16 (at every (nq, n_probe) of those runs that took it), K6, K5's
+   K-panels (f32, nq 16, n_probe 8) and K2 bf16 / int8 (n_probe 8 / 20 at
+   nq 1 / 16 / 256, checked and run twice) at those shapes, timed by graph
+   replay beside their bounds (K2: per query and over distinct rows) and
+   sharing factors; then a
+   262,144 x 1,536 corpus drawn on the card (seed 13) and built the same
+   way, ``auto`` at nq 1 / 16 / 1000 and n_probe 8 / 20 (routes logged)
+   against a CPU twin of 16 queries, and K2 bf16 timed at those shapes
+   (nq 1000: its 256-query tile) (``wide_rows`` in the kernels line).
 
 The line before the last is a JSON object describing each kernel (its
 ``launches`` from the phase that must launch it, and ``launches_by_phase``
@@ -203,9 +212,9 @@ RTOL = 1e-5  # of the magnitude of the terms each distance is summed from
 K1_DIFF_SHARE = 1e-3
 # nvcc's register / spill report is printed for every instantiation of these.
 PTXAS_KERNELS = ("assign_argmin_kernel", "stream_distances_kernel", "flat_sweep_kernel",
-                 "stream_fused_plane_kernel", "stream_fused_partial_kernel",
-                 "stream_fused_fold_kernel", "stream_shared_plane_kernel", "ivf_gather_kernel",
-                 "ivf_gather_items_kernel")
+                 "stream_fused_plane_kernel", "stream_partial_kernel",
+                 "stream_distances_finish_kernel", "stream_fused_fold_kernel",
+                 "stream_shared_plane_kernel", "ivf_gather_kernel", "ivf_gather_items_kernel")
 # Published peaks of one H100 SXM (dense, 700 W), for each kernel's bound:
 # the larger of its bytes over the memory rate and its operations over the
 # peak rate of their type (f32 outside the tensor cores; TF32 and s8 on them).
@@ -318,13 +327,29 @@ PHASE10_KERNELS = ("stream_distances[bf16]", "stream_fused_plane[bf16]", "flat_s
 # corpus's lists send none of these to K4, the first n_probe that does is
 # added); the batch sizes; the queries of each CPU twin; the kernels the
 # phase must launch.
-WIDE_DIMS = (16_384, 20_000, 65_536)
+WIDE_DIMS = (1_536, 16_384, 20_000, 65_536)
 WIDE_N, WIDE_D, WIDE_SEED, WIDE_ITERS = 100_000, 16_384, 11, 10
-WIDE_N_PROBES = (8, 32, 64)
+WIDE_N_PROBES = (8, 20, 32, 64)
 WIDE_NQ = (1, 16)
 WIDE_TWIN = 16
-# K4 at the kernel checks' widths: 1 and 8 queries take the split launch,
-# WIDE_CHECK_NQ (with G 4, past the SMs) one block per (query, group).
+# Queries drawn with each wide corpus: the runs take the first WIDE_TWIN,
+# 'auto' on the 1,536 corpus and the K2 timings up to the stream program's
+# 256-query tile take more.
+WIDE_QUERIES = 1000
+# K2 timed at 'auto''s K2 shapes (n_probe 8 and 20 at nq 1 and 16; nq 256,
+# the stream program's tile, where 'auto' takes the dense program, timed
+# at that shape directly), bf16 and int8 (the offload's table).
+WIDE_K2_N_PROBES = (8, 20)
+WIDE_K2_NQ = (1, 16, 256)
+# The second wide corpus: 262,144 x 1,536 (the width of OpenAI's
+# text-embedding-ada-002 / -3-small vectors, as served in DBpedia-OpenAI-1M),
+# drawn on the card (seed 13), 2,048 lists of ~128 rows; 'auto' at nq 1 /
+# 16 / 1000.
+W1536_N, W1536_D, W1536_SEED = 262_144, 1_536, 13
+W1536_NQ = (1, 16, 1000)
+# The K2 instantiations whose nvcc report must show no spill.
+K2_PTXAS = ("stream_distances_kernel", "stream_partial_kernel", "stream_distances_finish_kernel")
+# K2 and K4 at the kernel checks' widths: 1, 8 and WIDE_CHECK_NQ queries.
 WIDE_CHECK_NQ = 40
 WIDE_KERNELS = ("assign_argmin", "stream_distances[bf16]", "stream_fused_plane[bf16]",
                 "ivf_gather_distances", "stream_shared_plane[f32]")
@@ -400,12 +425,14 @@ def distinct_rows(table, grid) -> int:
     return int(rows.sum())
 
 
-def stream_bound(q, table, grid, out_bytes: int) -> dict:
+def stream_bound(q, table, grid, out_bytes: int, per_query: bool = False) -> dict:
     """K2 / K4: each probed block's valid rows (and norms) read once, the
-    queries, the outputs; 2 d operations per valid (query, row) pair."""
+    queries, the outputs; 2 d operations per valid (query, row) pair.
+    ``per_query``: each query's valid rows read once for that query (the
+    least a design that shares no list across queries moves)."""
     d = q.shape[1]
-    nbytes = distinct_rows(table, grid) * (d * table.vecs.element_size() + 4) + q.numel() * 4 \
-        + out_bytes
+    rows = int(grid["nval"].clamp_min(0).sum()) if per_query else distinct_rows(table, grid)
+    nbytes = rows * (d * table.vecs.element_size() + 4) + q.numel() * 4 + out_bytes
     return bound(nbytes, 2.0 * float(grid["nval"].clamp_min(0).sum()) * d, F32_FLOP_S)
 
 
@@ -774,6 +801,15 @@ def k1_entry(torch, x, cent, check, where: str) -> dict:
     return entry
 
 
+def check_k2_spills(check, log_text: str) -> None:
+    """nvcc's report of every K2 instantiation (K2_PTXAS) shows no register
+    spill."""
+    lines = ptxas_lines(log_text, K2_PTXAS)
+    spills = [ln for ln in lines if ", 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    check(bool(lines) and not spills,
+          f"nvcc: {len(lines)} K2 instantiations, none spills registers {spills or ''}")
+
+
 def kernel_phase(torch, np, xb, xq, check, results, dev):
     from vector_indexer_tpu_torch.index import dispatch
     from vector_indexer_tpu_torch.index.ivf import IvfIndex
@@ -783,6 +819,7 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
 
     for line in ptxas_lines(kb.build_info().get("log", ""), PTXAS_KERNELS):
         log(f"  ptxas {line}")
+    check_k2_spills(check, kb.build_info().get("log", ""))
     # K1 at the build's final-assignment shape: 65,536 points x 4,000 x 128.
     x = torch.as_tensor(xb[:65536], device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -2607,9 +2644,8 @@ def k4_launch(q, table, t_fixed: int) -> str:
     from vector_indexer_tpu_torch.ops import block_stream as bs
 
     G = bs.pick_stream_groups(table.chunk)
-    plan_of = getattr(bs, "stream_fused_split_plan", None)  # absent before the split launch
-    p = None if plan_of is None else plan_of(q.shape[1], table.vecs.element_size(), table.chunk,
-                                             q.shape[0], G, t_fixed, kb.sm_count(q.device))
+    p = bs.stream_fused_split_plan(q.shape[1], table.vecs.element_size(), table.chunk,
+                                   q.shape[0], G, t_fixed, kb.sm_count(q.device))
     if p is None:
         return f"one block per (query, group): {q.shape[0] * G} blocks"
     return (f"split: {p.n_slices} slices of {p.slice} x {p.parts} parts of the rows, "
@@ -2621,21 +2657,42 @@ def k6_launch(d: int, max_len: int) -> str:
     probe, query panel) or one block per (query, probe)."""
     from vector_indexer_tpu_torch.ops import ivf_gather as ig
 
-    plan_of = getattr(ig, "ivf_gather_item_plan", None)  # absent before the item launch
-    p = None if plan_of is None else plan_of(d, ig.max_len_pad(max_len))
+    p = ig.ivf_gather_item_plan(d, ig.max_len_pad(max_len))
     if p is None:
         return f"one block per (query, probe), {ig.ivf_gather_plan(d).qres} query elements in " \
                f"shared memory"
     return f"items of {p.rows} rows, {p.items} per probe, query panel {p.panel}"
 
 
+def k2_launch(q, table, grid) -> str:
+    """Which K2 launch these operands take: the split plan (slices of d x
+    parts of each query's valid rows, the bytes its stages keep in flight an
+    SM), or one block per run of a query's slots (16-byte words in flight)."""
+    from vector_indexer_tpu_torch.kernels import build as kb
+    from vector_indexer_tpu_torch.ops import block_stream as bs
+
+    nq, d = q.shape
+    item, t_fixed = table.vecs.element_size(), grid["t_fixed"]
+    p = bs.stream_distances_split_plan(d, item, table.chunk, nq, t_fixed, kb.sm_count(q.device))
+    if p is None:
+        base = bs.stream_distances_plan(d, item, t_fixed, table.chunk)
+        return (f"one block per (query, run of {base.spb} slots): "
+                f"{nq * -(-t_fixed // base.spb)} blocks, 32 KB in flight a block")
+    rows = float(grid["nval"].clamp_min(0).sum()) / nq / p.parts
+    per_sm = 2 if p.smem <= bs.SPLIT_SMEM else 1
+    return (f"split: {p.n_slices} slices of {p.slice} x {p.parts} parts of ~{rows:.1f} rows, "
+            f"{p.blocks} blocks, {p.sub_rows} rows a stage, "
+            f"{per_sm * bs.SPLIT_STAGES * p.stage_bytes // 1024} KB in flight an SM")
+
+
 def wide_kernel_checks(torch, np, check, dev):
     """K2 (with and without nval2d; bf16 / int8 / f32), K4 (bf16 / int8), K5
     (bf16 / int8 / f32) and K6 against their plain versions at each d of
-    ``dims``, l2 and ip, on a small index of that width (2,048 points, 8
-    lists, chunk 256, 8 queries probing 3 lists; K4 also at 1 and
-    WIDE_CHECK_NQ queries); each check names the launch plan (panel, rows,
-    stages; K4's split or not, K6's items) its kernel took."""
+    WIDE_DIMS, l2 and ip, on a small index of that width (2,048 points, 8
+    lists, chunk 256, 8 queries probing 3 lists; K2 and K4 also at 1 and
+    WIDE_CHECK_NQ queries; K2 run twice, bit for bit); each check names the
+    launch plan (K2's and K4's split or not, rows, stages; K6's items) its
+    kernel took."""
     from vector_indexer_tpu_torch.index.ivf import IvfIndex
     from vector_indexer_tpu_torch.kernels import build as kb
     from vector_indexer_tpu_torch.ops import block_stream as bs
@@ -2658,21 +2715,27 @@ def wide_kernel_checks(torch, np, check, dev):
             for metric in ("l2", "ip"):
                 grid = stream_grid(q, tb, c, c_sq, lengths, n_probe, metric, worst_case=exact)
                 what = f"{mode} d={d} {metric} t_fixed={grid['t_fixed']}"
-                p2 = bs.stream_distances_plan(d, item, grid["t_fixed"], chunk)
-                for nval in (False, True):
-                    ok, err = check_k2(q, tb, grid, metric, nval)
-                    check(ok, f"K2 wide {what}{' nval2d' if nval else ''} (panel {p2.panel}, "
-                              f"{p2.spb} slots a block): |err| <= {RTOL:g}*(term magnitude); "
-                              f"max |err| {err:.3e}")
+                for qs in (q[:1], q, q_all):
+                    g2 = grid if qs is q else stream_grid(qs, tb, c, c_sq, lengths, n_probe,
+                                                          metric, worst_case=exact)
+                    launch = k2_launch(qs, tb, g2)
+                    for nval in (False, True):
+                        ok, err = check_k2(qs, tb, g2, metric, nval)
+                        check(ok, f"K2 wide {what} nq={len(qs)}{' nval2d' if nval else ''} "
+                                  f"({launch}): |err| <= {RTOL:g}*(term magnitude); max |err| "
+                                  f"{err:.3e}")
+                kw2 = k2_kw(tb, grid, metric, True)
+                runs2 = [bs.stream_distances(*k2_args(q, tb, grid), **kw2) for _ in range(2)]
+                check(torch.equal(*runs2), f"K2 wide {what} nq={len(q)} nval2d: two runs "
+                                           f"bit-equal")
+                del runs2
                 if not exact:
-                    p4 = bs.stream_fused_plan(d, item, chunk)
                     for qs in (q[:1], q, q_all):
                         g4 = grid if qs is q else stream_grid(qs, tb, c, c_sq, lengths, n_probe,
                                                               metric)
                         ok, n_mism, err = check_k4(qs, tb, g4, metric)
-                        launch = k4_launch(qs, tb, grid["t_fixed"])
-                        check(ok, f"K4 wide {what} nq={len(qs)} (panel {p4.panel}, {p4.sub_rows} "
-                                  f"rows a stage, {p4.smem} B; {launch}): planes within {RTOL:g}*(query term scale), {n_mism} slot "
+                        check(ok, f"K4 wide {what} nq={len(qs)} ({k4_launch(qs, tb, g4['t_fixed'])}"
+                                  f"): planes within {RTOL:g}*(query term scale), {n_mism} slot "
                                   f"differences all near-ties; max |err| {err:.3e}")
                 t_cap = bs.shared_task_cap(lengths, n_probe, nq, grid["t_fixed"],
                                            worst_case=exact, chunk=chunk)
@@ -2744,6 +2807,91 @@ def twin_check(np, check, what, card, cpu, scale):
           f"by near-tie swaps at rank {Dc.shape[1]} ({same:.4f} >= {TWIN_SAME_FLOOR})")
 
 
+def k2_wide_entry(torch, check, q, table, c, c_sq, lengths, n_probe: int, route: str) -> dict:
+    """K2 at one of the wide runs' shapes (l2, valid rows only): checked
+    against its plain version and run twice (bit-equal), timed by graph
+    replay beside the per-query bound (each query's valid rows, norms and
+    output) and the distinct-rows bound with the sharing factor between
+    them, the plain version's time, and the launch it took."""
+    from vector_indexer_tpu_torch.kernels import build as kb
+    from vector_indexer_tpu_torch.ops import block_stream as bs
+
+    nq, d = q.shape
+    mode = kb.ROW_TYPES[table.dtype][1]
+    grid = stream_grid(q, table, c, c_sq, lengths, n_probe, "l2")
+    kw = k2_kw(table, grid, "l2", True)
+    fn = lambda: bs.stream_distances(*k2_args(q, table, grid), **kw)
+    ok, err = check_k2(q, table, grid, "l2", True)
+    same = torch.equal(fn(), fn())
+    launch = k2_launch(q, table, grid)
+    shape = f"{mode} nq={nq} n_probe={n_probe} t_fixed={grid['t_fixed']} chunk={table.chunk} d={d}"
+    check(ok and same, f"K2 {shape} ('auto': {route}; {launch}): |err| <= {RTOL:g}*(term "
+                       f"magnitude), +inf past nval; max |err| {err:.3e}; two runs bit-equal: "
+                       f"{same}")
+    out_bytes = nq * grid["t_fixed"] * table.chunk * 4
+    sharing = stream_sharing(table, grid)
+    return dict(
+        max_abs_err=err, ms=graph_ms(torch, fn),
+        plain_ms=cuda_ms(torch, lambda: bs.stream_distances_reference(
+            *k2_args(q, table, grid), **kw), reps=1),
+        per_query_bound_ms=stream_bound(q, table, grid, out_bytes, per_query=True)["bound_ms"],
+        sharing=sharing, launch=launch, route=route, table=mode,
+        shape=f"{shape}, sharing factor {sharing:.3f}",
+        **stream_bound(q, table, grid, out_bytes))
+
+
+def log_k2_entries(entries, gpu: str) -> None:
+    """One line per K2 timing: the kernel against both bounds."""
+    for r in entries:
+        pq = r["per_query_bound_ms"]
+        log(f"  wide_k2: kernel {r['ms']:.4f} ms (graph replay), plain {r['plain_ms']:.3f} ms, "
+            f"per-query bound {pq:.4f} ms ({pq / r['ms']:.3f} of it), distinct-rows bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) ({r['shape']}; {r['launch']}; 'auto': "
+            f"{r['route']}; {gpu})")
+
+
+def k5_kpanel_entry(torch, check, idx, xq_dev, nq: int, n_probe: int) -> dict:
+    """K5 f32 at 'stream_shared_exact''s shape on the wide index (its
+    K-panel mode at d 16,384): checked, timed by graph replay beside its
+    bound."""
+    from vector_indexer_tpu_torch.index import dispatch
+    from vector_indexer_tpu_torch.ops import block_stream as bs
+
+    tb = idx._stream_table(torch.float32)
+    c, c_sq = idx._device_tables()
+    dec = dispatch.resolve(idx, nq, n_probe, k=K, method="stream_shared_exact")
+    qs = xq_dev[:nq]
+    tasks = shared_tasks(qs, tb, c, c_sq, idx.layout.lengths, n_probe, dec.t_fixed, dec.t_cap,
+                         "l2")
+    p5 = bs.stream_shared_plan(qs.shape[1], 4, tb.chunk)
+    used = int((tasks.blk >= 0).sum())
+    launch = (f"K-panel {p5.kpanel}, {p5.panel_rows} rows, {p5.stages} stages, {dec.t_cap} "
+              f"tasks ({used} used)")
+    ok, err = check_k5(tb, tasks, "l2")
+    shape = f"f32 nq={nq} n_probe={n_probe} t_fixed={dec.t_fixed} t_cap={dec.t_cap} d={qs.shape[1]}"
+    check(ok, f"K5 {shape} ({launch}): |err| <= {RTOL:g}*(|qc|^2+|r|^2); max |err| {err:.3e}")
+    kw = dict(chunk=tb.chunk, metric="l2")
+    return dict(max_abs_err=err,
+                ms=graph_ms(torch, lambda: bs.stream_shared_plane(*k5_args(tb, tasks), **kw)),
+                plain_ms=cuda_ms(torch, lambda: bs.stream_shared_plane_reference(
+                    *k5_args(tb, tasks), **kw), reps=1),
+                sharing=int(tasks.written.sum()) / max(1, int(torch.unique(
+                    tasks.blk[tasks.blk >= 0]).numel())),
+                launch=launch, shape=shape, **shared_bound(tb, tasks))
+
+
+def wide_search(torch, ix, method, nq, n_probe, qs, k: int = K):
+    """``search_batch_device`` of ``qs`` at batch ``nq`` (nq 1: one call per
+    query, nq 1's program for each) -> (D, internal ids) numpy."""
+    if nq == 1:
+        outs = [ix.search_batch_device(qs[i:i + 1], k, n_probe, method=method)
+                for i in range(len(qs))]
+        D, R = (torch.cat([o[j] for o in outs]) for j in (0, 1))
+    else:
+        D, R = ix.search_batch_device(qs, k, n_probe, method=method)
+    return D.cpu().numpy(), ix.rows_to_internal(R.cpu().numpy())
+
+
 def wide_phase(torch, np, check, dev, results, twins: bool = True):
     """Phase 11 (wide rows): the kernels against their plain versions at
     WIDE_DIMS, then a WIDE_N x WIDE_D clustered corpus built on the card
@@ -2751,15 +2899,15 @@ def wide_phase(torch, np, check, dev, results, twins: bool = True):
     (K2 and K4 bf16), 'gather_dma' (K6), 'stream_shared_exact' (K5 f32)
     and, offloaded with rerank='device', 'auto' (K2 / K4 int8); each run
     against a CPU twin of WIDE_TWIN queries (``twins``); K4 (at nq 16 and
-    at nq 1 for each n_probe 'auto' sends there) and K6 timed at their
+    at nq 1 for each n_probe 'auto' sends there), K2 (bf16 and int8 at
+    WIDE_K2_N_PROBES x WIDE_K2_NQ), K6 and K5's K-panels timed at their
     shapes by graph replay beside their bounds and sharing factors (into
-    ``results``). Returns the launch counts of the build and the
+    ``results``); then the 1,536-wide corpus (``wide_1536``). Returns the launch counts of the builds and the
     searches."""
     from vector_indexer_tpu_torch.index.dispatch import resolve
     from vector_indexer_tpu_torch.index.ivf import IvfIndex
     from vector_indexer_tpu_torch.kernels import build as kb
     from vector_indexer_tpu_torch.ops import block_stream as bs
-    from vector_indexer_tpu_torch.ops import ivf_gather as ig
     from vector_indexer_tpu_torch.storage.vector_store import VectorStore
 
     t_ph = time.perf_counter()
@@ -2769,12 +2917,13 @@ def wide_phase(torch, np, check, dev, results, twins: bool = True):
 
     kb.reset_launch_counts()  # counts from here on belong to phase 11's runs
     t0 = time.perf_counter()
-    xb_dev, xq_dev = clustered_on_card(torch, n, d, WIDE_TWIN, WIDE_SEED, dev)
+    xb_dev, xq_all = clustered_on_card(torch, n, d, WIDE_QUERIES, WIDE_SEED, dev)
+    xq_dev = xq_all[:WIDE_TWIN]
     xb, xq = xb_dev.cpu().numpy(), xq_dev.cpu().numpy()
     del xb_dev
     gc_collect(torch)
-    log(f"  wide corpus {n} x {d} f32 ({xb.nbytes / 1e9:.2f} GB) and {WIDE_TWIN} queries drawn "
-        f"on the card (seed {WIDE_SEED}): {time.perf_counter() - t0:.2f}s")
+    log(f"  wide corpus {n} x {d} f32 ({xb.nbytes / 1e9:.2f} GB) and {WIDE_QUERIES} queries "
+        f"drawn on the card (seed {WIDE_SEED}): {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     store = VectorStore(external_ids=np.arange(n, dtype=np.uint64), vectors=xb)
     idx = IvfIndex.fit(store, seed=42, max_iters=WIDE_ITERS, device=dev)
@@ -2803,21 +2952,12 @@ def wide_phase(torch, np, check, dev, results, twins: bool = True):
     check(runs[-2][3] == "gather_dma/K6" and runs[-1][3] == "stream_shared/K5",
           f"resolve: gather_dma -> {runs[-2][3]}, stream_shared_exact -> {runs[-1][3]}")
 
-    def search(ix, method, nq, n_probe, qs):
-        if nq == 1:  # the queries one at a time: nq 1's program for each
-            outs = [ix.search_batch_device(qs[i:i + 1], k, n_probe, method=method)
-                    for i in range(len(qs))]
-            D, R = (torch.cat([o[j] for o in outs]) for j in (0, 1))
-        else:
-            D, R = ix.search_batch_device(qs, k, n_probe, method=method)
-        return D.cpu().numpy(), ix.rows_to_internal(R.cpu().numpy())
-
     card = {}
     for method, nq, n_probe, route in runs:
-        search(idx, method, nq, n_probe, xq_dev)  # warm-up: builds the tables
+        wide_search(torch, idx, method, nq, n_probe, xq_dev)  # warm-up: builds the tables
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        card[(method, nq, n_probe)] = search(idx, method, nq, n_probe, xq_dev)
+        card[(method, nq, n_probe)] = wide_search(torch, idx, method, nq, n_probe, xq_dev)
         ms = (time.perf_counter() - t0) * 1e3
         D = card[(method, nq, n_probe)][0]
         log(f"  {method} nq={nq} n_probe={n_probe} ({route}): {ms:.2f} ms for {WIDE_TWIN} "
@@ -2827,21 +2967,26 @@ def wide_phase(torch, np, check, dev, results, twins: bool = True):
     routes_seen = {r for *_, r in runs}
     check({"stream/K4", "stream/K2"} <= routes_seen,
           f"the wide runs take both stream routes (K2 and K4): {sorted(routes_seen)}")
+    k2_runs = {(nq, p): r for m, nq, p, r in runs if m == "auto" and p in WIDE_K2_N_PROBES}
+    log(f"  'auto' at n_probe {WIDE_K2_N_PROBES}, nq {WIDE_NQ}: {k2_runs} (K2 is timed at each "
+        f"of these shapes below, whichever route 'auto' takes)")
     torch.cuda.synchronize()
     counts = kb.launch_counts()  # the build and the runs; comparisons below do not count
     for name in WIDE_KERNELS:
         check(counts[name] > 0, f"{name} launched in phase 11's device-resident runs "
                                 f"({counts[name]}x)")
 
-    # K4 and K6 at this width, timed by graph replay beside their bounds.
+    # K4, K2, K6 and K5's K-panels at this width, timed by graph replay
+    # beside their bounds.
     c, c_sq = idx._device_tables()
     tb = idx._stream_table()
+    lengths = idx.layout.lengths
     G = bs.pick_stream_groups(tb.chunk)
     kw = dict(chunk=tb.chunk, groups=G, metric="l2", scales=tb.scales)
 
     def k4_entry(nq, n_probe):
         qs = xq_dev[:nq]
-        grid = stream_grid(qs, tb, c, c_sq, idx.layout.lengths, n_probe, "l2")
+        grid = stream_grid(qs, tb, c, c_sq, lengths, n_probe, "l2")
         launch = k4_launch(qs, tb, grid["t_fixed"])
         ok, n_mism, err = check_k4(qs, tb, grid, "l2")
         check(ok, f"K4 bf16 at a wide run's shape (nq={nq}, n_probe={n_probe}, t_fixed="
@@ -2871,61 +3016,148 @@ def wide_phase(torch, np, check, dev, results, twins: bool = True):
               f"max |err| {err:.3e}")
     results["wide_k6"] = [dict(k6_entry(torch, xq_dev, idx.layout.vectors, starts, lens, max_len,
                                         budget, err), launch=k6_launch(d, max_len))]
-    for name in ("wide_k4", "wide_k6"):
+    del starts, lens
+    results["wide_k5"] = [k5_kpanel_entry(torch, check, idx, xq_dev, WIDE_TWIN, 8)]
+    for name in ("wide_k4", "wide_k6", "wide_k5"):
         for r in results[name]:
             log(f"  {name}: kernel {r['ms']:.4f} ms (graph replay), plain {r['plain_ms']:.3f} ms, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of "
                 f"the bound ({r['shape']}; {r['launch']}; {gpu})")
-    del starts, lens
-    if not twins:
-        del tb, idx
-        gc_collect(torch)
-        log(f"  launch counts in phase 11 (no CPU twins): {counts}; phase 11 "
-            f"{time.perf_counter() - t_ph:.2f}s")
-        return counts
 
-    # The CPU twin: the same tables, the plain versions.
-    t0 = time.perf_counter()
-    tw = cpu_twin(torch, idx)
-    log(f"  CPU twin (tables copied): {time.perf_counter() - t0:.2f}s")
-    for method, nq, n_probe, route in runs:
+    # K2 bf16 and int8 (the offload's table, built on the card) at 'auto''s
+    # K2 shapes; nq 256 is the stream program's tile.
+    tb8 = idx._stream_table(torch.int8)
+    results["wide_k2"] = [
+        k2_wide_entry(torch, check, xq_all[:nq], table, c, c_sq, lengths, p,
+                      route_of(resolve(idx, nq, p, k=k), k))
+        for table in (tb, tb8) for p in WIDE_K2_N_PROBES for nq in WIDE_K2_NQ]
+    log_k2_entries(results["wide_k2"], gpu)
+    del tb8
+
+    if twins:
+        # The CPU twin: the same tables, the plain versions.
         t0 = time.perf_counter()
-        twin_check(np, check, f"wide {method} nq={nq} n_probe={n_probe} ({route})",
-                   card[(method, nq, n_probe)], search(tw, method, nq, n_probe, xq), scale)
-        log(f"  twin of {method} nq={nq} n_probe={n_probe}: {time.perf_counter() - t0:.2f}s")
-    del tw, tb
+        tw = cpu_twin(torch, idx)
+        log(f"  CPU twin (tables copied): {time.perf_counter() - t0:.2f}s")
+        for method, nq, n_probe, route in runs:
+            t0 = time.perf_counter()
+            twin_check(np, check, f"wide {method} nq={nq} n_probe={n_probe} ({route})",
+                       card[(method, nq, n_probe)], wide_search(torch, tw, method, nq, n_probe, xq),
+                       scale)
+            log(f"  twin of {method} nq={nq} n_probe={n_probe}: {time.perf_counter() - t0:.2f}s")
+        del tw
 
-    # Offloaded, with the device re-rank: 'auto' over the int8 table (the
-    # counts are read around each search alone).
-    t0 = time.perf_counter()
-    idx.offload_main_table(rerank="device")
+        # Offloaded, with the device re-rank: 'auto' over the int8 table (the
+        # counts are read around each search alone).
+        t0 = time.perf_counter()
+        idx.offload_main_table(rerank="device")
+        gc_collect(torch)
+        log(f"  offload_main_table(rerank='device'): {time.perf_counter() - t0:.2f}s")
+        off = {}
+        for n_probe in sorted({8, p4}):
+            before = kb.launch_counts()
+            D, I = idx.search_batch(xq, k, n_probe)
+            torch.cuda.synchronize()
+            ran = {name: c - before[name] for name, c in kb.launch_counts().items()
+                   if name in WIDE_OFFLOAD_KERNELS and c > before[name]}
+            for name, c in ran.items():
+                counts[name] += c
+            off[n_probe] = (D, I, ran)
+            log(f"  offload (device re-rank) n_probe={n_probe}: launched {ran}")
+            check(D.shape == (WIDE_TWIN, k) and bool(np.isfinite(D).all()),
+                  f"wide offload (device re-rank) n_probe={n_probe}: finite ({WIDE_TWIN}, {k})")
+        for name in WIDE_OFFLOAD_KERNELS:
+            check(counts[name] > 0,
+                  f"{name} launched in phase 11's offloaded runs ({counts[name]}x)")
+        tw = cpu_twin(torch, idx)
+        for n_probe, (D, I, ran) in off.items():
+            t1 = time.perf_counter()
+            twin_check(np, check, f"wide offload (device re-rank) n_probe={n_probe} "
+                                  f"({', '.join(ran)})", (D, I), tw.search_batch(xq, k, n_probe),
+                       scale)
+            log(f"  twin of the offloaded n_probe={n_probe}: {time.perf_counter() - t1:.2f}s")
+        del tw
+    del idx, tb, xq_all, c, c_sq
     gc_collect(torch)
-    log(f"  offload_main_table(rerank='device'): {time.perf_counter() - t0:.2f}s")
-    off = {}
-    for n_probe in sorted({8, p4}):
-        before = kb.launch_counts()
-        D, I = idx.search_batch(xq, k, n_probe)
+    log(f"  phase 11 at d {d}: {time.perf_counter() - t_ph:.2f}s")
+    for name, n_l in wide_1536(torch, np, check, dev, results, twins, gpu).items():
+        counts[name] += n_l
+    log(f"  launch counts in phase 11{'' if twins else ' (no CPU twins)'}: {counts}; phase 11 "
+        f"{time.perf_counter() - t_ph:.2f}s")
+    return counts
+
+
+def wide_1536(torch, np, check, dev, results, twins: bool, gpu: str) -> dict:
+    """Phase 11's second corpus: W1536_N x W1536_D drawn on the card (seed
+    W1536_SEED; f32 1.6 GB, its bf16 table ~0.8 GB, far past L2), built with
+    Lloyd at WIDE_ITERS iterations (K1), served by 'auto' at W1536_NQ x
+    WIDE_K2_N_PROBES (routes logged: K2 at nq 1 / 16, the dense program at
+    nq 1000) and held to a CPU twin of WIDE_TWIN queries (``twins``; the
+    nq-1000 runs by their first WIDE_TWIN rows, searched with the method
+    'auto' resolved to); K2 timed at those shapes (nq 1000: its 256-query
+    tile), into results["wide_k2"]. Returns the launch counts of the build
+    and the searches."""
+    from vector_indexer_tpu_torch.index.dispatch import resolve
+    from vector_indexer_tpu_torch.index.ivf import IvfIndex
+    from vector_indexer_tpu_torch.kernels import build as kb
+    from vector_indexer_tpu_torch.storage.vector_store import VectorStore
+
+    t_ph = time.perf_counter()
+    k, n, d = K, W1536_N, W1536_D
+    before = kb.launch_counts()
+    xb_dev, xq_all = clustered_on_card(torch, n, d, WIDE_QUERIES, W1536_SEED, dev)
+    xb = xb_dev.cpu().numpy()
+    del xb_dev
+    idx = IvfIndex.fit(VectorStore(external_ids=np.arange(n, dtype=np.uint64), vectors=xb),
+                       seed=42, max_iters=WIDE_ITERS, device=dev)
+    torch.cuda.synchronize()
+    log(f"  corpus {n} x {d} f32 ({xb.nbytes / 1e9:.2f} GB, seed {W1536_SEED}) drawn and built "
+        f"(Lloyd {WIDE_ITERS} iterations, K1): {time.perf_counter() - t_ph:.2f}s; nlist "
+        f"{idx.num_clusters}, max list {idx.layout.max_list_len}")
+    xq = xq_all[:WIDE_TWIN].cpu().numpy()
+    scale = np.sum(xq * xq, axis=1) + float(np.max(np.sum(xb * xb, axis=1)))
+    del xb
+    runs = [(nq, p, resolve(idx, nq, p, k=k)) for nq in W1536_NQ for p in WIDE_K2_N_PROBES]
+    log(f"  auto routes at d {d}: " + ", ".join(
+        f"nq={nq} n_probe={p}: {route_of(dec, k)} ({dec.method})" for nq, p, dec in runs))
+    card = {}
+    for nq, p, dec in runs:
+        qs = xq_all[:max(nq, WIDE_TWIN)] if nq > 1 else xq_all[:WIDE_TWIN]
+        wide_search(torch, idx, "auto", nq, p, qs)  # warm-up: builds the tables
         torch.cuda.synchronize()
-        ran = {name: c - before[name] for name, c in kb.launch_counts().items()
-               if name in WIDE_OFFLOAD_KERNELS and c > before[name]}
-        for name, c in ran.items():
-            counts[name] += c
-        off[n_probe] = (D, I, ran)
-        log(f"  offload (device re-rank) n_probe={n_probe}: launched {ran}")
-        check(D.shape == (WIDE_TWIN, k) and bool(np.isfinite(D).all()),
-              f"wide offload (device re-rank) n_probe={n_probe}: finite ({WIDE_TWIN}, {k})")
-    for name in WIDE_OFFLOAD_KERNELS:
-        check(counts[name] > 0, f"{name} launched in phase 11's offloaded runs ({counts[name]}x)")
-    tw = cpu_twin(torch, idx)
-    for n_probe, (D, I, ran) in off.items():
-        t1 = time.perf_counter()
-        twin_check(np, check, f"wide offload (device re-rank) n_probe={n_probe} "
-                              f"({', '.join(ran)})", (D, I), tw.search_batch(xq, k, n_probe),
-                   scale)
-        log(f"  twin of the offloaded n_probe={n_probe}: {time.perf_counter() - t1:.2f}s")
-    del tw, idx
+        t0 = time.perf_counter()
+        D, R = wide_search(torch, idx, "auto", nq, p, qs)
+        ms = (time.perf_counter() - t0) * 1e3
+        card[(nq, p)] = (D[:WIDE_TWIN], R[:WIDE_TWIN])
+        log(f"  auto nq={nq} n_probe={p} ({route_of(dec, k)}) at d {d}: {ms:.2f} ms for "
+            f"{len(qs)} queries (host clock{', one call per query' if nq == 1 else ''})")
+        check(D.shape == (len(qs), k) and bool(np.isfinite(D).all()),
+              f"wide d={d} auto nq={nq} n_probe={p} ({route_of(dec, k)}): finite ({len(qs)}, {k})")
+    torch.cuda.synchronize()
+    counts = {name: c - before[name] for name, c in kb.launch_counts().items()}
+    for name in ("assign_argmin", "stream_distances[bf16]"):
+        check(counts[name] > 0, f"{name} launched in the d {d} build and runs ({counts[name]}x)")
+
+    c, c_sq = idx._device_tables()
+    tb = idx._stream_table()
+    entries = [k2_wide_entry(torch, check, xq_all[:min(nq, 256)], tb, c, c_sq,
+                             idx.layout.lengths, p, route_of(dec, k)) for nq, p, dec in runs]
+    log_k2_entries(entries, gpu)
+    results["wide_k2"] += entries
+    del tb, c, c_sq
+    if twins:
+        t0 = time.perf_counter()
+        tw = cpu_twin(torch, idx)
+        for nq, p, dec in runs:
+            method = "auto" if nq <= WIDE_TWIN else dec.method
+            twin_check(np, check, f"wide d={d} auto nq={nq} n_probe={p} ({route_of(dec, k)}; twin: "
+                                  f"{method} at nq {min(nq, WIDE_TWIN)})", card[(nq, p)],
+                       wide_search(torch, tw, method, min(nq, WIDE_TWIN), p, xq), scale)
+        log(f"  twins at d {d}: {time.perf_counter() - t0:.2f}s")
+        del tw
+    del idx, xq_all
     gc_collect(torch)
-    log(f"  launch counts in phase 11: {counts}; phase 11 {time.perf_counter() - t_ph:.2f}s")
+    log(f"  d {d} corpus: {time.perf_counter() - t_ph:.2f}s")
     return counts
 
 
@@ -2981,12 +3213,13 @@ def main() -> int:
     if args.wide_only:
         for line in ptxas_lines(info.get("log", ""), PTXAS_KERNELS):
             log(f"  ptxas {line}")
+        check_k2_spills(check, info.get("log", ""))
         log("== 11. wide rows (alone, no CPU twins)")
         results = {}
         t0 = time.perf_counter()
         counts = wide_phase(torch, np, check, dev, results, twins=False)
         log(f"  phase 11: {time.perf_counter() - t0:.2f}s")
-        for name in ("wide_k4", "wide_k6"):
+        for name in ("wide_k2", "wide_k4", "wide_k6", "wide_k5"):
             print(json.dumps({name: results[name]}), flush=True)
         log(f"== {check.n} checks in {time.perf_counter() - t_start:.1f}s")
         if check.failures:
@@ -3052,17 +3285,20 @@ def main() -> int:
 
     counts["flat_sweep_minreduce"] = results["flat_sweep_minreduce"]["launches"]  # phase 3
     wide = {"stream_fused_plane[bf16]": results["wide_k4"],
-            "ivf_gather_distances": results["wide_k6"]}
-    wide_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "sharing", "launch",
-                 "shape")
+            "ivf_gather_distances": results["wide_k6"],
+            "stream_shared_plane[f32]": results["wide_k5"],
+            **{f"stream_distances[{m}]": [e for e in results["wide_k2"] if e["table"] == m]
+               for m in ("bf16", "int8")}}
+    wide_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "per_query_bound_ms",
+                 "sharing", "launch", "route", "shape")
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
              launches_by_phase={p: c.get(name, 0) for p, c in by_phase.items()},
              **{key: results[name][key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "library_call", "shape")},
-             **({"wide_rows": [{key: e[key] for key in wide_keys} for e in wide[name]]}
-                if name in wide else {}))
+             **({"wide_rows": [{key: e[key] for key in wide_keys if key in e}
+                               for e in wide[name]]} if name in wide else {}))
         for name, (src, rep) in SOURCES.items()
     ]
     log(f"== {check.n} checks in {time.perf_counter() - t_start:.1f}s")

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-SCRIPTS = ["chip_smoke.py", "tools/torch_profile.py", "tools/torch_shape_check.py"]
+SCRIPTS = ["chip_smoke.py", "tools/torch_profile.py", "tools/torch_shape_check.py",
+           "tools/torch_k2_sweep.py"]
 DEMO = "examples/demo_torch.py"
 
 _IMPORT_ALL = """

@@ -84,20 +84,21 @@ def test_plan_covers_every_row(itemsize):
     for d in list(range(1, 70)) + [96, 100, 128, 255, 256, 512, 768, 1024, 1100, 1536, 2048,
                                    4096, 12288]:
         for t_fixed, chunk in ((1, 256), (16, 256), (48, 1024)):
-            nch, lpr, spb, panel, smem = bs.stream_distances_plan(d, itemsize, t_fixed, chunk)
+            plan = bs.stream_distances_plan(d, itemsize, t_fixed, chunk)
             cpr = -(-d // epc)
-            assert lpr in (1, 2, 4, 8, 16, 32) and nch in (0, 4)
-            if nch:
-                assert lpr * nch >= cpr and (lpr == 1 or (lpr // 2) * nch < cpr)  # fewest lanes
-            else:
-                assert lpr == 32 and cpr > 128  # the wide mode
+            if plan is None:  # past 128 chunks: the split launch
+                assert cpr > bs.K2_MAX_CHUNKS
+                assert bs.stream_distances_split_plan(d, itemsize, chunk, 16, t_fixed, 132)
+                continue
+            lpr, spb, smem = plan
+            assert lpr in (1, 2, 4, 8, 16, 32)
+            assert lpr * 4 >= cpr and (lpr == 1 or (lpr // 2) * 4 < cpr)  # fewest lanes
             assert 1 <= spb <= min(bs.K2_SLOTS_PER_BLOCK, t_fixed)
-            # The kernel's shared memory: q - c (the whole padded row at
-            # these d) and the distances of each slot.
-            assert panel == cpr * epc
-            assert smem == 4 * spb * (panel + chunk) <= 227 * 1024
+            # The kernel's shared memory: q - c (the whole padded row) and
+            # the distances of each slot.
+            assert smem == 4 * spb * (cpr * epc + chunk) <= 227 * 1024
     # The main path's rows (d 128): 4 lanes per bf16 row, 2 per int8 row, 8 per f32 row.
-    assert bs.stream_distances_plan(128, 2, 16, 256)[:4] == (4, 4, 4, 128)
-    assert bs.stream_distances_plan(128, 1, 16, 256)[:4] == (4, 2, 4, 128)
-    assert bs.stream_distances_plan(128, 4, 16, 256)[:4] == (4, 8, 4, 128)
-    assert bs.stream_distances_plan(2048, 2, 16, 256)[:4] == (0, 32, 4, 2048)
+    assert bs.stream_distances_plan(128, 2, 16, 256) == (4, 4, 6144)
+    assert bs.stream_distances_plan(128, 1, 16, 256) == (2, 4, 6144)
+    assert bs.stream_distances_plan(128, 4, 16, 256) == (8, 4, 6144)
+    assert bs.stream_distances_plan(2048, 2, 16, 256) is None

@@ -40,50 +40,52 @@ def _widths(mode_of):
 
 @pytest.mark.parametrize("itemsize", [1, 2, 4], ids=["int8", "bf16", "f32"])
 def test_k2_plan_covers_every_width(itemsize):
+    """Up to K2_MAX_CHUNKS 16-byte chunks a row, the one-block-per-run plan
+    (lanes, slots, shared memory within the opt-in); past them none, and the
+    split plan instead, whose shared memory fits two blocks an SM."""
     epc = 16 // itemsize
     for chunk in CHUNKS:
-        for d in _widths(lambda d: bs.stream_distances_plan(d, itemsize, 8, chunk)[:1]
-                         + (bs.stream_distances_plan(d, itemsize, 8, chunk).panel,)):
+        for d in _widths(lambda d: bs.stream_distances_plan(d, itemsize, 8, chunk) is None):
             width = -(-d // epc) * epc
             for t_fixed in range(1, 9):  # slots per block grouped from 1..8 slots
-                nch, lpr, spb, panel, smem = bs.stream_distances_plan(d, itemsize, t_fixed, chunk)
-                assert lpr in (1, 2, 4, 8, 16, 32) and nch in (0, 4)
-                assert (lpr == 32) if nch == 0 else lpr * nch >= -(-d // epc)
-                # The launcher's panel rule: the padded row, or (wide mode) a
-                # multiple of the 16-byte chunk below it.
-                assert panel == width or (nch == 0 and 0 < panel < width and panel % epc == 0)
+                plan = bs.stream_distances_plan(d, itemsize, t_fixed, chunk)
+                split = bs.stream_distances_split_plan(d, itemsize, chunk, 1, t_fixed, 132)
+                if width // epc > bs.K2_MAX_CHUNKS:
+                    assert plan is None and split is not None
+                    assert split.smem <= bs.SPLIT_SMEM or split.sub_rows == 1
+                    continue
+                assert split is None
+                lpr, spb, smem = plan
+                assert lpr in (1, 2, 4, 8, 16, 32) and lpr * 4 >= width // epc
                 assert 1 <= spb <= min(bs.K2_SLOTS_PER_BLOCK, t_fixed)
-                assert smem == 4 * spb * (panel + chunk) <= bs.SMEM_LIMIT
+                assert smem == 4 * spb * (width + chunk) <= bs.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("itemsize", [1, 2], ids=["int8", "bf16"])
 def test_k4_plan_covers_every_width(itemsize):
+    """In the register modes (d <= 1024), the one-block-per-(query, group)
+    plan (1, 2 or 4 chunks a lane, 4 only for bf16; lanes, stages, shared
+    memory within the opt-in); past them none, and the split plan at every
+    nq instead, whose shared memory fits two blocks an SM."""
     epc = 16 // itemsize
     for chunk in CHUNKS:
-        for d in _widths(lambda d: bs.stream_fused_plan(d, itemsize, chunk)[:1]
-                         + (bs.stream_fused_plan(d, itemsize, chunk).panel < d,)):
+        for d in _widths(lambda d: bs.stream_fused_plan(d, itemsize, chunk) is None):
             p = bs.stream_fused_plan(d, itemsize, chunk)
             cpr, row_bytes = -(-d // epc), d * itemsize
-            assert p.lpr in (1, 2, 4, 8, 16, 32) and 1 <= p.sub_rows <= chunk
-            assert p.sub_rows % p.row_align == 0 and p.stage_bytes % 128 == 0
+            splits = [bs.stream_fused_split_plan(d, itemsize, chunk, nq, 4, 8, 132)
+                      for nq in (1, 256, 1000)]
+            if d > 1024:
+                assert p is None and None not in splits
+                assert all(sp.smem <= bs.SPLIT_SMEM or sp.sub_rows == 1 for sp in splits)
+                continue
+            assert splits == [None] * 3
+            assert p.nch in (1, 2) or (p.nch == 4 and itemsize == 2)
+            assert p.lpr in (1, 2, 4, 8, 16, 32) and p.lpr * p.nch >= cpr
+            assert 1 <= p.sub_rows <= chunk and p.sub_rows % p.row_align == 0
+            assert (p.row_align * row_bytes) % 16 == 0 and p.stage_bytes % 128 == 0
+            assert p.stage_bytes >= p.sub_rows * row_bytes
             pairs = 16 * chunk + 16 * bs.K4_STAGES  # the four planes' arrays, the barriers
-            if p.panel < d:  # panel mode: one row per warp, 16-byte-multiple segments
-                assert p.nch == 0 and p.lpr == 32 and (p.panel * itemsize) % 16 == 0
-                stride = p.panel * itemsize + (0 if row_bytes % 16 == 0 else 32)
-                assert p.stage_bytes >= p.sub_rows * stride
-                assert p.smem == bs.K4_STAGES * p.stage_bytes + pairs + 4 * (2 * p.panel + chunk)
-            else:
-                assert p.panel == d
-                assert (p.nch in (1, 2) or (p.nch == 4 and itemsize == 2)) and p.lpr * p.nch >= cpr \
-                    if p.nch else p.lpr == 32
-                assert (p.row_align * row_bytes) % 16 == 0
-                assert p.stage_bytes >= p.sub_rows * row_bytes
-                assert p.smem == bs.K4_STAGES * p.stage_bytes + pairs + (
-                    0 if p.nch else 8 * cpr * epc)
-            assert p.smem <= bs.SMEM_LIMIT
-    # The modes up to d 12,288 are the earlier launcher's (no panels).
-    for d in (128, 1024, 1100, 4096, 12_288):
-        assert bs.stream_fused_plan(d, itemsize, 256).panel == d
+            assert p.smem == bs.K4_STAGES * p.stage_bytes + pairs <= bs.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("itemsize", [1, 2, 4], ids=["int8", "bf16", "f32"])

@@ -22,28 +22,27 @@ from vector_indexer_tpu_torch.ops import ivf_gather as ig
 from vector_indexer_tpu_torch.ops.gather import candidate_budget
 
 N_SM = 132  # the H100's SMs
-NQS = (1, 2, 16, 1000)
+NQS = (1, 2, 16, 131, 263, 264, 1000)  # to past the stream program's 256-query tile
 T_FIXED = (16, 64, 256)
 
 
 def _split_mode(itemsize, chunk):
     def mode_of(d):
         p = bs.stream_fused_plan(d, itemsize, chunk)
-        return p.nch, p.panel < d
+        return p and p.nch
     return mode_of
 
 
 @pytest.mark.parametrize("itemsize", [1, 2], ids=["int8", "bf16"])
 def test_k4_split_plan_covers_every_width(itemsize):
     """For every d to 65,536 (the existing stride and every mode edge),
-    chunks 256 / 512 / 1024, nq 1 / 2 / 16 / 1000: no split where the
-    one-block-per-(query, group) launch fills the card or the register
-    modes run (always at nq 1000); elsewhere a plan the launcher takes
-    (slices of 16-byte chunks covering d, parts of the rows, stages
-    holding their segments, shared memory within the opt-in and, past one
-    segment a stage, within two blocks an SM), never fewer
-    blocks than the unsplit launch, and at nq 1 past the panel edge at
-    least 128 blocks."""
+    chunks 256 / 512 / 1024, nq 1 / 2 / 16 / 131 / 263 / 264 / 1000: no
+    split where the register modes run (d <= 1024); past them, at every
+    nq, a plan the launcher takes (slices of 16-byte chunks covering d,
+    parts of the rows, stages holding their segments, shared memory within
+    the opt-in and, past one segment a stage, within two blocks an SM), no
+    fewer blocks than one per (query, group) up to the plan's target
+    (SPLIT_BLOCKS_PER_SM an SM), and at nq 1 at least 128 blocks."""
     epc = 16 // itemsize
     for chunk in CHUNKS:
         G = bs.pick_stream_groups(chunk)
@@ -52,26 +51,46 @@ def test_k4_split_plan_covers_every_width(itemsize):
             for nq in NQS:
                 for t_fixed in T_FIXED:
                     p = bs.stream_fused_split_plan(d, itemsize, chunk, nq, G, t_fixed, N_SM)
-                    if base.nch or nq * G >= N_SM:
+                    if base is not None:
                         assert p is None, (d, chunk, nq, t_fixed)
                         continue
                     assert p is not None
                     assert p.slice >= epc and p.slice % epc == 0
                     assert p.n_slices == -(-d // p.slice) and (p.n_slices - 1) * p.slice < d
-                    assert 1 <= p.parts <= t_fixed * chunk // bs.K4_PART_ROWS
+                    assert 1 <= p.parts <= t_fixed * chunk // bs.SPLIT_PART_ROWS
                     stride = p.slice * itemsize + (0 if (d * itemsize) % 16 == 0 else 32)
                     assert 1 <= p.sub_rows <= chunk and p.stage_bytes % 128 == 0
                     assert p.stage_bytes >= p.sub_rows * stride
-                    assert p.smem == bs.K4_SPLIT_STAGES * p.stage_bytes + 16 * bs.K4_SPLIT_STAGES \
+                    assert p.smem == bs.SPLIT_STAGES * p.stage_bytes + 16 * bs.SPLIT_STAGES \
                         + 8 * p.slice <= bs.SMEM_LIMIT
                     if p.sub_rows > 1:  # two blocks an SM
-                        assert p.smem <= bs.K4_SPLIT_SMEM
-                    assert p.blocks == nq * p.parts * p.n_slices >= nq * G
-                    if nq == 1 and base.panel < d:
+                        assert p.smem <= bs.SPLIT_SMEM
+                    assert p.blocks == nq * p.parts * p.n_slices >= min(
+                        nq * G, bs.SPLIT_BLOCKS_PER_SM * N_SM)
+                    if nq == 1:
                         assert p.blocks >= 128, (d, chunk, t_fixed, p)
-    # The main path's batch never splits, whatever the width.
-    for d in (128, 1100, 16_384, MAX_D):
-        assert bs.stream_fused_split_plan(d, itemsize, 256, 1000, 4, 96, N_SM) is None
+    # The main path's batch (d 128) never splits; wide rows split at any nq.
+    assert bs.stream_fused_split_plan(128, itemsize, 256, 1000, 4, 96, N_SM) is None
+    for d in (1100, 16_384, MAX_D):
+        assert bs.stream_fused_split_plan(d, itemsize, 256, 1000, 4, 96, N_SM) is not None
+
+
+def test_k4_split_threshold_follows_the_readings():
+    """Wide rows (chunk 256, G 4) take the split launch at every nq, the
+    stream program's 256-query tile and larger direct calls alike: on the
+    H100 one block per (query, group) read slower at every nq from 33 to
+    1000 on rows of 16,384 (bf16 and int8) and at most 4.5% faster (nq 512
+    and 1000) on rows of 1,536; the register modes never split."""
+    G = bs.pick_stream_groups(256)
+    assert G == 4
+    for itemsize in (1, 2):
+        for d in (1025, 1536, 2056, 16_384, MAX_D):
+            for nq in (1, 33, 131, 192, 256, 263, 264, 512, 1000, 4096):
+                assert bs.stream_fused_split_plan(d, itemsize, 256, nq, G, 64, N_SM) is not None
+        for nq in (1, 264, 4096):
+            assert bs.stream_fused_split_plan(1024 // itemsize, itemsize, 256, nq, G, 64,
+                                              N_SM) is None
+            assert bs.stream_fused_plan(1024 // itemsize, itemsize, 256) is not None
 
 
 def _tie_problem(dtype, metric, seed, integer):

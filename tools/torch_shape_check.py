@@ -11,9 +11,11 @@ the lower id must win each exact tie), dimensions, chunks, table types
 int8 / f32, K4 bf16 / int8, K5 bf16 / int8 / f32 at every stream d, with
 rows that are not 16-byte multiples and panels of 16 rows; K2, K4 and K5 on
 rows too wide for K5's 16-row ring (8- and 4-row panels) and past each
-kernel's wide-row mode change (K4's panels past ~13,500 dims, K5's
-K-panels past ~14,400-57,800, K2's panels past ~50,000) up to d 65,536,
-odd widths included; K4 also at nq 1, its split launch; K3 f32 / int8 /
+kernel's wide-row mode change (K5's K-panels past ~14,400-57,800) up to
+d 65,536, odd widths included; K2
+past 1,024 bf16 dims (2,048 int8, 512 f32) in its split launch, at 64
+queries and at 1; K4 past 1,024 dims in its split launch, at 16 or 64
+queries and at 1; K3 f32 / int8 /
 int8x1, at d on both sides of each
 kernel's mode changes), windows, group counts, list lengths (K6: short and
 long lists, empty probes, its item launch past d 12,288 or ~1 MB of a
@@ -66,8 +68,9 @@ QUANT_DIMS = (32, 96, 128, 1024)  # dims of the int8 / f32 tables (K5 runs at ev
 # shared memory past f32 d ~1800, bf16 ~3600, int8 ~7200 (f32 d 7200 takes
 # one 8-row stage, d 10,000 one 4-row stage) and it takes K-panels past f32
 # d ~14,400, bf16 ~28,900, int8 ~57,800 and at odd int8 widths past ~7200;
-# K4 (bf16, int8) takes panels past bf16 ~13,500 and int8 ~18,000; K2 past
-# ~50,000; K6 keeps 12,288 query elements in shared memory. 12,289, 16,385
+# K4 takes its split launch past 1,024 elements, K2 past 128 16-byte chunks
+# a row; K6 keeps 12,288 query elements in shared memory.
+# 12,289, 16,385
 # and 65,535 give rows that are no 16-byte multiple in every type.
 K5_WIDE = ((2048, ("f32",)), (4096, ("bf16", "f32")), (7200, ("bf16", "int8", "f32")),
            (7201, ("int8",)), (10_000, ("f32",)), (12_289, ("bf16", "int8", "f32")),
@@ -152,7 +155,8 @@ def main() -> int:
                     check(ok, f"K2 {what}{' nval2d' if nval else ''}: max |err| {err:.3e}")
                 if not exact:
                     ok, n_mism, err = check_k4(q, table, grid, metric)
-                    check(ok, f"K4 {what}: {n_mism} near-tie slot differences, max |err| {err:.3e}")
+                    check(ok, f"K4 {what} ({chip_smoke.k4_launch(q, table, grid['t_fixed'])}): "
+                              f"{n_mism} near-tie slot differences, max |err| {err:.3e}")
                 t_cap = bs.shared_task_cap(lengths, n_probe, len(q), grid["t_fixed"],
                                            worst_case=exact, chunk=chunk)
                 tasks = shared_tasks(q, table, c, c_sq, lengths, n_probe, grid["t_fixed"],
@@ -174,21 +178,21 @@ def main() -> int:
             table = build_stream_table(idx.layout, idx.centroids, dtypes[mode], chunk=chunk)
             exact = mode == "f32"
             item = table.vecs.element_size()
-            plans = (f"K2 panel {bs.stream_distances_plan(d, item, 16, chunk).panel}, K4 panel "
-                     f"{bs.stream_fused_plan(d, item, chunk).panel}, K5 {bs.stream_shared_plan(d, item, chunk)[:3]}")
+            plans = f"K5 {bs.stream_shared_plan(d, item, chunk)[:3]}"
             for metric in ("l2", "ip"):
                 grid = stream_grid(q, table, c, c_sq, lengths, 5, metric, worst_case=exact)
                 what = f"wide rows {mode} d={d} chunk={chunk} n_probe=5 {metric} ({plans})"
-                for nval in (False, True):
-                    ok, err = check_k2(q, table, grid, metric, nval)
-                    check(ok, f"K2 {what}{' nval2d' if nval else ''}: max |err| {err:.3e}")
+                g1 = stream_grid(q[:1], table, c, c_sq, lengths, 5, metric, worst_case=exact)
+                for qs, gq in ((q, grid), (q[:1], g1)):
+                    for nval in (False, True):
+                        ok, err = check_k2(qs, table, gq, metric, nval)
+                        check(ok, f"K2 {what} nq={len(qs)}{' nval2d' if nval else ''} "
+                                  f"({chip_smoke.k2_launch(qs, table, gq)}): max |err| {err:.3e}")
                 if not exact:
-                    ok, n_mism, err = check_k4(q, table, grid, metric)
-                    check(ok, f"K4 {what}: {n_mism} near-tie slot differences, max |err| {err:.3e}")
-                    g1 = stream_grid(q[:1], table, c, c_sq, lengths, 5, metric)
-                    ok, n_mism, err = check_k4(q[:1], table, g1, metric)
-                    check(ok, f"K4 {what} nq=1 ({chip_smoke.k4_launch(q[:1], table, g1['t_fixed'])}"
-                              f"): {n_mism} near-tie slot differences, max |err| {err:.3e}")
+                    for qs, gq in ((q, grid), (q[:1], g1)):
+                        ok, n_mism, err = check_k4(qs, table, gq, metric)
+                        check(ok, f"K4 {what} nq={len(qs)} ({chip_smoke.k4_launch(qs, table, gq['t_fixed'])}): "
+                                  f"{n_mism} near-tie slot differences, max |err| {err:.3e}")
                 t_cap = bs.shared_task_cap(lengths, 5, len(q), grid["t_fixed"], worst_case=exact,
                                            chunk=chunk)
                 tasks = shared_tasks(q, table, c, c_sq, lengths, 5, grid["t_fixed"], t_cap, metric)

@@ -54,17 +54,22 @@ _SIGNATURES = {
     # x, c, c_sq, n, k, d, csplit, best_score, best_idx, stream
     "vitorch_assign_argmin": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     # queries, cent, cid2d, blk2d, nval2d (or null), bias2d, vecs, norms,
-    # scales, nq, t_fixed, chunk, d, is_l2, row_type, nch, lpr, spb, panel,
-    # out, stream
+    # scales, nq, t_fixed, chunk, d, is_l2, row_type, lpr, spb, out, stream
     "vitorch_stream_distances": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+    ),
+    # queries, cent, cid2d, blk2d, nval2d (or null), bias2d, vecs, norms,
+    # scales, nq, t_fixed, chunk, d, is_l2, row_type, slice, parts, sub_rows,
+    # stage_bytes, part_dots, out, stream
+    "vitorch_stream_distances_split": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
     ),
     # queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms, scales, nq,
     # t_fixed, t_sub, chunk, groups, d, is_l2, row_type, nch, lpr, sub_rows,
-    # row_align, panel, stage_bytes, dist_plane, slot_plane, stream
+    # row_align, stage_bytes, dist_plane, slot_plane, stream
     "vitorch_stream_fused_plane": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-        _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        _I, _I, _I, _I, _I, _P, _P, _P,
     ),
     # queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms, scales, nq,
     # t_fixed, t_sub, chunk, groups, d, is_l2, row_type, slice, parts,
@@ -186,12 +191,15 @@ def build_library() -> Path:
     """Compile csrc/*.cu into the hashed shared library (no-op when it is
     already built): one nvcc per source, all started together, then one
     link. Records the wall seconds and nvcc's report (registers, shared
-    memory, spills from ``-Xptxas -v``) in ``build_info()``."""
+    memory, spills from ``-Xptxas -v``; kept in a file beside the library,
+    so a later process that finds it built reads the same report) in
+    ``build_info()``."""
     out = BUILD_DIR / f"libvitorch_kernels_{_digest()}.so"
+    log_path = out.with_suffix(".log")  # nvcc's report, kept beside the library
     if out.is_file():
         _BUILD_INFO.setdefault("path", str(out))
         _BUILD_INFO.setdefault("seconds", 0.0)
-        _BUILD_INFO.setdefault("log", "")
+        _BUILD_INFO.setdefault("log", log_path.read_text() if log_path.is_file() else "")
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -202,6 +210,8 @@ def build_library() -> Path:
                         for src, obj in zip(sources(), objs)])
         tmp = str(Path(tmpdir) / out.name)
         log += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+        (Path(tmpdir) / log_path.name).write_text(log.strip())
+        os.replace(Path(tmpdir) / log_path.name, log_path)
         os.replace(tmp, out)  # atomic: a concurrent build sees all or none
     _BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0, log=log.strip())
     return out

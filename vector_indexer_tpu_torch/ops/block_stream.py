@@ -35,7 +35,6 @@ its CUDA kernel on a CUDA tensor (or raises).
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -405,118 +404,94 @@ def stream_distances_reference(queries, cent, cid2d, blk2d, bias2d, vecs, norms,
 # the SMEM_LIMIT bytes a block may opt in to on sm_90.
 SMEM_LIMIT = 232_448
 
-# K2: at most this many consecutive slots of one query per block, as shared
-# memory allows (q - c and the distances of each); past one slot's whole
-# row, q - c is staged K2_PANEL elements at a time.
+# K2: at most this many consecutive slots of one query per block (rows of
+# at most K2_MAX_CHUNKS 16-byte chunks; wider rows take the split launch).
 K2_SLOTS_PER_BLOCK = 4
-_K2_SMEM = 200 << 10
-K2_PANEL = 4096
+K2_MAX_CHUNKS = 128
+_K2_NCH = 4  # 16-byte chunks of a row per lane
 
 
 class K2Plan(NamedTuple):
-    nch: int  # 16-byte chunks of a row per lane (0: the wide mode)
     lpr: int  # lanes per row
     spb: int  # slots per block
-    panel: int  # q - c elements staged at a time (the padded row, or K2_PANEL)
     smem: int  # dynamic shared memory bytes
 
 
-def stream_distances_plan(d: int, itemsize: int, t_fixed: int, chunk: int) -> K2Plan:
-    """K2's launch plan for rows of d elements of ``itemsize`` bytes. A lane
-    reads 4 16-byte chunks of a row (fewer where the row is shorter), so a
-    row takes few lanes and its dot few shuffles; rows of more than 128
-    chunks take the wide mode (0 chunks, 32 lanes per row striding over
-    the row). Lanes per row: the fewest (a power of two) that cover the
-    row's chunks, so narrow rows share a warp. The panel is the whole
-    padded row while one slot's q - c and distance row fit in _K2_SMEM,
-    else K2_PANEL elements (d past ~50,000). Slots per block: up to
-    K2_SLOTS_PER_BLOCK whose panels and distance rows fit."""
+def stream_distances_plan(d: int, itemsize: int, t_fixed: int, chunk: int) -> Optional[K2Plan]:
+    """K2's one-block-per-run launch for rows of d elements of ``itemsize``
+    bytes, or None past K2_MAX_CHUNKS 16-byte chunks (bf16 d 1024, int8
+    2048, f32 512), where ``stream_distances_split_plan`` takes over. A
+    lane reads 4 16-byte chunks of a row, so a row takes few lanes and its
+    dot few shuffles: the fewest lanes (a power of two) that cover the
+    row's chunks, so narrow rows share a warp. Slots per block: up to
+    K2_SLOTS_PER_BLOCK, each with its q - c (the padded row, f32) and its
+    distance row in shared memory."""
     epc = 16 // itemsize
     cpr = -(-d // epc)
-    width = cpr * epc
-    nch = 4
+    if cpr > K2_MAX_CHUNKS:
+        return None
     lpr = 1
-    while lpr * nch < cpr:
+    while lpr * _K2_NCH < cpr:
         lpr <<= 1
-    if lpr > 32:
-        nch, lpr = 0, 32
-    panel = width if 4 * (width + chunk) <= _K2_SMEM else K2_PANEL
-    per_slot = 4 * (panel + chunk)
-    spb = max(1, min(K2_SLOTS_PER_BLOCK, t_fixed, _K2_SMEM // per_slot))
-    return K2Plan(nch, lpr, spb, panel, spb * per_slot)
+    spb = max(1, min(K2_SLOTS_PER_BLOCK, t_fixed))
+    return K2Plan(lpr, spb, 4 * spb * (cpr * epc + chunk))
 
 
-# K4: a ring of K4_STAGES stages of ~K4_STAGE_TARGET bytes; past the wide
-# mode's shared memory, panels of K4_PANEL_BYTES of the row, 8 rows a stage.
+# K4's register modes: a ring of K4_STAGES stages of ~K4_STAGE_TARGET bytes.
 K4_STAGES = 4
 K4_STAGE_TARGET = 16 << 10
-K4_PANEL_BYTES = 2048
-_K4_PANEL_ROWS = 8  # one row per consumer warp
 
 
 class FusedPlan(NamedTuple):
-    nch: int  # 16-byte chunks per lane in registers (0: wide / panel mode)
+    nch: int  # 16-byte chunks per lane in registers
     lpr: int  # lanes per row
     sub_rows: int  # rows per stage
     row_align: int  # rows a copy is rounded up to (a 16-byte multiple)
-    panel: int  # elements of d per pass (d itself outside the panel mode)
     stage_bytes: int
     smem: int  # dynamic shared memory bytes
 
 
-def stream_fused_plan(d: int, itemsize: int, chunk: int) -> FusedPlan:
-    """K4's launch plan (chunk % 16 == 0). Up to 4 chunks per lane in
-    registers for bf16 rows and 2 for int8 (d <= 1024 either way), a wide
-    mode past that (one row per warp, q - c of two slots in shared memory,
-    stages of the fewest rows whose bytes are a 16-byte multiple), and past
-    the wide mode's shared memory (bf16 d ~13,500, int8 ~18,000) the panel
-    mode: K4_PANEL_BYTES of each row per pass, 8 row segments a stage, q - c
-    of two panels and the rows' partial dots in shared memory."""
+def stream_fused_plan(d: int, itemsize: int, chunk: int) -> Optional[FusedPlan]:
+    """K4's one-block-per-(query, group) launch plan (chunk % 16 == 0): up
+    to 4 16-byte chunks per lane in registers for bf16 rows and 2 for int8
+    (d <= 1024 either way), the fewest lanes (a power of two) that cover the
+    row, stages of ~K4_STAGE_TARGET bytes in 16-row steps; None past those
+    register modes, where ``stream_fused_split_plan`` takes over at every
+    nq."""
     if chunk % 16:
         raise ValueError("stream_fused_plane: chunk % 16 != 0")
-    epc = 16 // itemsize
-    cpr = -(-d // epc)
-    row_bytes = d * itemsize
+    cpr = -(-d // (16 // itemsize))
     nch = 1 if cpr <= 32 else 2 if cpr <= 64 else 4 if cpr <= 128 and itemsize == 2 else 0
-    lpr = 32
-    if nch:
-        lpr = 1
-        while lpr * nch < cpr:
-            lpr <<= 1
-        row_align = 16
-        sub_rows = max(16, (K4_STAGE_TARGET // row_bytes) & ~15)
-    else:
-        row_align = 16 // math.gcd(row_bytes, 16)
-        sub_rows = max(row_align, K4_STAGE_TARGET // row_bytes // row_align * row_align)
-    sub_rows = min(sub_rows, chunk)
-    stage = _round_up(sub_rows * row_bytes, 128)
-    fixed = K4_STAGES * stage + 16 * chunk + 16 * K4_STAGES
-    smem = fixed + (0 if nch else 8 * cpr * epc)
-    if smem <= SMEM_LIMIT:
-        return FusedPlan(nch, lpr, sub_rows, row_align, d, stage, smem)
-    panel = K4_PANEL_BYTES // itemsize
-    sub_rows = min(_K4_PANEL_ROWS, chunk)
-    seg_stride = K4_PANEL_BYTES + (0 if row_bytes % 16 == 0 else 32)
-    stage = _round_up(sub_rows * seg_stride, 128)
-    smem = K4_STAGES * stage + 16 * chunk + 16 * K4_STAGES + 4 * (2 * panel + chunk)
-    return FusedPlan(0, 32, sub_rows, 1, panel, stage, smem)
+    if not nch:
+        return None
+    lpr = 1
+    while lpr * nch < cpr:
+        lpr <<= 1
+    sub_rows = min(chunk, max(16, (K4_STAGE_TARGET // (d * itemsize)) & ~15))
+    stage = _round_up(sub_rows * d * itemsize, 128)
+    return FusedPlan(nch, lpr, sub_rows, 16, stage, K4_STAGES * stage + 16 * chunk + 16 * K4_STAGES)
 
 
-# K4's split launch: past the register modes, while nq * G blocks leave SMs
-# idle, d is cut into slices of at most K4_SLICE_BYTES of a row (at least
-# K4_MIN_SLICE_BYTES) and each query's valid rows into equal parts (at
-# most one per K4_PART_ROWS lanes of its slots), for up to
-# K4_SPLIT_BLOCKS_PER_SM blocks per SM, two of them resident
-# (K4_SPLIT_SMEM bytes each); each block streams its row
-# segments through K4_SPLIT_STAGES stages of about K4_SPLIT_STAGE_TARGET
-# bytes.
-K4_SLICE_BYTES = 4096
-K4_MIN_SLICE_BYTES = 256
-K4_PART_ROWS = 128
-K4_SPLIT_BLOCKS_PER_SM = 16
-K4_SPLIT_STAGES = 3
-K4_SPLIT_STAGE_TARGET = 32 << 10
-K4_SPLIT_SMEM = 115_712  # half an SM's 228 KB, less the 1 KB each block reserves
+# The split launches (K2 and K4 past their one-block launches' rows, at
+# any nq): d is cut into slices of
+# at most SPLIT_SLICE_BYTES of a row (at least SPLIT_MIN_SLICE_BYTES) and
+# each query's valid rows into equal parts (at most one per SPLIT_PART_ROWS
+# lanes of its slots), for up to SPLIT_BLOCKS_PER_SM blocks per SM, two of
+# them resident (SPLIT_SMEM bytes each); each block streams its row
+# segments through SPLIT_STAGES stages of about SPLIT_STAGE_TARGET bytes.
+SPLIT_SLICE_BYTES = 4096
+SPLIT_MIN_SLICE_BYTES = 256
+SPLIT_PART_ROWS = 128
+SPLIT_BLOCKS_PER_SM = 16
+SPLIT_STAGES = 3
+SPLIT_STAGE_TARGET = 32 << 10
+SPLIT_SMEM = 115_712  # half an SM's 228 KB, less the 1 KB each block reserves
+# K2's split launch: a block per K2_LANE_BYTES of slot lanes, parts of at
+# least K2_PART_ROWS lanes of a query's slots, slices of at most
+# K2_SLICE_ELEMS elements.
+K2_LANE_BYTES = 512 << 10
+K2_PART_ROWS = 32
+K2_SLICE_ELEMS = 2048
 
 
 class SplitPlan(NamedTuple):
@@ -529,38 +504,70 @@ class SplitPlan(NamedTuple):
     blocks: int  # blocks of the partial-dot launch: nq * parts * n_slices
 
 
-def stream_fused_split_plan(d: int, itemsize: int, chunk: int, nq: int, groups: int,
-                            t_fixed: int, n_sm: int) -> Optional[SplitPlan]:
-    """K4's split plan, or None where the one-block-per-(query, group)
-    launch stays: the register modes (d <= 1024), and wherever nq * groups
-    blocks already fill the ``n_sm`` SMs (the main path's nq 1000, any nq
-    past n_sm / groups). Otherwise, for about K4_SPLIT_BLOCKS_PER_SM * n_sm
-    blocks: slices of at most K4_SLICE_BYTES of a row; parts of each
-    query's valid rows (at most one per K4_PART_ROWS of its t_fixed * chunk
-    lanes); and, where those give fewer than two blocks an SM, more slices
-    (down to K4_MIN_SLICE_BYTES of a row). A stage holds as many row
-    segments as fit K4_SPLIT_STAGE_TARGET bytes and two blocks an SM."""
-    if nq * groups >= n_sm or stream_fused_plan(d, itemsize, chunk).nch:
-        return None
+def split_plan(d: int, itemsize: int, chunk: int, nq: int, t_fixed: int, n_sm: int,
+               target: Optional[int] = None, part_rows: int = SPLIT_PART_ROWS,
+               slice_bytes: int = SPLIT_SLICE_BYTES) -> SplitPlan:
+    """The split launch's sizes, for about ``target`` blocks (default
+    SPLIT_BLOCKS_PER_SM * n_sm): slices of at most ``slice_bytes`` of a
+    row; parts of each query's valid rows (at most one per ``part_rows`` of
+    its t_fixed * chunk lanes); and, where those give fewer than two blocks
+    an SM, more slices (down to SPLIT_MIN_SLICE_BYTES of a row). A stage
+    holds as many row segments as fit SPLIT_STAGE_TARGET bytes and two
+    blocks an SM."""
     epc = 16 // itemsize
     row_bytes = d * itemsize
-    target = K4_SPLIT_BLOCKS_PER_SM * n_sm
-    n_slices = -(-row_bytes // K4_SLICE_BYTES)
-    parts = max(1, min(t_fixed * chunk // K4_PART_ROWS, -(-target // (nq * n_slices))))
+    if target is None:
+        target = SPLIT_BLOCKS_PER_SM * n_sm
+    n_slices = -(-row_bytes // slice_bytes)
+    parts = max(1, min(t_fixed * chunk // part_rows, -(-target // (nq * n_slices))))
     wave = 2 * n_sm  # one resident wave: more slices where the parts give fewer blocks
-    n_slices = max(n_slices, min(-(-row_bytes // K4_MIN_SLICE_BYTES), -(-wave // (nq * parts))))
+    n_slices = max(n_slices, min(-(-row_bytes // SPLIT_MIN_SLICE_BYTES), -(-wave // (nq * parts))))
     slice_ = _round_up(-(-d // n_slices), epc)
     n_slices = -(-d // slice_)
     seg_stride = slice_ * itemsize + (0 if row_bytes % 16 == 0 else 32)
-    fixed = 16 * K4_SPLIT_STAGES + 8 * slice_  # the barriers, two q - c slices
-    sub_rows = max(1, min(chunk, K4_SPLIT_STAGE_TARGET // seg_stride,
-                          (K4_SPLIT_SMEM - fixed) // (K4_SPLIT_STAGES * seg_stride)))
+    fixed = 16 * SPLIT_STAGES + 8 * slice_  # the barriers, two q - c slices
+    sub_rows = max(1, min(chunk, SPLIT_STAGE_TARGET // seg_stride,
+                          (SPLIT_SMEM - fixed) // (SPLIT_STAGES * seg_stride)))
     stage = _round_up(sub_rows * seg_stride, 128)
-    while sub_rows > 1 and K4_SPLIT_STAGES * stage + fixed > K4_SPLIT_SMEM:
+    while sub_rows > 1 and SPLIT_STAGES * stage + fixed > SPLIT_SMEM:
         sub_rows -= 1
         stage = _round_up(sub_rows * seg_stride, 128)
-    return SplitPlan(slice_, n_slices, parts, sub_rows, stage, K4_SPLIT_STAGES * stage + fixed,
+    return SplitPlan(slice_, n_slices, parts, sub_rows, stage, SPLIT_STAGES * stage + fixed,
                      nq * parts * n_slices)
+
+
+def stream_distances_split_plan(d: int, itemsize: int, chunk: int, nq: int, t_fixed: int,
+                                n_sm: int) -> Optional[SplitPlan]:
+    """K2's split plan (``split_plan``) for rows past K2_MAX_CHUNKS 16-byte
+    chunks, at any nq; None where ``stream_distances_plan``'s launch
+    stays. Blocks: one per K2_LANE_BYTES of the batch's slot lanes
+    (t_fixed * chunk rows a query; lists fill ~10-25% of them at n_probe
+    8-20, so ~50-125 KB of valid rows a block), at least one resident wave
+    (2 an SM) and at most SPLIT_BLOCKS_PER_SM an SM; parts of at least
+    K2_PART_ROWS lanes; slices of at most K2_SLICE_ELEMS elements (and
+    SPLIT_SLICE_BYTES): a segment's work is its elements' q - c reads and
+    FMAs, so int8 rows take 2 KB slices."""
+    if stream_distances_plan(d, itemsize, t_fixed, chunk) is not None:
+        return None
+    lanes = nq * t_fixed * chunk * d * itemsize
+    target = min(SPLIT_BLOCKS_PER_SM * n_sm, max(2 * n_sm, lanes // K2_LANE_BYTES))
+    return split_plan(d, itemsize, chunk, nq, t_fixed, n_sm, target=target,
+                      part_rows=K2_PART_ROWS,
+                      slice_bytes=min(SPLIT_SLICE_BYTES, K2_SLICE_ELEMS * itemsize))
+
+
+def stream_fused_split_plan(d: int, itemsize: int, chunk: int, nq: int, groups: int,
+                            t_fixed: int, n_sm: int) -> Optional[SplitPlan]:
+    """K4's split plan (``split_plan``) for rows past its register modes,
+    at any nq; None where ``stream_fused_plan``'s one-block-per-(query,
+    group) launch runs (d <= 1024). On the H100 that launch read 1.14-2.5x
+    slower than the split on bf16 rows of 16,384 at nq 33-1000 and 6-11x
+    on int8 ones (nq 33-256), and at most 4.5% faster on bf16 rows of
+    1,536 (nq 512-1000; slower below 256); chip_smoke.py phase 11, NVIDIA
+    H100 80GB HBM3, 700.00 W."""
+    if stream_fused_plan(d, itemsize, chunk) is not None:
+        return None
+    return split_plan(d, itemsize, chunk, nq, t_fixed, n_sm)
 
 
 # K5: panels of whole rows (~K5_PANEL_TARGET bytes, up to K5_MAX_STAGES
@@ -628,7 +635,9 @@ def _row_type(name: str, vecs, scales, allowed=STREAM_DTYPES):
 
 def stream_distances(queries, cent, cid2d, blk2d, bias2d, vecs, norms,
                      *, chunk: int, metric: str, scales=None, nval2d=None):
-    """K2. CPU tensors -> plain version; CUDA tensors -> the kernel. With
+    """K2. CPU tensors -> plain version; CUDA tensors -> the kernel: one
+    block per run of a query's slots (``stream_distances_plan``), or, past
+    its rows, the split launch (``stream_distances_split_plan``). With
     ``nval2d`` the kernel reads only each slot's valid rows and the lanes
     past them are +inf."""
     if queries.device.type == "cpu":
@@ -639,22 +648,99 @@ def stream_distances(queries, cent, cid2d, blk2d, bias2d, vecs, norms,
     code, label, scl = _row_type("stream_distances", vecs, scales)
     nq, t = blk2d.shape
     d = queries.shape[1]
-    i32 = torch.int32
-    args = [queries.contiguous(), cent.contiguous(), cid2d.to(i32).contiguous(),
-            blk2d.to(i32).contiguous()]
-    nval = None if nval2d is None else nval2d.to(i32).contiguous()
+    plan = stream_distances_plan(d, vecs.element_size(), t, chunk)
+    # The split launch reads the task grid as build_task_grid makes it (int64);
+    # the one-block-per-run launch reads int32.
+    idx = torch.int32 if plan is not None else torch.int64
+    args = [queries.contiguous(), cent.contiguous(), cid2d.to(idx).contiguous(),
+            blk2d.to(idx).contiguous()]
+    nval = None if nval2d is None else nval2d.to(idx).contiguous()
     rest = [bias2d.contiguous(), vecs, norms]
     kb.require_cuda("stream_distances", *args, *rest,
                     *[x for x in (nval, scl) if x is not None])
-    plan = stream_distances_plan(d, vecs.element_size(), t, chunk)
     out = torch.empty((nq, t, chunk), dtype=torch.float32, device=queries.device)
-    kb.launch(
-        f"stream_distances[{label}]", "vitorch_stream_distances",
-        *map(kb.ptr, args), kb.ptr(nval), *map(kb.ptr, rest), kb.ptr(scl), nq, t, chunk, d,
-        int(metric == "l2"), code, plan.nch, plan.lpr, plan.spb, plan.panel, kb.ptr(out),
-        kb.stream_of(out),
-    )
+    head = [*map(kb.ptr, args), kb.ptr(nval), *map(kb.ptr, rest), kb.ptr(scl), nq, t, chunk, d,
+            int(metric == "l2"), code]
+    if plan is None:
+        _require_aligned("stream_distances", vecs)
+        split = stream_distances_split_plan(d, vecs.element_size(), chunk, nq, t,
+                                            kb.sm_count(queries.device))
+        part = torch.empty(nq * t * split.n_slices * chunk, dtype=torch.float32,
+                           device=queries.device)
+        kb.launch(f"stream_distances[{label}]", "vitorch_stream_distances_split", *head,
+                  split.slice, split.parts, split.sub_rows, split.stage_bytes, kb.ptr(part),
+                  kb.ptr(out), kb.stream_of(out))
+        return out
+    kb.launch(f"stream_distances[{label}]", "vitorch_stream_distances", *head, plan.lpr,
+              plan.spb, kb.ptr(out), kb.stream_of(out))
     return out
+
+
+def split_parts(nvalid, parts: int):
+    """The split launch's parts of one query's valid rows, as its kernel
+    finds them: the rows of ``nvalid`` (valid rows per slot) taken in slot
+    order as one sequence and cut into ``parts`` runs of ceil(total /
+    parts) rows (the last shorter, or empty). -> per part, its (slot, first
+    row, rows) runs in slot order."""
+    counts = [int(v) for v in nvalid]
+    ends = np.cumsum(counts)  # each slot's end in the flattened rows
+    total = int(ends[-1]) if counts else 0
+    per = -(-total // parts)
+    out = []
+    for p in range(parts):
+        lo = min(p * per, total)
+        hi = min(lo + per, total)
+        runs = []
+        s = int(np.searchsorted(ends, lo, side="right"))  # the slot holding row lo
+        while lo < hi:
+            take = min(int(ends[s]), hi) - lo
+            if take > 0:
+                runs.append((s, lo - (int(ends[s]) - counts[s]), take))
+            lo += take
+            s += 1
+        out.append(runs)
+    return out
+
+
+def stream_distances_split_reference(queries, cent, cid2d, blk2d, bias2d, vecs, norms, *,
+                                     chunk: int, metric: str, slice_: int, parts: int,
+                                     scales=None, nval2d=None):
+    """Plain version of K2's split launch: each part of each query's valid
+    rows (``split_parts``; every lane without ``nval2d``) writes its rows'
+    dots with q - c (ip: q), ``slice_`` elements of d at a time, into a
+    scratch plane of partial dots (NaN where no part writes); a finish pass
+    sums each row's partials in slice order, applies the scale, bias and
+    norm, and writes +inf past each slot's valid count. Only the dot's
+    summation order differs from ``stream_distances_reference``."""
+    nq, t = blk2d.shape
+    d = queries.shape[1]
+    n_slices = -(-d // slice_)
+    blocks = vecs.view(-1, chunk, d)
+    nvalid = torch.full((nq, t), chunk) if nval2d is None else nval2d.clamp(0, chunk).cpu()
+    part = torch.full((nq, t, n_slices, chunk), float("nan"), device=queries.device)
+    for qi in range(nq):
+        for runs in split_parts(nvalid[qi].tolist(), parts):
+            for s, r, n in runs:
+                qc = queries[qi] - cent[int(cid2d[qi, s])] if metric == "l2" else queries[qi]
+                rows = blocks[int(blk2d[qi, s]), r:r + n].to(torch.float32)
+                for k in range(n_slices):
+                    k0, k1 = k * slice_, min(d, (k + 1) * slice_)
+                    part[qi, s, k, r:r + n] = rows[:, k0:k1] @ qc[k0:k1]
+    cross = torch.zeros((nq, t, chunk), dtype=torch.float32, device=queries.device)
+    for k in range(n_slices):
+        cross = cross + part[:, :, k]
+    slot_scl = _slot_scales(scales, cid2d, vecs)
+    if slot_scl is not None:
+        cross = cross * slot_scl[:, :, None]
+    nrm = norms.view(-1, chunk)[blk2d.long()]
+    bias = bias2d[:, :, None]
+    if metric == "l2":
+        dist = bias - 2.0 * cross + nrm
+    else:
+        dist = bias - cross + torch.where(nrm >= 1e29, nrm, torch.zeros_like(nrm))
+    lane = torch.arange(chunk, device=dist.device)
+    return torch.where(lane[None, None, :] < nvalid.to(dist.device)[:, :, None], dist,
+                       float("inf"))
 
 
 # ---------------------------------------------------------------------------
@@ -769,8 +855,8 @@ def fold_planes(dist, groups: int):
 def stream_fused_plane(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms,
                        *, chunk: int, groups: int, metric: str, scales=None):
     """K4 (bf16 and int8 tables). CPU tensors -> plain version; CUDA
-    tensors -> the kernel: one block per (query, group), or, where those
-    blocks leave SMs idle past the register modes, the split launch
+    tensors -> the kernel: one block per (query, group) in the register
+    modes (d <= 1024), the split launch past them
     (``stream_fused_split_plan``)."""
     if queries.device.type == "cpu":
         return stream_fused_plane_reference(
@@ -783,7 +869,6 @@ def stream_fused_plane(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms,
     if t_fixed % FAN:
         raise ValueError(f"stream_fused_plane: t_fixed must be a multiple of {FAN}")
     d = queries.shape[1]
-    plan = stream_fused_plan(d, vecs.element_size(), chunk)
     i32 = torch.int32
     args = [queries.contiguous(), cent.contiguous(), cid2d.to(i32).contiguous(),
             blk2d.to(i32).contiguous(), nval2d.to(i32).contiguous(),
@@ -806,12 +891,12 @@ def stream_fused_plane(queries, cent, cid2d, blk2d, nval2d, bias2d, vecs, norms,
             kb.stream_of(dist_plane),
         )
         return dist_plane, slot_plane
+    plan = stream_fused_plan(d, vecs.element_size(), chunk)
     kb.launch(
         f"stream_fused_plane[{label}]", "vitorch_stream_fused_plane",
         *map(kb.ptr, args), kb.ptr(scl), nq, t_fixed, t_fixed // FAN, chunk, groups, d,
         int(metric == "l2"), code, plan.nch, plan.lpr, plan.sub_rows, plan.row_align,
-        plan.panel, plan.stage_bytes, kb.ptr(dist_plane), kb.ptr(slot_plane),
-        kb.stream_of(dist_plane),
+        plan.stage_bytes, kb.ptr(dist_plane), kb.ptr(slot_plane), kb.stream_of(dist_plane),
     )
     return dist_plane, slot_plane
 
