@@ -1320,7 +1320,8 @@ def main_phase(torch, np, xb, xq, check, dev, work, kernel_results):
     kb.reset_launch_counts()  # counts from here on belong to the main path
 
     t0 = time.perf_counter()
-    vi = bindings.build(xb, str(work), device=dev)
+    with tracing.recording():
+        vi = bindings.build(xb, str(work), device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     ph = {p: v["total_s"] for p, v in tracing.phase_report().items()}
@@ -1831,7 +1832,8 @@ def spill_phase(torch, np, xb, xq, check, dev, work, p4):
     kb.reset_launch_counts()  # counts from here on belong to phase 7
 
     t0 = time.perf_counter()
-    vi = bindings.build(xb, str(work), spill=1, device=dev)
+    with tracing.recording():
+        vi = bindings.build(xb, str(work), spill=1, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     ph = {p: v["total_s"] for p, v in tracing.phase_report().items()}
@@ -2504,7 +2506,8 @@ def surface_phase(torch, np, xb, xq, check, dev, work):
         try:
             tracing.reset_phases()
             t0 = time.perf_counter()
-            vi = bindings.load(str(idx_dir), str(sh_dir), d, device=dev)
+            with tracing.recording():
+                vi = bindings.load(str(idx_dir), str(sh_dir), d, device=dev)
             torch.cuda.synchronize()
             load_ms = (time.perf_counter() - t0) * 1e3
         finally:

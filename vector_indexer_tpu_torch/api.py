@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+from logging import DEBUG
 from pathlib import Path
 from typing import List, Optional, Sequence
 
@@ -21,6 +22,7 @@ import numpy as np
 from .index.ivf import IvfIndex, load_index_from
 from .storage.vector_store import VectorStore
 from .utils.io import read_vectors_from_file_arrays
+from .utils.tracing import trace
 
 
 @dataclasses.dataclass
@@ -223,18 +225,13 @@ class VectorIndexer:
                      n_probe: Optional[int] = None, method: str = "auto"):
         """Columnar batched search -> (D (nq, k) f32, I (nq, k) external ids
         int64), padded with +inf / -1."""
-        k = min(k if k is not None else self.cfg.default_k, self.cfg.max_k)
-        n_probe = min(
-            n_probe if n_probe is not None else self.cfg.default_n_probe,
-            self.cfg.max_n_probe,
-        )
-        D, internal = self.index.search_batch(queries, k, n_probe, method=method)
-        ext = np.where(
-            internal >= 0,
-            self.index.external_ids[np.clip(internal, 0, None)].astype(np.int64),
-            -1,
-        )
-        return D, ext
+        with trace("search", level=DEBUG):
+            k = min(k if k is not None else self.cfg.default_k, self.cfg.max_k)
+            n_probe = min(
+                n_probe if n_probe is not None else self.cfg.default_n_probe,
+                self.cfg.max_n_probe,
+            )
+            return self.index.search_batch(queries, k, n_probe, method=method, external=True)
 
     def config(self) -> VectorIndexerConfig:
         return self.cfg

@@ -29,6 +29,7 @@ from __future__ import annotations
 import asyncio
 import os
 import tempfile
+from logging import DEBUG
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -37,6 +38,7 @@ import torch
 
 from .api import VectorIndexer, VectorIndexerConfig
 from .utils.heuristics import suggest_nlist
+from .utils.tracing import trace
 
 __all__ = ["build", "load", "suggest_nlist", "VectorIndex"]
 
@@ -80,9 +82,10 @@ class VectorIndex:
         ``rows_to_external`` maps the rows to external ids, and
         ``search_sync`` returns host arrays with external ids."""
         cfg = self._indexer.cfg
-        return self._indexer.index.search_batch_device(
-            xq, min(k, cfg.max_k), min(n_probe, cfg.max_n_probe), method
-        )
+        with trace("search", level=DEBUG):
+            return self._indexer.index.search_batch_device(
+                xq, min(k, cfg.max_k), min(n_probe, cfg.max_n_probe), method
+            )
 
     def stage_queries(self, xq, pad_to: int = 512) -> torch.Tensor:
         """Copy a query batch to the index's device once, as f32; pass the
@@ -115,12 +118,7 @@ class VectorIndex:
         idx = self._indexer.index
         if isinstance(rows, torch.Tensor):
             rows = rows.cpu().numpy()
-        internal = idx.rows_to_internal(np.asarray(rows))
-        return np.where(
-            internal >= 0,
-            idx.external_ids[np.clip(internal, 0, None)].astype(np.int64),
-            -1,
-        )
+        return idx.internal_to_external(idx.rows_to_internal(np.asarray(rows)))
 
     async def search(self, xq: np.ndarray, k: int, n_probe: int) -> Tuple[np.ndarray, np.ndarray]:
         loop = asyncio.get_running_loop()

@@ -35,6 +35,8 @@ from __future__ import annotations
 
 import logging
 import threading
+from functools import partial
+from logging import DEBUG
 from typing import Optional, Tuple
 
 import numpy as np
@@ -185,109 +187,110 @@ class IvfIndex:
         if n == 0:
             raise ValueError("no vectors provided")
         dev = resolve_device(device)
-        data = store.get_vectors()
-        if metric == "cosine":
-            # Cosine reduces to inner product over unit vectors; stored
-            # payloads are the normalized vectors.
-            norms = np.linalg.norm(data, axis=1, keepdims=True)
-            data = (data / np.maximum(norms, 1e-12)).astype(np.float32)
-        dim = data.shape[1]
-        k = nlist if nlist is not None else calculate_num_clusters(n)
-        k = max(1, min(k, n))
-        iters = max_iters if max_iters is not None else calculate_max_iterations(n)
-        log.info("ivf.fit: n=%d dim=%d nlist=%d max_iters=%d", n, dim, k, iters)
+        with trace("fit", n=n, resident=resident):
+            data = store.get_vectors()
+            if metric == "cosine":
+                # Cosine reduces to inner product over unit vectors; stored
+                # payloads are the normalized vectors.
+                norms = np.linalg.norm(data, axis=1, keepdims=True)
+                data = (data / np.maximum(norms, 1e-12)).astype(np.float32)
+            dim = data.shape[1]
+            k = nlist if nlist is not None else calculate_num_clusters(n)
+            k = max(1, min(k, n))
+            iters = max_iters if max_iters is not None else calculate_max_iterations(n)
+            log.info("ivf.fit: n=%d dim=%d nlist=%d max_iters=%d", n, dim, k, iters)
 
-        spherical = metric == "cosine"
-        data_dev = None
-        with trace("fit.kmeans", n=n, k=k, mesh=mesh is not None):
-            if mesh is not None:
-                from ..parallel.dp_kmeans import run_kmeans_lloyd_dp
+            spherical = metric == "cosine"
+            data_dev = None
+            with trace("fit.kmeans", n=n, k=k, mesh=mesh is not None):
+                if mesh is not None:
+                    from ..parallel.dp_kmeans import run_kmeans_lloyd_dp
 
-                kres = run_kmeans_lloyd_dp(data, k, iters, mesh=mesh, axis=mesh_axis, seed=seed,
-                                           spherical=spherical)
-                data_dev = torch.as_tensor(data, device=dev)  # for the spill pass and layout
-            elif resident == "host":
-                # Only the training sample and one assignment slice at a
-                # time reach the device; the layout packs in host memory.
-                kres = run_kmeans_lloyd_host(
-                    data, k, iters, train_sample or min(n, 2_000_000), seed=seed,
-                    spherical=spherical, device=dev,
-                )
-            else:
-                # One copy of the corpus on the device serves training, the
-                # spill assignment and the layout.
-                data_dev = torch.as_tensor(data, device=dev)
-                if trainer == "balanced":
-                    kres = run_kmeans_balanced(data_dev, k, iters, balance=balance, seed=seed,
+                    kres = run_kmeans_lloyd_dp(data, k, iters, mesh=mesh, axis=mesh_axis, seed=seed,
                                                spherical=spherical)
-                elif trainer == "mini_batch":
-                    kres = run_kmeans_mini_batch(data_dev, k, iters, seed=seed,
-                                                 refine_iters=refine_iters, spherical=spherical)
-                elif train_sample is not None and train_sample < n:
-                    kres = run_kmeans_lloyd_sampled(
-                        data_dev, k, iters, train_sample, seed=seed, spherical=spherical
+                    data_dev = torch.as_tensor(data, device=dev)  # for the spill pass and layout
+                elif resident == "host":
+                    # Only the training sample and one assignment slice at a
+                    # time reach the device; the layout packs in host memory.
+                    kres = run_kmeans_lloyd_host(
+                        data, k, iters, train_sample or min(n, 2_000_000), seed=seed,
+                        spherical=spherical, device=dev,
                     )
                 else:
-                    kres = run_kmeans_lloyd(data_dev, k, iters, seed=seed, spherical=spherical)
-        log.info("fit.kmeans: %d iterations, converged=%s", kres.iterations, kres.converged)
-        centroids = kres.centroids.cpu().numpy()
-        labels = kres.labels.cpu().numpy().astype(np.int64)
+                    # One copy of the corpus on the device serves training, the
+                    # spill assignment and the layout.
+                    data_dev = torch.as_tensor(data, device=dev)
+                    if trainer == "balanced":
+                        kres = run_kmeans_balanced(data_dev, k, iters, balance=balance, seed=seed,
+                                                   spherical=spherical)
+                    elif trainer == "mini_batch":
+                        kres = run_kmeans_mini_batch(data_dev, k, iters, seed=seed,
+                                                     refine_iters=refine_iters, spherical=spherical)
+                    elif train_sample is not None and train_sample < n:
+                        kres = run_kmeans_lloyd_sampled(
+                            data_dev, k, iters, train_sample, seed=seed, spherical=spherical
+                        )
+                    else:
+                        kres = run_kmeans_lloyd(data_dev, k, iters, seed=seed, spherical=spherical)
+            log.info("fit.kmeans: %d iterations, converged=%s", kres.iterations, kres.converged)
+            centroids = kres.centroids.cpu().numpy()
+            labels = kres.labels.cpu().numpy().astype(np.int64)
 
-        # Spilled assignment: each vector also joins its SOAR-chosen second
-        # cell (entries [primary labels, secondary labels], both of points
-        # 0..n-1).
-        entry_labels, point_ids = labels, None
-        if spill:
-            with trace("fit.spill", n=n):
-                labels2 = assign_spill_chunked(
-                    data_dev, kres.centroids.to(dev), kres.labels.to(dev),
-                    soar_lambda=spill_lambda,
-                ).cpu().numpy().astype(np.int64)
-            entry_labels = np.concatenate([labels, labels2])
-            point_ids = np.concatenate([np.arange(n, dtype=np.int64)] * 2)
-        del kres
+            # Spilled assignment: each vector also joins its SOAR-chosen second
+            # cell (entries [primary labels, secondary labels], both of points
+            # 0..n-1).
+            entry_labels, point_ids = labels, None
+            if spill:
+                with trace("fit.spill", n=n):
+                    labels2 = assign_spill_chunked(
+                        data_dev, kres.centroids.to(dev), kres.labels.to(dev),
+                        soar_lambda=spill_lambda,
+                    ).cpu().numpy().astype(np.int64)
+                entry_labels = np.concatenate([labels, labels2])
+                point_ids = np.concatenate([np.arange(n, dtype=np.int64)] * 2)
+            del kres
 
-        # Super-centroid clustering over the (unfiltered) centroid table.
-        num_shards = num_shards_for(k)
-        super_seed = (seed * 31 + 7) % (2**63)
-        if num_shards >= k:
-            shard_labels_all = np.arange(k, dtype=np.int64) % num_shards
-        else:
-            with trace("fit.super_kmeans", k=k, shards=num_shards):
-                sres = run_kmeans_lloyd(
-                    torch.as_tensor(centroids, device=dev), num_shards, 100,
-                    seed=super_seed,
-                )
-            shard_labels_all = sres.labels.cpu().numpy().astype(np.int64)
+            # Super-centroid clustering over the (unfiltered) centroid table.
+            num_shards = num_shards_for(k)
+            super_seed = (seed * 31 + 7) % (2**63)
+            if num_shards >= k:
+                shard_labels_all = np.arange(k, dtype=np.int64) % num_shards
+            else:
+                with trace("fit.super_kmeans", sync=dev, k=k, shards=num_shards):
+                    sres = run_kmeans_lloyd(
+                        torch.as_tensor(centroids, device=dev), num_shards, 100,
+                        seed=super_seed,
+                    )
+                shard_labels_all = sres.labels.cpu().numpy().astype(np.int64)
 
-        # Filter empty posting lists; densify centroid ids (order-preserving).
-        counts = np.bincount(entry_labels, minlength=k)
-        keep = np.flatnonzero(counts > 0)
-        log.info(
-            "ivf.fit: filtered %d empty lists, %d remain, %d shards",
-            k - len(keep), len(keep), num_shards,
-        )
-        old_to_new = np.full(k, -1, np.int64)
-        old_to_new[keep] = np.arange(len(keep))
-
-        idx = cls(dim, metric=metric, device=dev)
-        idx.spill = int(spill)
-        idx.centroids = centroids[keep]
-        idx.centroids_to_shard = shard_labels_all[keep].astype(np.int32)
-        idx.num_shards = num_shards
-        idx.external_ids = store.external_ids
-        idx.timestamps = store.timestamps
-        idx._host_data = data
-        # Clusters of one shard are laid out contiguously, so shard files
-        # (and later sharded search) slice contiguous row ranges.
-        cluster_order = np.argsort(idx.centroids_to_shard, kind="stable")
-        with trace("fit.layout", n=n, clusters=len(keep)):
-            idx.layout = build_layout(
-                data if resident == "host" else data_dev, old_to_new[entry_labels],
-                len(keep), cluster_order, point_ids=point_ids,
+            # Filter empty posting lists; densify centroid ids (order-preserving).
+            counts = np.bincount(entry_labels, minlength=k)
+            keep = np.flatnonzero(counts > 0)
+            log.info(
+                "ivf.fit: filtered %d empty lists, %d remain, %d shards",
+                k - len(keep), len(keep), num_shards,
             )
-        idx.host_resident = resident == "host"
-        return idx
+            old_to_new = np.full(k, -1, np.int64)
+            old_to_new[keep] = np.arange(len(keep))
+
+            idx = cls(dim, metric=metric, device=dev)
+            idx.spill = int(spill)
+            idx.centroids = centroids[keep]
+            idx.centroids_to_shard = shard_labels_all[keep].astype(np.int32)
+            idx.num_shards = num_shards
+            idx.external_ids = store.external_ids
+            idx.timestamps = store.timestamps
+            idx._host_data = data
+            # Clusters of one shard are laid out contiguously, so shard files
+            # (and later sharded search) slice contiguous row ranges.
+            cluster_order = np.argsort(idx.centroids_to_shard, kind="stable")
+            with trace("fit.layout", sync=dev, n=n, clusters=len(keep)):
+                idx.layout = build_layout(
+                    data if resident == "host" else data_dev, old_to_new[entry_labels],
+                    len(keep), cluster_order, point_ids=point_ids,
+                )
+            idx.host_resident = resident == "host"
+            return idx
 
     # ------------------------------------------------------------------
     # Search
@@ -308,7 +311,7 @@ class IvfIndex:
         first use (a one-time device re-pack of the posting table)."""
         dtype = self.stream_dtype if dtype is None else dtype
         if dtype not in self._stream_tables:
-            with trace("stream_table.build", dtype=str(dtype)):
+            with trace("stream_table.build", sync=self.device, dtype=str(dtype)):
                 self._stream_tables[dtype] = build_stream_table(
                     self.layout, self.centroids, dtype
                 )
@@ -392,7 +395,7 @@ class IvfIndex:
         f32 table)."""
         lay = self.layout
         if self._sweep_q is None or self._sweep_q[0] is not lay:
-            with trace("sweep_int8_tables.build"):
+            with trace("sweep_int8_tables.build", sync=self.device):
                 self._sweep_q = (lay, quantize_table_int8(lay.vectors))
         return self._sweep_q[1]
 
@@ -477,13 +480,24 @@ class IvfIndex:
         if not self.spill:
             return self._search_rows(queries, k, n_probe, method)
         dv, rows = self._search_rows(queries, (1 + self.spill) * k, n_probe, method)
-        return _offload.dedup_topk(dv, rows, self._perm_dev_table(), k)
+        with trace("search.select", level=DEBUG):
+            return _offload.dedup_topk(dv, rows, self._perm_dev_table(), k)
 
     def _search_rows(self, queries, k: int, n_probe: int, method: str = "auto"):
         """``search_batch_device`` without the spill dedup: the program's
         own (D, layout rows) at width k (a spilled index's rows may repeat
         an id)."""
-        q = self._queries_on_device(queries)
+        with trace("search.upload", level=DEBUG):
+            q = self._queries_on_device(queries)
+        with trace("search.dispatch", level=DEBUG):
+            program = self._bind(q, k, n_probe, method)
+        with trace("search.program", level=DEBUG):
+            return program()
+
+    def _bind(self, q, k: int, n_probe: int, method: str):
+        """The program ``resolve`` picks for the device queries ``q``, bound
+        to its device tables (built here on first use) and sizes: a call
+        with no arguments that enqueues it."""
         nq = q.shape[0]  # after the reshape: one (d,) query is nq = 1
         n_probe = min(n_probe, self.num_clusters)
         if self.offloaded:
@@ -514,9 +528,9 @@ class IvfIndex:
             # int8 on a device-resident index: exact f32 re-rank of the
             # shortlist (an offloaded index re-ranks in index/offload.py).
             rerank = st.dtype == torch.int8 and not self.offloaded
-            return programs.stream_program(
-                q, centroids, c_sq, st, k=k, n_probe=n_probe, t_fixed=t_fixed,
-                q_tile=q_tile, metric=metric, approx=not dec.exact,
+            return partial(
+                programs.stream_program, q, centroids, c_sq, st, k=k, n_probe=n_probe,
+                t_fixed=t_fixed, q_tile=q_tile, metric=metric, approx=not dec.exact,
                 shared=dec.program == "stream_shared", t_cap=t_cap,
                 rerank_from=(lay.vectors, lay.row_norms) if rerank else None,
             )
@@ -524,17 +538,19 @@ class IvfIndex:
             centroids, c_sq = self._device_tables()
             starts, lengths = self._list_tables()
             if dec.program == "gather":
-                return programs.gather_program(
-                    q, centroids, c_sq, lay.vectors, lay.row_norms, starts, lengths, k=k,
-                    n_probe=n_probe, budget=dec.budget, q_tile=dec.q_tile, metric=metric,
+                return partial(
+                    programs.gather_program, q, centroids, c_sq, lay.vectors, lay.row_norms,
+                    starts, lengths, k=k, n_probe=n_probe, budget=dec.budget,
+                    q_tile=dec.q_tile, metric=metric,
                 )
-            return programs.gather_dma_program(
-                q, centroids, c_sq, lay.vectors, starts, lengths, k=k, n_probe=n_probe,
-                max_len=lay.max_list_len, budget=dec.budget, q_tile=dec.q_tile, metric=metric,
+            return partial(
+                programs.gather_dma_program, q, centroids, c_sq, lay.vectors, starts, lengths,
+                k=k, n_probe=n_probe, max_len=lay.max_list_len, budget=dec.budget,
+                q_tile=dec.q_tile, metric=metric,
             )
         if dec.program == "flat_torch":
-            return programs.flat_program(q, lay.vectors, lay.row_norms, k=k, q_tile=dec.q_tile,
-                                         metric=metric)
+            return partial(programs.flat_program, q, lay.vectors, lay.row_norms, k=k,
+                           q_tile=dec.q_tile, metric=metric)
         # The fused sweeps read the f32 table, or its int8 twin.
         table, resid, scales = lay.vectors, None, None
         if dec.precision != "highest":
@@ -542,20 +558,21 @@ class IvfIndex:
             resid = resid if dec.precision == "int8" else None
         if dec.program == "flat_fused":
             w, _, c_groups = dec.plan
-            return programs.flat_fused_program(
-                q, table, lay.row_norms, resid, scales, k=k, w=w, c_groups=c_groups,
-                metric=metric, precision=dec.precision,
+            return partial(
+                programs.flat_fused_program, q, table, lay.row_norms, resid, scales, k=k, w=w,
+                c_groups=c_groups, metric=metric, precision=dec.precision,
             )
         block_run, c_ord, c_sq_ord = self._run_tables()
         if dec.program == "dense_fused":
             w, _, c_groups = dec.plan
-            return programs.dense_fused_program(
-                q, c_ord, c_sq_ord, table, lay.row_norms, block_run, n_probe, resid, scales,
-                k=k, w=w, c_groups=c_groups, metric=metric, precision=dec.precision,
+            return partial(
+                programs.dense_fused_program, q, c_ord, c_sq_ord, table, lay.row_norms,
+                block_run, n_probe, resid, scales, k=k, w=w, c_groups=c_groups, metric=metric,
+                precision=dec.precision,
             )
-        return programs.dense_program(
-            q, c_ord, c_sq_ord, lay.vectors, lay.row_norms, block_run, n_probe,
-            k=k, q_tile=dec.q_tile, metric=metric,
+        return partial(
+            programs.dense_program, q, c_ord, c_sq_ord, lay.vectors, lay.row_norms, block_run,
+            n_probe, k=k, q_tile=dec.q_tile, metric=metric,
         )
 
     def rows_to_internal(self, rows: np.ndarray) -> np.ndarray:
@@ -564,12 +581,22 @@ class IvfIndex:
         bound = max(lay.rows_used - 1, 0)
         return np.where(rows >= 0, lay.perm[np.clip(rows, 0, bound)], -1).astype(np.int64)
 
-    def search_batch(self, queries, k: int, n_probe: int,
-                     method: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
+    def internal_to_external(self, internal: np.ndarray) -> np.ndarray:
+        """Internal ids -> external ids as int64 (-1 stays -1)."""
+        return np.where(
+            internal >= 0,
+            self.external_ids[np.clip(internal, 0, None)].astype(np.int64),
+            -1,
+        )
+
+    def search_batch(self, queries, k: int, n_probe: int, method: str = "auto",
+                     external: bool = False) -> Tuple[np.ndarray, np.ndarray]:
         """Batched search: (nq, d) -> (D (nq, k) f32, internal ids (nq, k)
-        int64), missing slots padded +inf / -1. An offloaded index re-ranks
-        its shortlist as its mode says (index/offload.py); a host-resident
-        one stages its probed cells (index/staged.py)."""
+        int64, or external ids with ``external``), missing slots padded
+        +inf / -1. An offloaded index re-ranks its shortlist as its mode
+        says (index/offload.py); a host-resident one stages its probed
+        cells (index/staged.py)."""
+        rows = None
         if self.host_resident:
             if method not in ("auto", "staged"):
                 raise RuntimeError(
@@ -580,17 +607,23 @@ class IvfIndex:
                 raise ValueError("k must be > 0")
             if n_probe <= 0:
                 raise ValueError("n_probe must be > 0")
-            return staged_search(self, queries, k, n_probe)
-        if self.offloaded and self._offload_rerank in ("host", "device"):
+            dvals, ids = staged_search(self, queries, k, n_probe)
+        elif self.offloaded and self._offload_rerank in ("host", "device"):
             if k <= 0:
                 raise ValueError("k must be > 0")
             if n_probe <= 0:
                 raise ValueError("n_probe must be > 0")
             search = (_offload.search_offloaded if self._offload_rerank == "host"
                       else _offload.search_offloaded_device)
-            return search(self, queries, k, n_probe, method)
-        dvals, rows = self.search_batch_device(queries, k, n_probe, method)
-        return dvals.cpu().numpy(), self.rows_to_internal(rows.cpu().numpy())
+            dvals, ids = search(self, queries, k, n_probe, method)
+        else:
+            dv, rv = self.search_batch_device(queries, k, n_probe, method)
+            with trace("search.to_host", level=DEBUG):
+                dvals, rows = dv.cpu().numpy(), rv.cpu().numpy()
+        with trace("search.id_map", level=DEBUG):
+            if rows is not None:
+                ids = self.rows_to_internal(rows)
+            return dvals, self.internal_to_external(ids) if external else ids
 
     def search(self, query, k: int, n_probe: int) -> list:
         """Single query: list of (external_id, distance, vector), ascending,

@@ -140,7 +140,7 @@ def offload_main_table(idx, stream_dtype=None, rerank: str = "host") -> None:
     idx._n_pad = lay.vectors.shape[0]
     idx._corr_table = None
     if rerank == "device":
-        with trace("correction_table.build"):
+        with trace("correction_table.build", sync=idx.device):
             idx._corr_table = build_correction_table(lay, st)
     # The stream table's to_main map stays valid (rows identify results);
     # only the payload arrays are freed.
@@ -167,7 +167,7 @@ def offload_from_host(idx, stream_dtype=None, rerank: str = "host") -> None:
             "(offload_from_host is for host-staged layouts)"
         )
     dtype = torch.int8 if stream_dtype is None else stream_dtype
-    with trace("stream_table.build_host", dtype=str(dtype)):
+    with trace("stream_table.build_host", sync=idx.device, dtype=str(dtype)):
         st = build_stream_table_host(lay, idx.centroids, dtype, device=idx.device)
     idx._offload_rerank = rerank
     idx.stream_dtype = dtype
@@ -175,7 +175,7 @@ def offload_from_host(idx, stream_dtype=None, rerank: str = "host") -> None:
     idx._n_pad = lay.vectors.shape[0]
     idx._corr_table = None
     if rerank == "device":
-        with trace("correction_table.build_host"):
+        with trace("correction_table.build_host", sync=idx.device):
             idx._corr_table = build_correction_table_host(lay, st)
     lay.vectors = None
     lay.row_norms = None

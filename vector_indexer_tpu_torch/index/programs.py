@@ -28,9 +28,18 @@ lists were built by L2 assignment), whatever the ranking metric.
 * ``gather_dma_program`` - coarse top-n_probe, then kernel K6 writes the
   probed lists' distances to packed slots, and a top-k (the reference's
   ``gather_dma`` branch of ``search_batch_device``).
+
+Three spans (``utils/tracing.trace``, at DEBUG) name the host's stages in
+each query tile: ``search.probe`` (the coarse scan, the probe selection,
+the probe mask), ``search.sweep`` (the task grid and the kernel launches,
+or the distance matrix) and ``search.select`` (the top-k, narrow or
+re-rank, and the return to arrival order; in ``stream_program`` once,
+after its tiles).
 """
 
 from __future__ import annotations
+
+from logging import DEBUG
 
 import torch
 
@@ -41,6 +50,7 @@ from ..ops.gather import packed_candidate_rows
 from ..ops.ivf_gather import ivf_gather_distances
 from ..ops.topk import topk_smallest
 from ..storage.layout import ALIGN, SENTINEL_THRESHOLD
+from ..utils.tracing import trace
 
 # Queries per fused-sweep launch: bounds the (q, n/8) probe mask (~512 MB
 # at n = 1M). The reference's q_tile from plan_fused sizes TPU VMEM and has
@@ -104,30 +114,33 @@ def stream_program(queries, centroids, c_sq, table, *, k: int, n_probe: int,
     dv_parts, row_parts = [], []
     for s in range(0, queries.shape[0], q_tile):
         qt = queries[s : s + q_tile]
-        probe = _probe(qt, centroids, c_sq, n_probe) if probe_fn is None else probe_fn(qt)
-        if shared:
-            dv, rows = block_stream_search_shared(
-                qt, table, probe, kk, t_fixed=t_fixed, t_cap=t_cap, metric=metric
-            )
-        else:
-            dv, rows = block_stream_search(
-                qt, table, probe, kk, t_fixed=t_fixed, metric=metric, approx=approx
-            )
+        with trace("search.probe", level=DEBUG):
+            probe = _probe(qt, centroids, c_sq, n_probe) if probe_fn is None else probe_fn(qt)
+        with trace("search.sweep", level=DEBUG):
+            if shared:
+                dv, rows = block_stream_search_shared(
+                    qt, table, probe, kk, t_fixed=t_fixed, t_cap=t_cap, metric=metric
+                )
+            else:
+                dv, rows = block_stream_search(
+                    qt, table, probe, kk, t_fixed=t_fixed, metric=metric, approx=approx
+                )
         dv_parts.append(dv)
         row_parts.append(rows)
-    dvals = torch.cat(dv_parts)
-    rows = torch.cat(row_parts)
-    if rerank_from is not None:
-        vectors, row_norms = rerank_from
-        rt = max(q_tile, RERANK_Q_TILE // q_tile * q_tile)
-        parts = [exact_rerank(queries[s : s + rt], rows[s : s + rt], vectors, row_norms,
-                              k, metric) for s in range(0, queries.shape[0], rt)]
-        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
-    if metric == "l2":
-        # Kernel distances are |q - (c + r^)|^2 from exact f32 pieces; the
-        # three-term sum can leave ~-1e-5 on (near-)self matches.
-        dvals = torch.where(torch.isfinite(dvals), dvals.clamp_min(0.0), dvals)
-    return _narrow(dvals, rows, k)
+    with trace("search.select", level=DEBUG):
+        dvals = torch.cat(dv_parts)
+        rows = torch.cat(row_parts)
+        if rerank_from is not None:
+            vectors, row_norms = rerank_from
+            rt = max(q_tile, RERANK_Q_TILE // q_tile * q_tile)
+            parts = [exact_rerank(queries[s : s + rt], rows[s : s + rt], vectors, row_norms,
+                                  k, metric) for s in range(0, queries.shape[0], rt)]
+            return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+        if metric == "l2":
+            # Kernel distances are |q - (c + r^)|^2 from exact f32 pieces; the
+            # three-term sum can leave ~-1e-5 on (near-)self matches.
+            dvals = torch.where(torch.isfinite(dvals), dvals.clamp_min(0.0), dvals)
+        return _narrow(dvals, rows, k)
 
 
 def _probe_sets(queries, centroids_ord, c_sq_ord, n_probe: int):
@@ -205,18 +218,21 @@ def dense_fused_program(queries, centroids_ord, c_sq_ord, vectors, row_norms,
     parts = []
     for s in range(0, queries.shape[0], SWEEP_Q_TILE):
         qt = queries[s : s + SWEEP_Q_TILE]
-        s_ord, nearest = (_probe_sets(qt, centroids_ord, c_sq_ord, n_probe)
-                          if probe_sets is None else probe_sets(qt))
-        perm = torch.argsort(nearest, stable=True)
-        qt, s_ord = qt[perm], s_ord[perm]
-        mask = _sweep_mask(s_ord, block_run, mcols)
-        vals, rows = flat_sweep_topk_plane(
-            qt, vectors, row_norms, mask, vec_resid, scale_row, metric=metric, w=w,
-            c_groups=c_groups, precision=precision,
-        )
-        dv, rv = _plane_topk(vals, rows, qt, k, metric)
-        parts.append((dv.new_empty(dv.shape).index_copy_(0, perm, dv),  # arrival order
-                      rv.new_empty(rv.shape).index_copy_(0, perm, rv)))
+        with trace("search.probe", level=DEBUG):
+            s_ord, nearest = (_probe_sets(qt, centroids_ord, c_sq_ord, n_probe)
+                              if probe_sets is None else probe_sets(qt))
+            perm = torch.argsort(nearest, stable=True)
+            qt, s_ord = qt[perm], s_ord[perm]
+            mask = _sweep_mask(s_ord, block_run, mcols)
+        with trace("search.sweep", level=DEBUG):
+            vals, rows = flat_sweep_topk_plane(
+                qt, vectors, row_norms, mask, vec_resid, scale_row, metric=metric, w=w,
+                c_groups=c_groups, precision=precision,
+            )
+        with trace("search.select", level=DEBUG):
+            dv, rv = _plane_topk(vals, rows, qt, k, metric)
+            parts.append((dv.new_empty(dv.shape).index_copy_(0, perm, dv),  # arrival order
+                          rv.new_empty(rv.shape).index_copy_(0, perm, rv)))
     return _cat(parts)
 
 
@@ -227,11 +243,13 @@ def flat_fused_program(queries, vectors, row_norms, vec_resid=None, scale_row=No
     parts = []
     for s in range(0, queries.shape[0], SWEEP_Q_TILE):
         qt = queries[s : s + SWEEP_Q_TILE]
-        vals, rows = flat_sweep_topk_plane(
-            qt, vectors, row_norms, None, vec_resid, scale_row, metric=metric, w=w,
-            c_groups=c_groups, precision=precision,
-        )
-        parts.append(_plane_topk(vals, rows, qt, k, metric))
+        with trace("search.sweep", level=DEBUG):
+            vals, rows = flat_sweep_topk_plane(
+                qt, vectors, row_norms, None, vec_resid, scale_row, metric=metric, w=w,
+                c_groups=c_groups, precision=precision,
+            )
+        with trace("search.select", level=DEBUG):
+            parts.append(_plane_topk(vals, rows, qt, k, metric))
     return _cat(parts)
 
 
@@ -243,20 +261,28 @@ def dense_program(queries, centroids_ord, c_sq_ord, vectors, row_norms, block_ru
     parts = []
     for s in range(0, queries.shape[0], q_tile):
         qt = queries[s : s + q_tile]
-        mask = (_block_mask(qt, centroids_ord, c_sq_ord, block_run, n_probe)
-                if probe_sets is None else _expand_mask(probe_sets(qt)[0], block_run))
-        dist = score(qt, vectors, row_norms, sq_norms(qt), metric)
-        dist = torch.where(mask.repeat_interleave(ALIGN, dim=1), dist, float("inf"))
-        parts.append(_real_topk(dist, k))
+        with trace("search.probe", level=DEBUG):
+            mask = (_block_mask(qt, centroids_ord, c_sq_ord, block_run, n_probe)
+                    if probe_sets is None else _expand_mask(probe_sets(qt)[0], block_run))
+        with trace("search.sweep", level=DEBUG):
+            dist = score(qt, vectors, row_norms, sq_norms(qt), metric)
+            dist = torch.where(mask.repeat_interleave(ALIGN, dim=1), dist, float("inf"))
+        with trace("search.select", level=DEBUG):
+            parts.append(_real_topk(dist, k))
     return _cat(parts)
 
 
 def flat_program(queries, vectors, row_norms, *, k: int, q_tile: int, metric: str):
     """Plain exhaustive search: full (q_tile, n) distance matrix and an
     exact top-k; sentinel rows never count as results."""
-    return _cat([_real_topk(score(queries[s : s + q_tile], vectors, row_norms,
-                                  sq_norms(queries[s : s + q_tile]), metric), k)
-                 for s in range(0, queries.shape[0], q_tile)])
+    parts = []
+    for s in range(0, queries.shape[0], q_tile):
+        qt = queries[s : s + q_tile]
+        with trace("search.sweep", level=DEBUG):
+            dist = score(qt, vectors, row_norms, sq_norms(qt), metric)
+        with trace("search.select", level=DEBUG):
+            parts.append(_real_topk(dist, k))
+    return _cat(parts)
 
 
 def gather_program(queries, centroids, c_sq, vectors, row_norms, starts, lengths, *, k: int,
@@ -269,15 +295,19 @@ def gather_program(queries, centroids, c_sq, vectors, row_norms, starts, lengths
     parts = []
     for s in range(0, queries.shape[0], q_tile):
         qt = queries[s : s + q_tile]
-        probe = _probe(qt, centroids, c_sq, n_probe)
-        rows, valid = packed_candidate_rows(starts[probe], lengths[probe], budget, pad_row)
-        cross = torch.matmul(vectors[rows], qt[:, :, None])[..., 0]  # (q, budget)
-        norms_sel = row_norms[rows]
-        if metric == "l2":
-            dist = (sq_norms(qt)[:, None] - 2.0 * cross + norms_sel).clamp_min(0.0)
-        else:
-            dist = -cross + torch.where(norms_sel >= 1e29, norms_sel, torch.zeros_like(norms_sel))
-        parts.append(_narrow(torch.where(valid, dist, float("inf")), rows, k))
+        with trace("search.probe", level=DEBUG):
+            probe = _probe(qt, centroids, c_sq, n_probe)
+            rows, valid = packed_candidate_rows(starts[probe], lengths[probe], budget, pad_row)
+        with trace("search.sweep", level=DEBUG):
+            cross = torch.matmul(vectors[rows], qt[:, :, None])[..., 0]  # (q, budget)
+            norms_sel = row_norms[rows]
+            if metric == "l2":
+                dist = (sq_norms(qt)[:, None] - 2.0 * cross + norms_sel).clamp_min(0.0)
+            else:
+                dist = -cross + torch.where(norms_sel >= 1e29, norms_sel,
+                                            torch.zeros_like(norms_sel))
+        with trace("search.select", level=DEBUG):
+            parts.append(_narrow(torch.where(valid, dist, float("inf")), rows, k))
     return _cat(parts)
 
 
@@ -289,8 +319,12 @@ def gather_dma_program(queries, centroids, c_sq, vectors, starts, lengths, *, k:
     parts = []
     for s in range(0, queries.shape[0], q_tile):
         qt = queries[s : s + q_tile]
-        probe = _probe(qt, centroids, c_sq, n_probe)
-        dist, rows = ivf_gather_distances(qt, vectors, starts[probe], lengths[probe],
-                                          max_len=max(1, max_len), budget=budget, metric=metric)
-        parts.append(_narrow(dist, rows.long(), k))
+        with trace("search.probe", level=DEBUG):
+            probe = _probe(qt, centroids, c_sq, n_probe)
+        with trace("search.sweep", level=DEBUG):
+            dist, rows = ivf_gather_distances(qt, vectors, starts[probe], lengths[probe],
+                                              max_len=max(1, max_len), budget=budget,
+                                              metric=metric)
+        with trace("search.select", level=DEBUG):
+            parts.append(_narrow(dist, rows.long(), k))
     return _cat(parts)

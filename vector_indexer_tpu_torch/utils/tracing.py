@@ -1,18 +1,27 @@
-"""Tracing: the package logger, phase timers, progress lines and a device
-profiler.
+"""Tracing: the package logger, spans, progress lines and a device profiler.
 
 * ``enable_console_logging(level)`` attaches one stderr handler to the
   ``vector_indexer_tpu_torch`` logger, however often it is called.
-* ``trace(phase)`` times a block on the host clock, accumulates it in a
-  registry that ``phase_report`` reads, and logs it at INFO. When CUDA is
-  initialised the block is also pushed as an NVTX range, so a
-  ``torch.profiler`` trace shows the phase around its kernels. The host
-  clock measures enqueue time unless the block ends in a synchronisation;
-  phases that must report device time synchronise themselves.
+* ``trace(phase, sync=None, level=INFO)`` is a span: a block of host work
+  under a name. It records only while someone reads spans: while
+  ``torch.profiler`` is recording, or inside a ``recording()`` block.
+  A recorded span adds its host-clock duration to the registry that
+  ``phase_report`` reads, and under the profiler it also opens a host-only
+  range of its name in the profiler's trace (a ``RecordFunction`` of
+  function scope, of which CUDA activity makes no device-side copy). That
+  range shares the trace's clock with the device's kernels and copies, so
+  each gap in the device's activity can be named by the innermost span open
+  over it. The host clock measures enqueue time unless the block ends in a
+  read; a span given ``sync=<device>`` synchronises that device before it
+  ends, while recording only, so that it times the device work it
+  enqueued. Without a reader ``trace`` returns a shared no-op context,
+  unless the package logger is enabled for the span's ``level``: the span
+  then times itself to log its line (its fields are formatted only then).
 * ``progress(total, label)`` logs rate / ETA lines for long host loops.
 * ``device_profiler(logdir)`` records a block with ``torch.profiler`` (CPU
   activity, and CUDA activity when a card is present) and writes a Chrome
-  trace under ``logdir`` that TensorBoard and Perfetto read.
+  trace under ``logdir`` that TensorBoard and Perfetto read; the spans
+  recorded inside it appear in that trace.
 """
 
 from __future__ import annotations
@@ -21,17 +30,21 @@ import contextlib
 import logging
 import os
 import socket
+import threading
 import time
-from collections import defaultdict
 from pathlib import Path
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 import torch
 
 log = logging.getLogger("vector_indexer_tpu_torch")
 
-_PHASE_TOTALS: Dict[str, float] = defaultdict(float)
-_PHASE_COUNTS: Dict[str, int] = defaultdict(int)
+_PHASES: Dict[str, List] = {}  # phase -> [total_s, self_s, count]
+_LOCK = threading.Lock()
+_LOCAL = threading.local()  # ``stack``: the recorded spans open on this thread
+_READERS = 0  # open recording() blocks, of any thread
+_NOOP = contextlib.nullcontext()
+_profiling = torch.autograd._profiler_enabled
 
 
 def enable_console_logging(level: int = logging.INFO) -> None:
@@ -43,40 +56,101 @@ def enable_console_logging(level: int = logging.INFO) -> None:
     log.setLevel(level)
 
 
+class _Fields:
+    """A span's fields, formatted only when its log line is emitted."""
+
+    __slots__ = ("fields",)
+
+    def __init__(self, fields):
+        self.fields = fields
+
+    def __str__(self) -> str:
+        return " ".join(f"{k}={v}" for k, v in self.fields.items())
+
+
+class _Span:
+    __slots__ = ("name", "sync", "level", "fields", "record", "child", "range", "t0")
+
+    def __init__(self, name, sync, level, fields, record):
+        self.name, self.sync, self.level, self.fields, self.record = (
+            name, sync, level, fields, record)
+
+    def __enter__(self) -> None:
+        if self.record:
+            stack = getattr(_LOCAL, "stack", None)
+            if stack is None:
+                stack = _LOCAL.stack = []
+            stack.append(self)
+            self.child = 0.0
+            self.range = (torch._C._profiler._RecordFunctionFast(self.name)
+                          if _profiling() else None)
+            if self.range is not None:
+                self.range.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self.record and self.sync is not None and exc_type is None:
+            dev = torch.device(self.sync)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - self.t0
+        if self.record:
+            if self.range is not None:
+                self.range.__exit__(None, None, None)
+            stack = _LOCAL.stack
+            stack.pop()
+            if stack:
+                stack[-1].child += dt
+            with _LOCK:
+                acc = _PHASES.setdefault(self.name, [0.0, 0.0, 0])
+                acc[0] += dt
+                acc[1] += dt - self.child
+                acc[2] += 1
+        if log.isEnabledFor(self.level):
+            log.log(self.level, "phase=%s wall=%.3fs %s", self.name, dt, _Fields(self.fields))
+
+
+def trace(phase: str, sync=None, level: int = logging.INFO, **fields):
+    """A span named ``phase`` (see the module docstring): ``with
+    trace("fit.layout", sync=device, n=n): ...``. ``sync``: the device a
+    recorded span synchronises before it ends (None: none); ``level``: the
+    level of its log line; ``fields``: ``key=value`` pairs of that line."""
+    if _READERS or _profiling():
+        return _Span(phase, sync, level, fields, True)
+    if log.isEnabledFor(level):
+        return _Span(phase, None, level, fields, False)
+    return _NOOP
+
+
 @contextlib.contextmanager
-def trace(phase: str, **fields) -> Iterator[None]:
-    """Wall-clock a phase; accumulates into the phase registry."""
-    nvtx = torch.cuda.is_available() and torch.cuda.is_initialized()
-    if nvtx:
-        torch.cuda.nvtx.range_push(phase)
-    t0 = time.perf_counter()
+def recording() -> Iterator[None]:
+    """Record every span, of any thread, while the block runs, without a
+    profiler: for whoever reads ``phase_report`` outside a trace."""
+    global _READERS
+    with _LOCK:
+        _READERS += 1
     try:
         yield
     finally:
-        dt = time.perf_counter() - t0
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
-        _PHASE_TOTALS[phase] += dt
-        _PHASE_COUNTS[phase] += 1
-        extra = " ".join(f"{k}={v}" for k, v in fields.items())
-        log.info("phase=%s wall=%.3fs %s", phase, dt, extra)
+        with _LOCK:
+            _READERS -= 1
 
 
 def phase_report() -> Dict[str, dict]:
-    """{phase: {total_s, count, mean_s}} accumulated since process start."""
-    return {
-        p: {
-            "total_s": _PHASE_TOTALS[p],
-            "count": _PHASE_COUNTS[p],
-            "mean_s": _PHASE_TOTALS[p] / max(_PHASE_COUNTS[p], 1),
+    """{phase: {total_s, self_s, count, mean_s}} of the spans recorded since
+    the last ``reset_phases``: host-clock seconds in all, those less the
+    seconds of the spans recorded inside them on the same thread, the
+    number of spans, and seconds per span."""
+    with _LOCK:
+        return {
+            p: {"total_s": total, "self_s": own, "count": count, "mean_s": total / count}
+            for p, (total, own, count) in _PHASES.items()
         }
-        for p in _PHASE_TOTALS
-    }
 
 
 def reset_phases() -> None:
-    _PHASE_TOTALS.clear()
-    _PHASE_COUNTS.clear()
+    with _LOCK:
+        _PHASES.clear()
 
 
 class progress:
