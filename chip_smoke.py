@@ -2779,8 +2779,8 @@ def cpu_twin(torch, idx):
     tw.layout = to_cpu(idx.layout)
     tw._stream_tables = {dt: to_cpu(st) for dt, st in idx._stream_tables.items()}
     tw._corr_table = to_cpu(idx._corr_table)
-    tw._dev = tw._runs = tw._perm_inv = tw._perm_dev = tw._sweep_q = tw._lists = None
-    tw._budgets = None
+    tw._dev = tw._runs = tw._perm_inv = tw._perm_dev = tw._ext_dev = tw._sweep_q = None
+    tw._lists = tw._budgets = None
     return tw
 
 

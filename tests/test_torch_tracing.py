@@ -35,8 +35,7 @@ def clean_registry():
     tracing.reset_phases()
 
 
-@pytest.fixture(scope="module")
-def small_index():
+def _small_index():
     g = np.random.default_rng(7)
     xb = (g.normal(size=(40, 1, 128)) * 4 + g.normal(size=(40, 60, 128))).reshape(-1, 128)
     store = VectorStore(external_ids=np.arange(xb.shape[0], dtype=np.uint64) + 1000,
@@ -44,6 +43,11 @@ def small_index():
     index = IvfIndex.fit(store, seed=3, nlist=40, device="cpu")
     vi = VectorIndex(VectorIndexer(VectorIndexerConfig(128, device="cpu"), _index=index))
     return vi, g.normal(size=(5, 128)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def small_index():
+    return _small_index()
 
 
 class _Clock:
@@ -191,6 +195,29 @@ def test_search_sync_spans_nest_in_the_profilers_trace(small_index, method, prob
     children = sum(rep[s]["total_s"] for s in STAGES)
     assert rep["search"]["self_s"] == pytest.approx(rep["search"]["total_s"] - children)
     assert resolve(vi.index, xq.shape[0], 8, k=4, method=method).method == method
+
+
+@pytest.mark.parametrize("serving, host_mapped", [
+    ("device", False), ("offload_none", False), ("offload_host", True),
+    ("offload_device", True), ("staged", True)])
+def test_id_map_host_counts_calls_mapped_on_the_host(serving, host_mapped):
+    """A device-resident index maps ids on the device before the copy back;
+    the staged and re-ranked paths give internal ids on the host and map
+    them there, inside ``search.id_map.host``, once per call."""
+    vi, xq = _small_index()
+    if serving == "staged":
+        vi.index.to_host_resident()
+    elif serving != "device":
+        vi.offload(rerank=serving.split("_")[1])
+    vi.search_sync(xq, 4, 8)  # lazy tables outside the count
+    with tracing.recording():
+        for _ in range(3):
+            dist, ids = vi.search_sync(xq, 4, 8)
+    assert (ids >= 1000).all() and np.isfinite(dist).all()  # external ids
+    rep = tracing.phase_report()
+    assert rep["search"]["count"] == rep["search.id_map"]["count"] == 3
+    assert rep.get("search.id_map.host", {}).get("count", 0) == 3 * host_mapped
+    assert ("search.to_host" in rep) != host_mapped
 
 
 def test_search_device_root_span(small_index):

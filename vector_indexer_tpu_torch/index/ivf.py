@@ -17,7 +17,8 @@ Port of ``vector_indexer_tpu/index/ivf.py``:
 * ``search_batch``: ``index/dispatch.py::resolve`` picks the program
   (stream, fused or plain dense, fused or plain flat, the int8 sweeps,
   the packed gather or the K6 range gather), ``index/programs.py`` runs
-  it, and layout rows map to internal ids on the host;
+  it, and layout rows map to internal or external ids on the device, by
+  one gather through a cached row table, before the copy back;
 * persistence through ``storage/persist.py`` (the reference's on-disk
   format);
 * offloaded serving (``offload_main_table``, ``offload_from_host``,
@@ -115,6 +116,7 @@ class IvfIndex:
         self._runs = None
         self._perm_inv = None
         self._perm_dev = None
+        self._ext_dev = None
         # Per-layout caches: the int8 sweep tables, the device list
         # starts/lengths and the gather budgets, each (layout, value).
         self._sweep_q = None
@@ -350,23 +352,43 @@ class IvfIndex:
         # Every device table derived from the layout goes.
         self._stream_tables = {}
         self._runs = self._sweep_q = self._lists = self._budgets = None
-        self._perm_dev = self._perm_inv = None
+        self._perm_dev = self._ext_dev = self._perm_inv = None
         if stage_dtype is not None:
             self.stage_dtype = stage_dtype
         self.host_resident = True
         log.info("host-resident mode: %d rows in host memory, the device holds the "
                  "centroids only", lay.vectors.shape[0])
 
+    def _padded_perm(self) -> np.ndarray:
+        """Layout row -> internal id over the table's rows, -1 on gap and
+        tail rows, and one trailing -1: a -1 row (no result) indexes it
+        directly, since torch and numpy wrap negative indices."""
+        lay = self.layout
+        n_pad = lay.vectors.shape[0] if lay.vectors is not None else self._n_pad
+        pd = np.full(n_pad + 1, -1, np.int64)
+        pd[: lay.rows_used] = lay.perm
+        return pd
+
     def _perm_dev_table(self):
-        """Device map layout row -> internal id (-1 on gap and tail rows),
-        cached per layout object."""
+        """Device map layout row -> internal id (``_padded_perm``), cached
+        per layout object."""
         lay = self.layout
         if self._perm_dev is None or self._perm_dev[0] is not lay:
-            n_pad = lay.vectors.shape[0] if lay.vectors is not None else self._n_pad
-            pd = np.full(n_pad, -1, np.int64)
-            pd[: lay.rows_used] = lay.perm
-            self._perm_dev = (lay, torch.as_tensor(pd, device=self.device))
+            self._perm_dev = (lay, torch.as_tensor(self._padded_perm(), device=self.device))
         return self._perm_dev[1]
+
+    def _ext_dev_table(self):
+        """Device map layout row -> external id as int64 (ids at or above
+        2**63 wrap, as ``internal_to_external``'s cast does), -1 where
+        ``_padded_perm`` holds -1; cached per layout and id column, both of
+        which fit and load replace. ~8 MB per 1M rows."""
+        lay, ext = self.layout, self.external_ids
+        cached = self._ext_dev
+        if cached is None or cached[0] is not lay or cached[1] is not ext:
+            ext_s = np.append(ext.astype(np.int64), -1)  # -1 indexes the trailing -1
+            table = torch.as_tensor(ext_s[self._padded_perm()], device=self.device)
+            self._ext_dev = cached = (lay, ext, table)
+        return cached[2]
 
     def _run_tables(self):
         """(block_run, centroids_ord, c_sq_ord): posting runs in layout order
@@ -596,7 +618,6 @@ class IvfIndex:
         +inf / -1. An offloaded index re-ranks its shortlist as its mode
         says (index/offload.py); a host-resident one stages its probed
         cells (index/staged.py)."""
-        rows = None
         if self.host_resident:
             if method not in ("auto", "staged"):
                 raise RuntimeError(
@@ -618,11 +639,14 @@ class IvfIndex:
             dvals, ids = search(self, queries, k, n_probe, method)
         else:
             dv, rv = self.search_batch_device(queries, k, n_probe, method)
+            # One gather on the device, enqueued behind the program: the
+            # host maps nothing after the copy back.
+            with trace("search.id_map", level=DEBUG):
+                iv = (self._ext_dev_table() if external else self._perm_dev_table())[rv]
             with trace("search.to_host", level=DEBUG):
-                dvals, rows = dv.cpu().numpy(), rv.cpu().numpy()
-        with trace("search.id_map", level=DEBUG):
-            if rows is not None:
-                ids = self.rows_to_internal(rows)
+                return dv.cpu().numpy(), iv.cpu().numpy()
+        # The staged and re-ranked paths give internal ids on the host.
+        with trace("search.id_map", level=DEBUG), trace("search.id_map.host", level=DEBUG):
             return dvals, self.internal_to_external(ids) if external else ids
 
     def search(self, query, k: int, n_probe: int) -> list:
