@@ -9,7 +9,9 @@ be labelled by what the host was doing. ``reduce`` turns the events into:
 
 * ``window_s``: from the first traced step's start to the last one's end;
 * ``busy_s``: the union of device activity intervals (kernels, copies,
-  sets) inside it, so overlapping work counts once;
+  sets) inside it, so overlapping work counts once, on every card together;
+* ``busy_s_by_device``: the same union on each card alone, in card order,
+  so that the idlest of several cards shows (on one card, ``[busy_s]``);
 * ``device_events``: how many device activities ran (each is one launch);
 * ``device_ops``: the ten device operations with the most time;
 * ``idle_gaps``: idle device time summed by the innermost host range open
@@ -30,17 +32,17 @@ NAME_CHARS = 120  # kernel names are long templates: keep their heads
 
 
 def _events(prof):
-    """(device [(start, end, name)], host [(start, end, name, thread)]) from
-    the profiler's results, in ns. The device side holds every kernel, copy
-    and set, and the span of each of the harness's own host ranges, which
-    is left out: it is not work."""
+    """(device [(start, end, name, card)], host [(start, end, name, thread)])
+    from the profiler's results, in ns. The device side holds every kernel,
+    copy and set with the index of the card it ran on, and the span of each
+    of the harness's own host ranges, which is left out: it is not work."""
     dev, host = [], []
     for e in prof.profiler.kineto_results.events():
         start = int(e.start_ns())
         end = start + int(e.duration_ns())
         if e.device_type() == torch.autograd.DeviceType.CUDA:
             if not e.name().startswith(STEP_PREFIX):
-                dev.append((start, end, e.name()))
+                dev.append((start, end, e.name(), int(e.device_index())))
         else:
             host.append((start, end, e.name(), e.start_thread_id()))
     return dev, host
@@ -78,18 +80,21 @@ def innermost(host, points):
     return labels
 
 
-def reduce(dev, host) -> dict:
-    """The summary of one traced window (see the module docstring)."""
+def reduce(dev, host, n_devices: int = 1) -> dict:
+    """The summary of one traced window (see the module docstring) over
+    cards 0 to ``n_devices`` - 1."""
     steps = [h for h in host if h[2].startswith(STEP_PREFIX)]
     if not steps:
         return {}
     t0, t1 = min(h[0] for h in steps), max(h[1] for h in steps)
     thread = steps[0][3]
-    dev = [(max(s, t0), min(e, t1), n) for s, e, n in dev if e > t0 and s < t1]
-    merged = union([(s, e) for s, e, _ in dev])
+    dev = [(max(s, t0), min(e, t1), n, c) for s, e, n, c in dev if e > t0 and s < t1]
+    merged = union([(s, e) for s, e, _, _ in dev])
     busy = sum(e - s for s, e in merged)
+    by_device = [sum(e - s for s, e in union([(s, e) for s, e, _, c in dev if c == i])) / 1e9
+                 for i in range(n_devices)]
     per_op = defaultdict(int)
-    for s, e, n in dev:
+    for s, e, n, _ in dev:
         per_op[n[:NAME_CHARS]] += e - s
     edges = [t0] + [v for iv in merged for v in iv] + [t1]
     gaps = [(edges[i], edges[i + 1]) for i in range(0, len(edges), 2) if edges[i + 1] > edges[i]]
@@ -98,8 +103,9 @@ def reduce(dev, host) -> dict:
     for (s, e), name in zip(gaps, innermost(own, [(s + e) // 2 for s, e in gaps])):
         idle[name[:NAME_CHARS]] += e - s
     top = lambda d: [[n, v / 1e9] for n, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]
-    return dict(window_s=(t1 - t0) / 1e9, busy_s=busy / 1e9, device_events=len(dev),
-                steps=len(steps), device_ops=top(per_op), idle_gaps=top(idle))
+    return dict(window_s=(t1 - t0) / 1e9, busy_s=busy / 1e9, busy_s_by_device=by_device,
+                device_events=len(dev), steps=len(steps), device_ops=top(per_op),
+                idle_gaps=top(idle))
 
 
 def idle_pct(summary: dict):
@@ -115,9 +121,10 @@ class TraceWindow:
     boundary, ``annotate()`` around each step."""
 
     def __init__(self, enabled: bool, start_s: float, length_s: float, min_steps: int,
-                 on_start=None, on_stop=None):
+                 on_start=None, on_stop=None, n_devices: int = 1):
         self.enabled, self.start_s, self.length_s, self.min_steps = (
             enabled, start_s, length_s, min_steps)
+        self.n_devices = n_devices
         self.on_start, self.on_stop = on_start, on_stop
         self.at_stop = None  # what ``on_stop`` returned
         self.prof = None
@@ -163,6 +170,6 @@ class TraceWindow:
         self.prof.__exit__(None, None, None)
         if self.on_stop is not None:
             self.at_stop = self.on_stop()
-        self.summary = reduce(*_events(self.prof))
+        self.summary = reduce(*_events(self.prof), n_devices=self.n_devices)
         self.prof = None
         self.done = True

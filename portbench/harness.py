@@ -87,13 +87,23 @@ def forbidden_modules(modules=None) -> list:
     return sorted({m.split(".")[0] for m in modules} & set(FORBIDDEN))
 
 
+def cell_devices(device: torch.device, chips: int) -> list:
+    """The cell's ``chips`` devices: cards ``cuda:0`` on, where ``device`` is a
+    card; otherwise ``device`` once a chip (the CPU tests' slots)."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(chips)]
+    return [device] * chips
+
+
 class Bench:
-    """What a driver works with: the cell's data, its inputs and the window."""
+    """What a driver works with: the cell's data, its inputs and the window.
+    ``device`` is the first of ``devices``, the cell's cards."""
 
     def __init__(self, workload: str, config: dict, traffic: dict, seed: int, seconds: float,
-                 trace: bool, device: torch.device):
+                 trace: bool, devices: list):
         self.workload, self.config, self.traffic = workload, config, traffic
-        self.seed, self.seconds, self.trace, self.device = seed, seconds, trace, device
+        self.seed, self.seconds, self.trace = seed, seconds, trace
+        self.devices, self.device = devices, devices[0]
         self.rng = np.random.default_rng(seed % (2**63))
         self.xb = None  # host corpus (n, d) float32: what the port builds from
         self.pool = None  # host query pool (nq, d) float32
@@ -103,17 +113,27 @@ class Bench:
 
     def draw(self) -> None:
         """The corpus and the query pool from the seed, drawn on the device;
-        the exact top-10 of every pool query when the mix asks for it."""
+        the exact top-10 of every pool query when the mix asks for it. A
+        configuration with ``"corpus": "host"`` has its corpus drawn into host
+        memory a chunk at a time and its top-10 streamed over ``devices``, so
+        that no card holds the whole corpus."""
         c = self.config
+        host = c.get("corpus") == "host"
         params = {k: v for k, v in c["generator"].items() if k != "kind"}
+        if host:
+            params["host"] = True
         xb, xq = getattr(datagen, c["generator"]["kind"])(
             c["n"], c["d"], c["query_pool"], self.seed, device=self.device, **params)
         if self.traffic.get("ground_truth"):
-            self.gt = reference.ground_truth(xb, xq, c["metric"], 10).cpu().numpy()
+            if host:
+                gt = reference.ground_truth_streamed(xb, xq, c["metric"], 10, self.devices)
+            else:
+                gt = reference.ground_truth(xb, xq, c["metric"], 10)
+            self.gt = gt.cpu().numpy()
         self.xb = xb.cpu().numpy()
         self.pool = xq.cpu().numpy()
         del xb, xq
-        free(self.device)
+        free(*self.devices)
 
     def build(self):
         """The port's ``IvfIndex.fit`` of the host corpus, as the public API
@@ -139,20 +159,28 @@ class Bench:
     def trace_window(self, length_s: float, min_steps: int, **hooks):
         from .devtrace import TraceWindow
 
-        return TraceWindow(self.trace, TRACE_START * self.seconds, length_s, min_steps, **hooks)
+        return TraceWindow(self.trace, TRACE_START * self.seconds, length_s, min_steps,
+                           n_devices=len(self.devices), **hooks)
 
     def corpus(self) -> torch.Tensor:
         """The host corpus on the device again, for the reference."""
         return torch.as_tensor(self.xb, device=self.device)
 
+    def corpus_rows(self, s: int, e: int, device=None) -> torch.Tensor:
+        """Corpus rows s:e on ``device`` (default the first card): a check of
+        a corpus that no card holds works in such blocks."""
+        return torch.as_tensor(self.xb[s:e], device=self.device if device is None else device)
+
     def queries(self, idx) -> torch.Tensor:
         return torch.as_tensor(self.pool[np.asarray(idx)], device=self.device)
 
 
-def free(device: torch.device) -> None:
+def free(*devices: torch.device) -> None:
     gc.collect()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    cards = [d for d in devices if d.type == "cuda"]
+    for d in cards:
+        torch.cuda.synchronize(d)
+    if cards:
         torch.cuda.empty_cache()
 
 
@@ -170,32 +198,56 @@ def port_labels(lay, n: int) -> np.ndarray:
     return out
 
 
+def device_info(devices: list) -> dict:
+    """The result line's ``device``: the platform, the first card's name, the
+    cell's card count and the peak of the fullest card since the last reset;
+    with more than one card also each card's peak, in card order."""
+    cuda = devices[0].type == "cuda"
+    peaks = [int(torch.cuda.max_memory_allocated(d)) if cuda else 0 for d in devices]
+    info = {"platform": "gpu" if cuda else "cpu",
+            "kind": torch.cuda.get_device_name(devices[0]) if cuda else "cpu",
+            "count": len(devices), "memory_peak_bytes": max(peaks)}
+    if len(devices) > 1:
+        info["memory_peak_bytes_by_device"] = peaks
+    return info
+
+
+def trace_info(summary: dict, n_devices: int) -> dict:
+    """``busy_s`` and ``window_s`` for the result line's ``device``: on more
+    than one card ``busy_s`` is the mean of each card's busy seconds, which
+    follow as ``busy_s_by_device``; on one card it is the trace's own."""
+    if n_devices == 1:
+        return dict(busy_s=summary["busy_s"], window_s=summary["window_s"])
+    by = summary["busy_s_by_device"]
+    return dict(busy_s=sum(by) / n_devices, window_s=summary["window_s"], busy_s_by_device=by)
+
+
 def run_cell(man: dict, workload: str, seed: int, seconds: float, trace: bool,
              device: torch.device, t_start: float, config=None, traffic=None,
              control: bool = False) -> dict:
     """One run of ``workload``: set-up, window, per-layer metrics (traced run),
-    the comparison, and the result line as a dict. ``config`` and ``traffic``
-    replace the cell's files (the tests' small sizes); ``control`` adds the
-    controls' numbers under ``control`` (calibration only)."""
+    the comparison, and the result line as a dict. ``device`` is the cell's
+    first (``cell_devices``). ``config`` and ``traffic`` replace the cell's
+    files (the tests' small sizes); ``control`` adds the controls' numbers
+    under ``control`` (calibration only)."""
     cell = cell_of(man, workload)
     config = config or config_of(man, cell["config"])
     traffic = traffic or load_json(HERE / "traffic" / f"{cell['traffic']}.json")
     limits = load_json(HERE / "cells" / f"{workload}.json")["limits"]
     driver = load_module("drivers", traffic["driver"])
-    b = Bench(workload, config, traffic, seed, seconds, trace, device)
+    devices = cell_devices(device, cell["chips"])
+    b = Bench(workload, config, traffic, seed, seconds, trace, devices)
 
     b.draw()
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(d)
     driver.setup(b)
     setup_s = time.perf_counter() - t_start
     win = driver.window(b)
-    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    dev_info = device_info(devices)
 
     metrics = {}
-    dev_info = {"platform": "gpu" if device.type == "cuda" else "cpu",
-                "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-                "count": 1, "memory_peak_bytes": int(peak)}
     breakdown = None
     if trace:
         summary = win.get("trace") or {}
@@ -205,7 +257,7 @@ def run_cell(man: dict, workload: str, seed: int, seconds: float, trace: bool,
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         if summary:
-            dev_info.update(busy_s=summary["busy_s"], window_s=summary["window_s"])
+            dev_info.update(trace_info(summary, len(devices)))
             breakdown = {"device_ops": summary["device_ops"], "idle_gaps": summary["idle_gaps"]}
     else:
         for m in metrics_of(man, "end_to_end", workload):
@@ -215,7 +267,7 @@ def run_cell(man: dict, workload: str, seed: int, seconds: float, trace: bool,
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
     driver.release(b)
-    free(device)
+    free(*devices)
     numbers = driver.check(b, win)
     correct, rows = compare.judge(numbers, limits)
     result = {"correct": correct, "attempted": win["attempted"], "failed": win["failed"],

@@ -110,6 +110,54 @@ def ground_truth(xb: torch.Tensor, xq: torch.Tensor, metric: str, k: int) -> tor
     return torch.cat(out)
 
 
+def lowest(dist: torch.Tensor, ids: torch.Tensor, k: int):
+    """The k smallest of each row's candidates (``dist``, ``ids``, each
+    (nq, m)) by (distance, id): of equal distances the lower id comes first."""
+    ids, order = ids.sort(dim=1, stable=True)
+    dist, pos = dist.gather(1, order).sort(dim=1, stable=True)
+    return dist[:, :k], ids.gather(1, pos)[:, :k]
+
+
+def ground_truth_streamed(xb: torch.Tensor, xq: torch.Tensor, metric: str, k: int,
+                          devices) -> torch.Tensor:
+    """``ground_truth`` of a host corpus ``xb`` (a CPU tensor) that no one
+    device holds, in the same float32 arithmetic with TF32 off, reading the
+    corpus once: row blocks are the outer loop, each of ``devices`` takes a
+    disjoint range of rows and keeps a running top-k of every query, and the
+    lists merge by (distance, row id), so that ties go to the lower id (inside
+    one block, a tie at the k-th place goes as ``topk`` picks it: on a CUDA
+    card, the first in row order). Returns (nq, k) ids on ``devices[0]``."""
+    n, nd, block = xb.shape[0], len(devices), ROW_BLOCK * 4
+    bounds = [n * i // nd for i in range(nd + 1)]
+    qblocks = [range(qs, min(qs + QUERY_BLOCK, xq.shape[0]))
+               for qs in range(0, xq.shape[0], QUERY_BLOCK)]
+    with no_tf32():
+        queries = [[prepare(xq[r.start:r.stop].to(dev), metric, torch.float32) for r in qblocks]
+                   for dev in devices]
+        best = [[(torch.empty((len(r), 0), device=dev),
+                  torch.empty((len(r), 0), dtype=torch.int64, device=dev)) for r in qblocks]
+                for dev in devices]
+        for off in range(0, max(e - s for s, e in zip(bounds, bounds[1:])), block):
+            for c, dev in enumerate(devices):  # one block a card, each card on its own range
+                s = bounds[c] + off
+                e = min(s + block, bounds[c + 1])
+                if s >= e:
+                    continue
+                rows = prepare(xb[s:e].to(dev, non_blocking=True), metric, torch.float32)
+                for j, qb in enumerate(queries[c]):
+                    bd, bi = distances(qb, rows, metric).topk(min(k, e - s), dim=1,
+                                                              largest=False)
+                    bd0, bi0 = best[c][j]
+                    best[c][j] = lowest(torch.cat([bd0, bd], 1), torch.cat([bi0, bi + s], 1), k)
+    home = devices[0]
+    out = []
+    for j in range(len(qblocks)):
+        dist = torch.cat([best[c][j][0].to(home) for c in range(nd)], 1)
+        ids = torch.cat([best[c][j][1].to(home) for c in range(nd)], 1)
+        out.append(lowest(dist, ids, k)[1])
+    return torch.cat(out)
+
+
 def int8_scales(x: torch.Tensor, labels: torch.Tensor, centroids: torch.Tensor,
                 metric: str) -> torch.Tensor:
     """(nlist,) float32 scale of each list's int8 residual rows: the largest

@@ -32,11 +32,12 @@ def test_idle_share_is_a_union():
     ms = 1_000_000
     host = [(0, 100 * ms, "portbench.request", 1), (10 * ms, 30 * ms, "aten::topk", 1),
             (60 * ms, 90 * ms, "cudaStreamSynchronize", 1), (0, 100 * ms, "other", 2)]
-    dev = [(30 * ms, 50 * ms, "k1"), (40 * ms, 60 * ms, "k2"),  # overlap counts once
-           (95 * ms, 120 * ms, "k3")]  # clipped at the traced span's end
+    dev = [(30 * ms, 50 * ms, "k1", 0), (40 * ms, 60 * ms, "k2", 0),  # overlap counts once
+           (95 * ms, 120 * ms, "k3", 0)]  # clipped at the traced span's end
     s = devtrace.reduce(dev, host)
     assert s["window_s"] == pytest.approx(0.1)
     assert s["busy_s"] == pytest.approx(0.035)
+    assert s["busy_s_by_device"] == [s["busy_s"]]
     assert s["device_events"] == 3 and s["steps"] == 1
     idle = dict((n, v) for n, v in s["idle_gaps"])
     assert idle["aten::topk"] == pytest.approx(0.03)  # 0-30 ms, midpoint inside topk
