@@ -368,8 +368,8 @@ def test_staged_single_query_convenience(saved):
 
 def test_fit_host_resident_low_memory(tmp_path):
     """fit(resident='host'): the layout packs in host memory and the index
-    serves, saves and reloads as a host-resident one; the invalid
-    combinations are refused."""
+    serves, saves and reloads as a host-resident one; with a mesh too it
+    packs in host memory; the invalid combinations are refused."""
     data, _, _ = make_gaussian_clusters(4000, 24, 12, spread=0.4, separation=8.0)
     store = _store(data)
     hidx = IvfIndex.fit(store, seed=42, resident="host", train_sample=1500, device="cpu")
@@ -396,8 +396,12 @@ def test_fit_host_resident_low_memory(tmp_path):
     from vector_indexer_tpu_torch.parallel import Mesh
 
     mesh = Mesh([torch.device("cpu")] * 2, ("shards",))
+    midx = IvfIndex.fit(store, seed=42, mesh=mesh, resident="host", train_sample=1500,
+                        device="cpu")
+    assert midx.host_resident and isinstance(midx.layout.vectors, np.ndarray)
+    assert int(np.asarray(midx.layout.lengths).sum()) == len(data)
     with pytest.raises(ValueError, match="resident='host'"):
-        IvfIndex.fit(store, seed=42, mesh=mesh, resident="host", device="cpu")
+        IvfIndex.fit(store, seed=42, mesh=mesh, resident="host", spill=1, device="cpu")
     with pytest.raises(ValueError, match="mesh-parallel"):
         IvfIndex.fit(store, seed=42, mesh=mesh, trainer="balanced", device="cpu")
 

@@ -226,4 +226,4 @@ def test_fit_guards_match_reference():
     with pytest.raises(ValueError, match="train_sample"):
         IvfIndex.fit(_store(data), mesh=mesh, train_sample=100, device="cpu")
     with pytest.raises(ValueError, match="resident='host'"):
-        IvfIndex.fit(_store(data), mesh=mesh, resident="host", device="cpu")
+        IvfIndex.fit(_store(data), mesh=mesh, resident="host", spill=1, device="cpu")

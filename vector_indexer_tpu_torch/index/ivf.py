@@ -13,7 +13,9 @@ Port of ``vector_indexer_tpu/index/ivf.py``:
   searches then run (1+spill)k wide and drop duplicate ids.
   ``resident='host'`` is the low-device-memory build: only the training
   sample and fixed-size assignment slices reach the device, and the layout
-  stays in host memory;
+  stays in host memory; with ``mesh=`` too, the sample is split over the
+  mesh's devices and each assigns its own range of the host rows, so a
+  corpus larger than any one device builds;
 * ``search_batch``: ``index/dispatch.py::resolve`` picks the program
   (stream, fused or plain dense, fused or plain flat, the int8 sweeps,
   the packed gather or the K6 range gather), ``index/programs.py`` runs
@@ -162,19 +164,26 @@ class IvfIndex:
         'balanced' (occupancy-penalized Lloyd; ``balance`` scales the
         penalty). ``mesh`` (a ``parallel.Mesh``): train with the
         data-parallel Lloyd, the points split along ``mesh_axis`` (lloyd
-        only); the index itself lives on ``device``."""
+        only); the index itself lives on ``device``. ``mesh`` with
+        ``resident='host'``: the corpus stays in host memory, the mesh
+        trains on the ``train_sample`` rows and assigns every row, a range
+        of rows a device (``run_kmeans_lloyd_dp_host``), and the layout is
+        packed in host memory, for ``parallel.ShardedSearcher`` to share
+        out over the mesh."""
         if resident not in ("device", "host"):
             raise ValueError("resident must be 'device' or 'host'")
         if trainer not in ("lloyd", "mini_batch", "balanced"):
             raise ValueError(f"unknown trainer: {trainer}")
-        if train_sample is not None and (trainer != "lloyd" or mesh is not None):
+        if train_sample is not None and (
+                trainer != "lloyd" or (mesh is not None and resident != "host")):
             raise ValueError(
                 "train_sample is a full-batch Lloyd option (mini_batch is already "
-                "subsampled; balanced and data-parallel sweeps need every point)"
+                "subsampled; balanced and device-resident data-parallel sweeps need "
+                "every point)"
             )
-        if resident == "host" and (trainer != "lloyd" or mesh is not None or spill):
+        if resident == "host" and (trainer != "lloyd" or spill):
             raise ValueError(
-                "resident='host' fit supports trainer='lloyd' without mesh or spill (the "
+                "resident='host' fit supports trainer='lloyd' without spill (the "
                 "low-device-memory build stages only a training sample and per-slice "
                 "assignments)"
             )
@@ -205,7 +214,14 @@ class IvfIndex:
             spherical = metric == "cosine"
             data_dev = None
             with trace("fit.kmeans", n=n, k=k, mesh=mesh is not None):
-                if mesh is not None:
+                if mesh is not None and resident == "host":
+                    from ..parallel.dp_kmeans import run_kmeans_lloyd_dp_host
+
+                    kres = run_kmeans_lloyd_dp_host(
+                        data, k, iters, train_sample or min(n, 2_000_000), mesh=mesh,
+                        axis=mesh_axis, seed=seed, spherical=spherical,
+                    )
+                elif mesh is not None:
                     from ..parallel.dp_kmeans import run_kmeans_lloyd_dp
 
                     kres = run_kmeans_lloyd_dp(data, k, iters, mesh=mesh, axis=mesh_axis, seed=seed,

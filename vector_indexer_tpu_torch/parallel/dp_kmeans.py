@@ -4,7 +4,9 @@ Port of ``vector_indexer_tpu/parallel/dp_kmeans.py``. The points are split
 over the devices of one mesh axis in equal slices (n padded to a multiple
 of 8 * n_dev, as the reference pads it); the centroids are replicated.
 Each iteration every device computes its slice's partial (sums, counts)
-with the single-device sweep (``models.kmeans.lloyd_stats``), the partials
+with the single-device sweep (``models.kmeans.lloyd_stats``), enqueued by a
+thread of its own (``on_each``: one thread enqueueing every device in turn
+blocks on the first device's full launch queue while the others idle), the partials
 are summed on the first device (the reference's ``psum``), and the updated
 centroids are copied back to every device. The empty-cell repair draws
 GLOBAL row ids from one generator and takes each row from the slice that
@@ -12,6 +14,11 @@ owns it: a repair drawn from each device's own slice would make the
 replicated centroids diverge. The k-means++ init gathers its sample rows
 the same way, so it equals the single-device init of the same corpus on
 the first device. The final assignment is exact, per slice.
+
+A corpus that no device holds (``run_kmeans_lloyd_dp_host``) stays in host
+memory: the devices train on the seeded sample of the host trainer, split as
+above, and then assign every host row exactly, each device a contiguous
+range of rows streamed through pinned staging, all devices at once.
 """
 
 from __future__ import annotations
@@ -23,17 +30,21 @@ import torch
 
 from ..models.kmeans import (
     _ASSIGN_CHUNK,
+    _DEFAULT_TOL,
     KMeansResult,
     _assign_dense,
     _rms_delta,
     _to_sphere,
+    assign_points_host_chunked,
     init_from_rows,
     lloyd_stats,
     make_generator,
     mean_update,
+    training_sample,
 )
+from ..utils.tracing import trace
 from .mesh import Mesh
-from .sharded import axis_devices, on_device
+from .sharded import axis_devices, on_device, on_each
 
 
 def _round_up(x: int, m: int) -> int:
@@ -83,17 +94,29 @@ def run_kmeans_lloyd_dp(data, k: int, max_iters: int, mesh: Mesh, axis: str = "s
     if data.ndim != 2 or data.shape[0] == 0 or data.shape[1] == 0:
         raise ValueError("Input vectors cannot be empty")
     devices = axis_devices(mesh, axis)
-    root = devices[0]
     sl = _Slices(data, devices)
     chunk = min(chunk, max(8, sl.local_n))
+    centroids, it = _lloyd(sl, k, max_iters, early_stop_threshold, seed, spherical, chunk)
+    labels = []
+    for dev, part in zip(devices, sl.parts):
+        if part.shape[0] == 0:
+            continue
+        with on_device(dev):
+            labels.append(_assign_dense(part, centroids.to(dev), chunk)[0].to(devices[0]))
+    return KMeansResult(centroids, torch.cat(labels), it, it < max_iters)
+
+
+def _lloyd(sl: _Slices, k: int, max_iters: int, early_stop_threshold: float, seed: int,
+           spherical: bool, chunk: int):
+    """The data-parallel Lloyd loop over the slices ``sl``: (centroids on the
+    first device, iterations run)."""
+    devices, root = sl.devices, sl.devices[0]
     centroids = init_from_rows(sl.rows, sl.n, k, seed, root)
     gen = make_generator(root, seed ^ 0xD9)
     it = 0
     while it < max_iters:
-        partial = []
-        for dev, part in zip(devices, sl.parts):
-            with on_device(dev):
-                partial.append(lloyd_stats(part, centroids.to(dev), k, chunk))
+        partial = on_each(devices, lambda j: lloyd_stats(sl.parts[j], centroids.to(devices[j]),
+                                                         k, chunk))
         sums = sum(s.to(root) for s, _ in partial)
         counts = sum(c.to(root) for _, c in partial)
         new_c = mean_update(sums, counts, centroids)
@@ -106,10 +129,54 @@ def run_kmeans_lloyd_dp(data, k: int, max_iters: int, mesh: Mesh, axis: str = "s
         it += 1
         if delta < early_stop_threshold:
             break
-    labels = []
-    for dev, part in zip(devices, sl.parts):
-        if part.shape[0] == 0:
-            continue
-        with on_device(dev):
-            labels.append(_assign_dense(part, centroids.to(dev), chunk)[0].to(root))
-    return KMeansResult(centroids, torch.cat(labels), it, it < max_iters)
+    return centroids, it
+
+
+def run_kmeans_lloyd_dp_host(data_host: np.ndarray, k: int, max_iters: int, train_sample: int,
+                             mesh: Mesh, axis: str = "shards", seed: int = 42,
+                             spherical: bool = False) -> KMeansResult:
+    """Data-parallel Lloyd of a corpus in host memory (``data_host``, (n, d)
+    float32): trained on the rows ``run_kmeans_lloyd_host`` trains on
+    (``training_sample(n, train_sample, seed)``), split over the devices of
+    ``mesh`` along ``axis`` as ``_Slices`` splits a corpus; then every row's
+    nearest centroid (``assign_points_host``). No device holds more than its
+    share of the sample and one assignment slice. The centroids are on the
+    axis's first device, the labels a CPU tensor."""
+    devices = axis_devices(mesh, axis)
+    n = data_host.shape[0]
+    train_sample = min(train_sample, n)
+    if train_sample < k:
+        raise ValueError(f"train_sample={train_sample} must be >= k={k} centroids")
+    sub = data_host[training_sample(n, train_sample, seed)] if train_sample < n else data_host
+    sl = _Slices(np.ascontiguousarray(sub, np.float32), devices)
+    del sub
+    centroids, it = _lloyd(sl, k, max_iters, _DEFAULT_TOL, seed, spherical,
+                           min(_ASSIGN_CHUNK, max(8, sl.local_n)))
+    del sl
+    with trace("fit.assign", n=n, k=k, devices=len(devices)):
+        labels = assign_points_host(data_host, centroids, devices)
+    return KMeansResult(centroids, torch.from_numpy(labels), it, it < max_iters)
+
+
+def assign_points_host(data_host: np.ndarray, centroids: torch.Tensor,
+                       devices: list) -> np.ndarray:
+    """(n,) int32 nearest centroid of every row of a host corpus: device j
+    takes rows [n j / m, n (j+1) / m) of the m devices and streams them
+    through its own pinned staging (``assign_points_host_chunked``), each
+    device driven by a thread of its own so that all of them work at once.
+    The argmin is K1's at every k: past k 8192 ``auto`` would take the
+    two-level route, whose probes can miss the nearest centroid, and at
+    12.5M x 56,572 x 128 on an H100 K1 took 1.87 s against the dense
+    product's 14.3-14.6 s."""
+    n = data_host.shape[0]
+    bounds = [n * j // len(devices) for j in range(len(devices) + 1)]
+    labels = np.empty(n, np.int32)
+
+    def one(j: int) -> None:
+        s, e = bounds[j], bounds[j + 1]
+        labels[s:e] = assign_points_host_chunked(data_host[s:e], centroids.to(devices[j]),
+                                                 method="kernel", device=devices[j])
+
+    on_each(devices, one)
+    return labels
+

@@ -3,10 +3,15 @@ the posting lists; queries and the centroid table are replicated).
 
 Port of ``vector_indexer_tpu/parallel/sharded.py``. Whole shards (the
 super-centroid groups of the layout, contiguous row ranges) are balanced
-over the devices by row count (greedy LPT), and each device's slice is
-packed from the index's host mirror (``_host_data``, internal-id order),
-so construction never copies the corpus back from a card. Per device and
-per call:
+over the devices by row count (greedy LPT). The plan of the slices
+(``plan_local_tables``) holds no rows: each device's rows are copied
+straight from the posting layout onto that device (``pack_rows``: from a
+host layout through two pinned staging buffers a card), so the host never
+holds a device's table, and the residual stream tables are built on each
+device from its rows (``slice_stream_table``); each card packs and builds
+from a thread of its own (``on_each``). ``build_local_tables``
+and ``build_local_stream_tables`` are the same tables stacked on the host,
+the reference's arrays. Per device and per call:
 
 1. the GLOBAL probe threshold: the n_probe-th smallest coarse distance over
    every centroid (replicated compute, no communication). A device probes
@@ -27,14 +32,19 @@ The per-device loop only enqueues work (no size read, ``.item()`` or copy
 to the host), so distinct cards run their bodies at the same time; the
 results reach the host once, after the merge. Each body runs with its
 card as the current CUDA device (the kernels launch on the current one).
-Layout rows map to internal ids on the host; a spilled index searches
-(1+spill)k wide and drops repeated ids there (``offload.host_dedup_topk``).
+Layout rows map to internal ids on the host, and the 1-D searcher's to
+external ids; a spilled index searches (1+spill)k wide and drops repeated
+ids there (``offload.host_dedup_topk``). While spans record, each call adds
+the rows of the cells each device probes to the counter
+``sharded.probed_rows.<slice>``, on that device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
+from logging import DEBUG
 from typing import Optional, Tuple
 
 import numpy as np
@@ -48,10 +58,13 @@ from ..ops.distance import sq_norms
 from ..ops.flat_sweep import plan_fused
 from ..ops.gather import quantize_up
 from ..storage.layout import ALIGN, SENTINEL_NORM, SENTINEL_THRESHOLD
+from ..utils import tracing
 from ..utils.tracing import trace
 from .mesh import Mesh
 
 METHODS = ("auto", "dense", "dense_fused", "stream")
+_STAGE_BYTES = 256 << 20  # each of the two pinned buffers a host layout is copied through
+_TILE_BYTES = 256 << 20  # f32 rows per tile of the on-device norm and residual passes
 
 
 def _round_up(x: int, m: int) -> int:
@@ -67,15 +80,79 @@ def on_device(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
+def on_each(devices: list, fn) -> list:
+    """[fn(j) for each entry j of ``devices``] with ``devices[j]`` current.
+    On cards, each distinct card's entries run in turn in a thread of its
+    own: a thread that waits on its card (a copy back, a full launch queue,
+    a host copy into its staging) leaves the others working, so the cards
+    work at once. CPU entries run in turn on the caller's thread (threads
+    would only contend for the cores their ops already use)."""
+
+    def run(j):
+        with on_device(devices[j]):
+            return fn(j)
+
+    if devices[0].type != "cuda":
+        return [run(j) for j in range(len(devices))]
+    groups: dict = {}
+    for j, dev in enumerate(devices):
+        groups.setdefault(dev, []).append(j)
+    out = [None] * len(devices)
+
+    def card(js):
+        for j in js:
+            out[j] = run(j)
+
+    with ThreadPoolExecutor(len(groups)) as pool:
+        list(pool.map(card, groups.values()))
+    return out
+
+
+def pairwise_row_sums(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of a 2-D tensor in the order of numpy's pairwise summation
+    (``np.add.reduce`` along a contiguous last axis: eight running sums per
+    block of up to 128 columns, halves past that), so that float64 sums
+    equal numpy's bit for bit on any device."""
+    m, n = x.shape
+    if n < 8:
+        out = torch.zeros(m, dtype=x.dtype, device=x.device)
+        for i in range(n):
+            out = out + x[:, i]
+        return out
+    if n <= 128:
+        body = n - n % 8
+        r = x[:, 0:8]
+        for i in range(8, body, 8):
+            r = r + x[:, i:i + 8]
+        r = r[:, 0::2] + r[:, 1::2]
+        r = r[:, 0::2] + r[:, 1::2]
+        out = r[:, 0] + r[:, 1]
+        for i in range(body, n):
+            out = out + x[:, i]
+        return out
+    half = n // 2
+    half -= half % 8
+    return pairwise_row_sums(x[:, :half]) + pairwise_row_sums(x[:, half:])
+
+
+def sq_norms_f64(x: torch.Tensor) -> torch.Tensor:
+    """(m,) float32 squared norms of float32 rows, summed in float64 as
+    ``(rows.astype(np.float64) ** 2).sum(1)`` sums them, then rounded."""
+    return pairwise_row_sums(x.double() ** 2).float()
+
+
 # ---------------------------------------------------------------------------
-# Host-side per-device tables
+# The plan of the slices, and each device's rows and stream table
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
 class LocalTables:
-    """Host-side (numpy) per-device tables, the reference's arrays, plus
-    each local cell's global id."""
+    """Per-device tables (numpy), the reference's arrays, plus each local
+    cell's global id and the runs that copy each device's rows from the
+    layout. In a plan (``plan_local_tables``) ``local_vecs`` and
+    ``local_norms`` are read-only zero-stride views that give only the
+    tables' shape: each device packs its own rows (``pack_rows``)."""
 
     local_vecs: np.ndarray  # (n_dev, rows, d) f32, ALIGN-aligned runs
     local_norms: np.ndarray  # (n_dev, rows) f32; SENTINEL on pads
@@ -88,17 +165,20 @@ class LocalTables:
     cents: np.ndarray  # (kc, d) f32 global centroid table
     c_sq: np.ndarray  # (kc,) f32
     local_cid: np.ndarray  # (n_dev, kc_local) i64 global cell id; -1 on pads
+    runs: list  # per device [(layout row, local row, rows)], covering its filled rows
 
 
-def build_local_tables(index, n_dev: int) -> LocalTables:
-    """Partition the posting layout into per-device tables (host-side):
-    whole shards balanced over devices by row count (greedy LPT), payload
-    rows taken from ``index._host_data``."""
-    with trace("sharded.build_local_tables", n_dev=n_dev):
-        return _build_local_tables(index, n_dev)
+def plan_local_tables(index, n_dev: int) -> LocalTables:
+    """Partition the posting layout over ``n_dev`` devices: whole shards
+    balanced by row count (greedy LPT), each device's cells in shard order,
+    each run ALIGN-aligned, and the copy runs of each device's rows (each
+    cell's aligned run of the layout, consecutive ones merged). No row is
+    read."""
+    with trace("sharded.pack", n_dev=n_dev):
+        return _plan_local_tables(index, n_dev)
 
 
-def _build_local_tables(index, n_dev: int) -> LocalTables:
+def _plan_local_tables(index, n_dev: int) -> LocalTables:
     lay = index.layout
     if lay is None:
         raise RuntimeError("index has no posting layout")
@@ -107,11 +187,6 @@ def _build_local_tables(index, n_dev: int) -> LocalTables:
     kc = len(lengths)
     c2s = np.asarray(index.centroids_to_shard)
     perm = lay.perm
-    host = getattr(index, "_host_data", None)
-    fetched = None
-    if host is None:  # no mirror: one copy of the table
-        v = lay.vectors
-        fetched = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
     shard_rows = np.zeros(index.num_shards, np.int64)
     for c in range(kc):
@@ -136,8 +211,6 @@ def _build_local_tables(index, n_dev: int) -> LocalTables:
     rows_per_dev = _round_up(max(rows_per_dev, ALIGN) + ALIGN, ALIGN)
     kc_local = max(max((len(cl) for cl in dev_clusters), default=1), 1)
 
-    local_vecs = np.zeros((n_dev, rows_per_dev, dim), np.float32)
-    local_norms = np.full((n_dev, rows_per_dev), SENTINEL_NORM, np.float32)
     # Pad cells keep +inf coarse distance and start past the block grid, so
     # they are never probed.
     local_cent = np.zeros((n_dev, kc_local, dim), np.float32)
@@ -146,6 +219,7 @@ def _build_local_tables(index, n_dev: int) -> LocalTables:
     local_lengths = np.zeros((n_dev, kc_local), np.int32)
     local_perm = np.full((n_dev, rows_per_dev), -1, np.int64)
     local_cid = np.full((n_dev, kc_local), -1, np.int64)
+    runs = [[] for _ in range(n_dev)]
 
     cents = np.ascontiguousarray(index.centroids, np.float32)
     for d_, cl in enumerate(dev_clusters):
@@ -158,79 +232,231 @@ def _build_local_tables(index, n_dev: int) -> LocalTables:
             local_cent[d_, i] = cents[c]
             local_csq[d_, i] = (cents[c].astype(np.float64) ** 2).sum()
             local_cid[d_, i] = c
-            internal = perm[s : s + m]
-            block = host[internal] if fetched is None else fetched[s : s + m]
-            local_vecs[d_, fill : fill + m] = block
-            local_norms[d_, fill : fill + m] = (
-                (block.astype(np.float64) ** 2).sum(1).astype(np.float32)
-            )
-            local_perm[d_, fill : fill + m] = internal
-            fill += _round_up(m, ALIGN)
+            local_perm[d_, fill : fill + m] = perm[s : s + m]
+            size = _round_up(m, ALIGN)
+            if size:
+                last = runs[d_][-1] if runs[d_] else None
+                if last is not None and last[0] + last[2] == s and last[1] + last[2] == fill:
+                    runs[d_][-1] = (last[0], last[1], last[2] + size)
+                else:
+                    runs[d_].append((s, fill, size))
+            fill += size
 
     return LocalTables(
-        local_vecs=local_vecs, local_norms=local_norms, local_cent=local_cent,
-        local_csq=local_csq, local_run_starts_b=local_run_starts_b,
+        local_vecs=np.broadcast_to(np.float32(0.0), (n_dev, rows_per_dev, dim)),
+        local_norms=np.broadcast_to(SENTINEL_NORM, (n_dev, rows_per_dev)),
+        local_cent=local_cent, local_csq=local_csq, local_run_starts_b=local_run_starts_b,
         local_lengths=local_lengths, local_perm=local_perm, shard_to_dev=shard_to_dev,
         cents=cents, c_sq=(cents.astype(np.float64) ** 2).sum(1).astype(np.float32),
-        local_cid=local_cid,
+        local_cid=local_cid, runs=runs,
     )
 
 
-def build_local_stream_tables(tables: LocalTables, dtype: torch.dtype) -> dict:
-    """Per-device chunk-aligned RESIDUAL stream tables (host-side), the
-    multi-device twin of ``ops.block_stream.build_stream_table``: stacked
-    arrays with a leading n_dev axis (``svecs`` a CPU tensor of ``dtype``,
-    the rest numpy), the common ``m_pad`` and ``chunk``. Cell slot
-    ``kc_local`` is the zero-length pad probe that unprobed slots are
-    redirected to. int8 rows are symmetric per-cell quantized; norms are
-    those of the rows as stored."""
-    with trace("sharded.build_stream_tables", n_dev=tables.local_vecs.shape[0],
-               dtype=str(dtype)):
-        return _build_local_stream_tables(tables, dtype)
+def _layout_rows(index, lo: int, hi: int):
+    """Layout rows lo:hi: a view of the layout's table (a tensor or a host
+    array), or, where an offloaded index freed it, the host mirror's rows
+    gathered by ``perm`` (zeros on gap rows)."""
+    lay = index.layout
+    if lay.vectors is not None:
+        return lay.vectors[lo:hi]
+    p = np.full(hi - lo, -1, np.int64)
+    got = lay.perm[lo:hi]
+    p[: len(got)] = got
+    out = index._host_data[np.maximum(p, 0)]
+    out[p < 0] = 0.0
+    return out
 
 
-def _build_local_stream_tables(tables: LocalTables, dtype: torch.dtype) -> dict:
-    n_dev, rows, d = tables.local_vecs.shape
-    kc_local = tables.local_cent.shape[1]
+def _staged_copy(dst: torch.Tensor, runs, rows_of) -> None:
+    """Copy host rows into ``dst`` by ``runs`` (sorted, covering ``dst``'s
+    rows 0 to the last run's end), through two staging buffers, pinned for
+    a card: one is filled while the other's copy runs."""
+    end = runs[-1][1] + runs[-1][2]
+    rows = max(ALIGN, _STAGE_BYTES // (4 * dst.shape[1]))
+    cuda = dst.is_cuda
+    bufs = [torch.empty((rows, dst.shape[1]), dtype=torch.float32, pin_memory=cuda)
+            for _ in range(2)]
+    done = [None, None]
+    r = 0
+    for i, lo in enumerate(range(0, end, rows)):
+        hi = min(lo + rows, end)
+        if done[i % 2] is not None:
+            done[i % 2].synchronize()  # the buffer's last copy has finished
+        view = bufs[i % 2].numpy()
+        while runs[r][1] + runs[r][2] <= lo:
+            r += 1
+        for s, t, m in runs[r:]:
+            if t >= hi:
+                break
+            a, b = max(lo, t), min(hi, t + m)
+            view[a - lo : b - lo] = rows_of(s + a - t, s + b - t)
+        dst[lo:hi].copy_(bufs[i % 2][: hi - lo], non_blocking=cuda)
+        if cuda:
+            done[i % 2] = torch.cuda.Event()
+            done[i % 2].record()
+    for ev in done:
+        if ev is not None:
+            ev.synchronize()
+
+
+def pack_rows(index, tables: LocalTables, j: int, dev: torch.device):
+    """Slice ``j``'s (rows (rows, d) f32, norms (rows,) f32) on ``dev``,
+    copied straight from the posting layout by the plan's runs: a host
+    layout through pinned staging (``_staged_copy``), a tensor layout
+    tensor to tensor. Rows of no vector are zero with SENTINEL norms; the
+    norms are ``sq_norms_f64``'s, as ``build_local_tables`` gives them."""
+    _, rows, d = tables.local_vecs.shape
+    runs = tables.runs[j]
+    with on_device(dev):
+        vecs = torch.zeros((rows, d), dtype=torch.float32, device=dev)
+        if runs and dev.type == "cuda" and not isinstance(index.layout.vectors, torch.Tensor):
+            _staged_copy(vecs, runs, lambda lo, hi: _layout_rows(index, lo, hi))
+        else:
+            for s, t, m in runs:
+                vecs[t : t + m].copy_(torch.as_tensor(_layout_rows(index, s, s + m)))
+        real = torch.as_tensor(tables.local_perm[j] >= 0, device=dev)
+        vecs.masked_fill_(~real[:, None], 0.0)
+        norms = torch.full((rows,), float(SENTINEL_NORM), dtype=torch.float32, device=dev)
+        end = runs[-1][1] + runs[-1][2] if runs else 0
+        step = max(ALIGN, _TILE_BYTES // (4 * d))
+        for lo in range(0, end, step):
+            hi = min(lo + step, end)
+            norms[lo:hi] = torch.where(real[lo:hi], sq_norms_f64(vecs[lo:hi]), norms[lo:hi])
+    return vecs, norms
+
+
+def build_local_tables(index, n_dev: int) -> LocalTables:
+    """The per-device tables stacked on the host (the reference's arrays):
+    ``plan_local_tables`` and every slice's ``pack_rows`` on the CPU."""
+    with trace("sharded.build_local_tables", n_dev=n_dev):
+        t = plan_local_tables(index, n_dev)
+        packed = [pack_rows(index, t, j, torch.device("cpu")) for j in range(n_dev)]
+        return dataclasses.replace(t, local_vecs=np.stack([v.numpy() for v, _ in packed]),
+                                   local_norms=np.stack([n.numpy() for _, n in packed]))
+
+
+def stream_shape(tables: LocalTables, dtype: torch.dtype) -> Tuple[int, int]:
+    """(chunk, m_pad) shared by every device's stream table: the chunk
+    ``pick_chunk`` gives over all local lists, and the stream rows of the
+    fullest device, whole chunks a list."""
+    d = tables.local_vecs.shape[2]
     chunk = pick_chunk(tables.local_lengths.reshape(-1), d, stream_itemsize(dtype))
     sizes = _round_up_arr(np.maximum(tables.local_lengths, 0), chunk)
-    m_pad = _round_up(int(max(sizes.sum(axis=1).max(), chunk)), chunk)
+    return chunk, _round_up(int(max(sizes.sum(axis=1).max(), chunk)), chunk)
 
-    svecs = np.zeros((n_dev, m_pad, d), np.float32)
-    snorms = np.full((n_dev, m_pad), SENTINEL_NORM, np.float32)
-    sto_local = np.full((n_dev, m_pad), rows - 1, np.int32)  # pad -> last row
-    sblk0 = np.zeros((n_dev, kc_local + 1), np.int32)
-    slen = np.zeros((n_dev, kc_local + 1), np.int32)
-    blk_cid = np.zeros((n_dev, m_pad // chunk), np.int32)
-    scales = np.ones((n_dev, kc_local + 1), np.float32)
-    int8 = dtype == torch.int8
-    for d_ in range(n_dev):
-        base = 0
-        for i in range(kc_local):
-            m = int(tables.local_lengths[d_, i])
-            if m == 0:
-                continue
-            src = int(tables.local_run_starts_b[d_, i]) * ALIGN
-            res = tables.local_vecs[d_, src : src + m] - tables.local_cent[d_, i]
+
+def stream_maps(tables: LocalTables, j: int, chunk: int, m_pad: int,
+                dev: torch.device) -> dict:
+    """Slice ``j``'s stream-table maps, the per-row ones built on ``dev``:
+    each stream row's local row (``sto_local``; pads -> the last, zero row)
+    and local cell (``row_cell``; pads -> kc_local, the pad probe), per block
+    its cell (``blk_cid``), and per cell (host numpy) its first block
+    (``sblk0``) and length (``slen``). Lists lie in cell order, each from a
+    chunk boundary."""
+    rows = tables.local_vecs.shape[1]
+    ln = np.maximum(tables.local_lengths[j], 0).astype(np.int64)
+    kc = len(ln)
+    sizes = _round_up_arr(ln, chunk)
+    base = np.cumsum(sizes) - sizes
+    sblk0 = np.zeros(kc + 1, np.int32)
+    sblk0[:kc] = np.where(ln > 0, base // chunk, 0)
+    slen = np.zeros(kc + 1, np.int32)
+    slen[:kc] = ln
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.int64, device=dev)
+
+    def repeat(counts):  # each cell id, counts[c] times
+        return torch.repeat_interleave(torch.arange(kc, device=dev), t(counts),
+                                       output_size=int(counts.sum()))
+
+    cell = repeat(ln)
+    offs = torch.arange(cell.shape[0], device=dev) - t(np.cumsum(ln) - ln)[cell]
+    pos = t(base)[cell] + offs
+    sto = torch.full((m_pad,), rows - 1, dtype=torch.int64, device=dev)
+    sto[pos] = t(tables.local_run_starts_b[j].astype(np.int64) * ALIGN)[cell] + offs
+    row_cell = torch.full((m_pad,), kc, dtype=torch.int64, device=dev)
+    row_cell[pos] = cell
+    blk_cid = torch.zeros(m_pad // chunk, dtype=torch.int64, device=dev)
+    nb = sizes // chunk
+    blk_cid[: int(nb.sum())] = repeat(nb)
+    return dict(sto_local=sto, row_cell=row_cell, sblk0=sblk0, slen=slen, blk_cid=blk_cid)
+
+
+def slice_stream_table(vecs: torch.Tensor, cent_l: np.ndarray, maps: dict, dtype: torch.dtype,
+                       chunk: int, m_pad: int) -> StreamTable:
+    """One slice's chunk-aligned RESIDUAL stream table, built on ``vecs``'
+    device from its rows (the multi-device twin of
+    ``ops.block_stream.build_stream_table``), in tiles of rows. Cell slot
+    kc_local is the zero-length pad probe that unprobed slots are redirected
+    to (a zero centroid row). int8 rows are symmetric per-cell quantized
+    (scale max|r| / 127, taken in float64); norms are those of the rows as
+    stored, ``sq_norms_f64``'s."""
+    dev, d = vecs.device, vecs.shape[1]
+    kc = cent_l.shape[0]
+    with on_device(dev):
+        cent = torch.as_tensor(np.concatenate([cent_l, np.zeros((1, d), np.float32)]),
+                               device=dev)
+        sto, cell = maps["sto_local"], maps["row_cell"]
+        real = cell < kc
+        step = max(ALIGN, _TILE_BYTES // (4 * d))
+
+        def residual(lo, hi):  # pad rows: the zero last row less the zero centroid
+            return vecs[sto[lo:hi]].sub_(cent[cell[lo:hi]])
+
+        scales = torch.ones(kc + 1, dtype=torch.float32, device=dev)
+        int8 = dtype == torch.int8
+        if int8:
+            smax = torch.zeros(kc + 1, dtype=torch.float32, device=dev)
+            for lo in range(0, m_pad, step):
+                hi = min(lo + step, m_pad)
+                smax.scatter_reduce_(0, cell[lo:hi], residual(lo, hi).abs().amax(dim=1),
+                                     reduce="amax")
+            has = torch.as_tensor(maps["slen"] > 0, device=dev)
+            scales = torch.where(has, (smax.double() / 127.0).clamp_min(1e-12).float(), scales)
+        out = torch.empty((m_pad, d), dtype=dtype, device=dev)
+        norms = torch.empty(m_pad, dtype=torch.float32, device=dev)
+        sentinel = torch.tensor(float(SENTINEL_NORM), device=dev)
+        for lo in range(0, m_pad, step):
+            hi = min(lo + step, m_pad)
+            res = residual(lo, hi)
             if int8:
-                s = max(float(np.abs(res).max()) / 127.0, 1e-12)
-                scales[d_, i] = s
-                q8 = np.clip(np.round(res / s), -127, 127)
-                res = q8 * s
-                svecs[d_, base : base + m] = q8
+                s = scales[cell[lo:hi]][:, None]
+                q8 = torch.round(res / s).clamp_(-127, 127)
+                out[lo:hi] = q8.to(torch.int8)
+                stored = q8.mul_(s)
             else:
-                svecs[d_, base : base + m] = res
-                res = torch.from_numpy(res).to(dtype).to(torch.float32).numpy()
-            snorms[d_, base : base + m] = (res.astype(np.float64) ** 2).sum(1).astype(np.float32)
-            sto_local[d_, base : base + m] = np.arange(src, src + m)
-            size = _round_up(m, chunk)
-            sblk0[d_, i] = base // chunk
-            slen[d_, i] = m
-            blk_cid[d_, base // chunk : (base + size) // chunk] = i
-            base += size
-    return dict(svecs=torch.from_numpy(svecs).to(dtype), snorms=snorms, sto_local=sto_local,
-                sblk0=sblk0, slen=slen, blk_cid=blk_cid, scales=scales, m_pad=m_pad,
-                chunk=chunk)
+                out[lo:hi] = res.to(dtype)
+                stored = out[lo:hi].to(torch.float32)
+            norms[lo:hi] = torch.where(real[lo:hi], sq_norms_f64(stored), sentinel)
+
+        def i64(name):
+            return torch.as_tensor(maps[name].astype(np.int64), device=dev)
+
+        return StreamTable(vecs=out, norms=norms, to_main=sto, sblk0=i64("sblk0"),
+                           lengths=i64("slen"), cent=cent, blk_cid=maps["blk_cid"],
+                           scales=scales, m_pad=m_pad, chunk=chunk)
+
+
+def build_local_stream_tables(tables: LocalTables, dtype: torch.dtype) -> dict:
+    """Per-device chunk-aligned RESIDUAL stream tables stacked on the host
+    (``slice_stream_table`` of every slice of ``build_local_tables``' rows
+    on the CPU): arrays with a leading n_dev axis (``svecs`` a CPU tensor of
+    ``dtype``, the rest numpy), the common ``m_pad`` and ``chunk``."""
+    n_dev = tables.local_vecs.shape[0]
+    with trace("sharded.build_stream_tables", n_dev=n_dev, dtype=str(dtype)):
+        chunk, m_pad = stream_shape(tables, dtype)
+        cpu = torch.device("cpu")
+        sts = [slice_stream_table(torch.from_numpy(tables.local_vecs[j]), tables.local_cent[j],
+                                  stream_maps(tables, j, chunk, m_pad, cpu), dtype, chunk, m_pad)
+               for j in range(n_dev)]
+
+        def stack(field):
+            return np.stack([getattr(st, field).numpy() for st in sts])
+
+        return dict(svecs=torch.stack([st.vecs for st in sts]), snorms=stack("norms"),
+                    scales=stack("scales"), sto_local=stack("to_main"), sblk0=stack("sblk0"),
+                    slen=stack("lengths"), blk_cid=stack("blk_cid"), m_pad=m_pad, chunk=chunk)
 
 
 def stream_slots(local_lengths: np.ndarray, n_probe: int, chunk: int) -> int:
@@ -282,16 +508,17 @@ def normalize_queries(index, queries) -> np.ndarray:
 
 
 class DeviceSlice:
-    """Slice ``j`` of ``LocalTables`` on ``dev``: the payload, the block ->
-    local run map, the global centroid table and each local cell's column
-    in the global coarse distances (pads read an appended +inf column). The
-    stream table is built on first use."""
+    """Slice ``j`` of the plan ``tables`` on ``dev``: the payload, packed
+    from ``index``'s layout (``pack_rows``), the block -> local run map, the
+    global centroid table and each local cell's column in the global coarse
+    distances (pads read an appended +inf column). The stream table is built
+    on first use (``slice_stream_table``)."""
 
-    def __init__(self, tables: LocalTables, j: int, dev: torch.device):
+    def __init__(self, index, tables: LocalTables, j: int, dev: torch.device):
         self.dev = dev
         self.j = j
-        self.vecs = torch.as_tensor(tables.local_vecs[j], device=dev)
-        self.norms = torch.as_tensor(tables.local_norms[j], device=dev)
+        with trace("sharded.upload", sync=dev, slice=j, device=str(dev)):
+            self.vecs, self.norms = pack_rows(index, tables, j, dev)
         nb = tables.local_vecs.shape[1] // ALIGN
         block_run = np.searchsorted(tables.local_run_starts_b[j], np.arange(nb), side="right") - 1
         self.block_run = torch.as_tensor(block_run.astype(np.int64), device=dev)
@@ -301,24 +528,9 @@ class DeviceSlice:
         cid = tables.local_cid[j]
         self.cid = torch.as_tensor(np.where(cid >= 0, cid, kc), device=dev)
         self.kc_local = cid.shape[0]
+        self.lengths = torch.as_tensor(tables.local_lengths[j].astype(np.float64), device=dev)
+        self.counter = f"sharded.probed_rows.{j}"
         self.stream: Optional[StreamTable] = None
-
-    def set_stream(self, st: dict, cent_l: np.ndarray) -> None:
-        """Take this slice's share of ``build_local_stream_tables``' arrays;
-        ``cent_l``: its local centroids (the pad probe gets a zero row)."""
-        dev, j = self.dev, self.j
-
-        def i64(a):
-            return torch.as_tensor(np.asarray(a[j], np.int64), device=dev)
-
-        cent = np.concatenate([cent_l, np.zeros((1, cent_l.shape[1]), np.float32)])
-        self.stream = StreamTable(
-            vecs=st["svecs"][j].to(dev), norms=torch.as_tensor(st["snorms"][j], device=dev),
-            to_main=i64(st["sto_local"]), sblk0=i64(st["sblk0"]), lengths=i64(st["slen"]),
-            cent=torch.as_tensor(cent, device=dev), blk_cid=i64(st["blk_cid"]),
-            scales=torch.as_tensor(st["scales"][j], device=dev), m_pad=int(st["m_pad"]),
-            chunk=int(st["chunk"]),
-        )
 
     def coarse(self, qt, n_probe: int):
         """(local coarse distances (q, kc_local), global threshold (q, 1)):
@@ -328,7 +540,10 @@ class DeviceSlice:
         dg = sq_norms(qt)[:, None] - 2.0 * torch.matmul(qt, self.cents.T) + self.c_sq[None, :]
         thresh = torch.kthvalue(dg, n_probe, dim=1, keepdim=True).values
         inf = torch.full((qt.shape[0], 1), float("inf"), device=qt.device)
-        return torch.cat([dg, inf], dim=1)[:, self.cid], thresh
+        dl = torch.cat([dg, inf], dim=1)[:, self.cid]
+        if tracing.recording_now():  # the rows of the cells this device probes
+            tracing.count(self.counter, torch.where(dl <= thresh, self.lengths, 0.0))
+        return dl, thresh
 
     def search(self, q, kk: int, n_probe: int, probe_bound: int, method: str, metric: str,
                plan=None, stream_args=None):
@@ -400,22 +615,32 @@ class _SlicedSearcher:
             raise ValueError(f"unknown sharded search method: {method}")
         self.index = index
         self.method = method
-        t = build_local_tables(index, n_slices)
+        t = plan_local_tables(index, n_slices)
         self._host_tables = t
         self.shard_to_dev = t.shard_to_dev
         self.local_perm = t.local_perm
         self.last_merge_bytes: dict = {}
         self.last_method: Optional[str] = None  # the body of the last search
-        self._slices = {}
-        for j, dev in placement:
-            if (j, dev) not in self._slices:
-                self._slices[(j, dev)] = DeviceSlice(t, j, dev)
+        pairs = list(dict.fromkeys(placement))
+        built = on_each([dev for _, dev in pairs],
+                        lambda i: DeviceSlice(index, t, pairs[i][0], pairs[i][1]))
+        self._slices = dict(zip(pairs, built))
 
     def _stream_tables(self) -> None:
         if any(sl.stream is None for sl in self._slices.values()):
-            st = build_local_stream_tables(self._host_tables, self.index.stream_dtype)
-            for (j, _), sl in self._slices.items():
-                sl.set_stream(st, self._host_tables.local_cent[j])
+            t, dtype = self._host_tables, self.index.stream_dtype
+            chunk, m_pad = stream_shape(t, dtype)
+            pairs = list(self._slices)
+
+            def build(i):
+                j, dev = pairs[i]
+                with trace("sharded.stream_table", sync=dev, slice=j, dtype=str(dtype)):
+                    return slice_stream_table(self._slices[pairs[i]].vecs, t.local_cent[j],
+                                              stream_maps(t, j, chunk, m_pad, dev), dtype,
+                                              chunk, m_pad)
+
+            for pair, st in zip(pairs, on_each([dev for _, dev in pairs], build)):
+                self._slices[pair].stream = st
 
     def choose(self, nq_local: int, n_probe: int) -> str:
         if self.method != "auto":
@@ -462,25 +687,30 @@ class _SlicedSearcher:
                 t = torch.tensor(q)  # a copy: the caller's array may be read-only
                 host[id(q)] = t.pin_memory() if pin else t
         out = []
-        for j, dev, q in jobs:
-            with on_device(dev):
-                qd = host[id(q)].to(dev, non_blocking=True)
-                out.append(self._slices[(j, dev)].search(
-                    qd, kk, n_probe, probe_bound, method, self.metric, plan, stream_args))
+        with trace("sharded.enqueue", level=DEBUG):
+            for j, dev, q in jobs:
+                with on_device(dev):
+                    qd = host[id(q)].to(dev, non_blocking=True)
+                    out.append(self._slices[(j, dev)].search(
+                        qd, kk, n_probe, probe_bound, method, self.metric, plan, stream_args))
         return out
 
-    def finish(self, D, rows, owner, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Host side of a search: (D, internal ids) cut to k, spilled
-        indexes de-duplicated."""
-        D = D.cpu().numpy()
-        rows = rows.cpu().numpy()
-        owner = owner.cpu().numpy()
+    def finish(self, D, rows, owner, k: int,
+               external: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+        """Host side of a search: the copy back, then (D, internal ids, or
+        external ids with ``external``) cut to k, spilled indexes
+        de-duplicated."""
+        with trace("sharded.to_host", level=DEBUG):
+            D = D.cpu().numpy()
+            rows = rows.cpu().numpy()
+            owner = owner.cpu().numpy()
         internal = np.where(
             rows >= 0, self.local_perm[np.clip(owner, 0, None), np.clip(rows, 0, None)], -1
         ).astype(np.int64)
         if getattr(self.index, "spill", 0):
             D, internal = host_dedup_topk(D, internal, D.shape[1])
-        return D[:, :k], internal[:, :k]
+        D, internal = D[:, :k], internal[:, :k]
+        return D, self.index.internal_to_external(internal) if external else internal
 
 
 def _check_k(k: int, n_probe: int) -> None:
@@ -516,14 +746,17 @@ class ShardedSearcher(_SlicedSearcher):
         super().__init__(index, self.n_dev, list(enumerate(self.devices)), method)
 
     def search_batch(self, queries, k: int, n_probe: int) -> Tuple[np.ndarray, np.ndarray]:
-        """(nq, d) -> (D (nq, k) f32, internal ids (nq, k) int64), padded
-        +inf / -1."""
-        _check_k(k, n_probe)
-        q = normalize_queries(self.index, queries)
-        kk = (1 + getattr(self.index, "spill", 0)) * k
-        outs = self.run([(j, dev, q) for j, dev in enumerate(self.devices)], kk, n_probe,
-                        q.shape[0])
-        parts = [(dv, rows, torch.full_like(rows, j)) for j, (dv, rows) in enumerate(outs)]
-        (D, rows, owner), moved = merge(parts, kk, self.devices[0])
-        self.last_merge_bytes = {"shards": moved}
-        return self.finish(D, rows, owner, k)
+        """(nq, d) -> (D (nq, k) f32, external ids (nq, k) int64), padded
+        +inf / -1: the index's ``external_ids``, as
+        ``IvfIndex.search_batch(external=True)`` maps them."""
+        with trace("sharded.search", level=DEBUG):
+            _check_k(k, n_probe)
+            q = normalize_queries(self.index, queries)
+            kk = (1 + getattr(self.index, "spill", 0)) * k
+            outs = self.run([(j, dev, q) for j, dev in enumerate(self.devices)], kk, n_probe,
+                            q.shape[0])
+            with trace("sharded.merge", level=DEBUG):
+                parts = [(dv, rows, torch.full_like(rows, j)) for j, (dv, rows) in enumerate(outs)]
+                (D, rows, owner), moved = merge(parts, kk, self.devices[0])
+            self.last_merge_bytes = {"shards": moved}
+            return self.finish(D, rows, owner, k, external=True)

@@ -24,6 +24,9 @@ table never reaches the device, and what a host-resident index
 from __future__ import annotations
 
 import dataclasses
+import mmap
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -34,6 +37,7 @@ from ..ops.distance import sq_norms
 ALIGN = 8  # posting-run row alignment (block-mask granularity)
 SENTINEL_NORM = np.float32(1e30)  # gap/tail rows: distance ~1e30, never win
 SENTINEL_THRESHOLD = 1e29  # distances above this are non-results
+_HOST_GATHER_ROWS = 1 << 20  # rows per gather of a host-packed table
 
 
 def _round_up(x: int, m: int) -> int:
@@ -82,6 +86,66 @@ def _placement(starts: np.ndarray, lengths: np.ndarray, num_clusters: int):
     return rows_used, max_len, _round_up(rows_used + tail + 1, ALIGN)
 
 
+def host_zeros(shape, populate: bool = True) -> np.ndarray:
+    """A zero float32 host array over anonymous memory. ``populate``: its
+    pages are all mapped up front (``MAP_POPULATE``, where the platform has
+    it): a table of ~100 GB faulted in page by page as one thread's gather
+    first touches it fills about 2.4 times slower (the same ratio as a 20M x
+    128 corpus drawn into host memory on an H100 machine's host). Without,
+    the pages are left to the threads that first write them, which fault
+    them in at once, in huge pages where the kernel grants them (5M x 128
+    gathered by 8 threads: 0.49 s against 1.27 s populated up front, on
+    one 8-core host)."""
+    size = int(np.prod(shape)) * 4
+    if not size:
+        return np.zeros(shape, np.float32)
+    flags = mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS
+    if populate:
+        flags |= getattr(mmap, "MAP_POPULATE", 0)
+    buf = mmap.mmap(-1, size, flags=flags)
+    if not populate and hasattr(mmap, "MADV_HUGEPAGE"):
+        try:
+            buf.madvise(mmap.MADV_HUGEPAGE)
+        except OSError:  # a kernel without transparent huge pages
+            pass
+    return np.frombuffer(buf, np.float32).reshape(shape)
+
+
+def host_workers() -> int:
+    """Threads for host-memory passes over a table: the cores this process
+    may run on (numpy's gathers, copies and ``einsum`` release the GIL)."""
+    if hasattr(os, "sched_getaffinity"):
+        return max(1, len(os.sched_getaffinity(0)))
+    return max(1, os.cpu_count() or 1)
+
+
+def _host_gather(source: np.ndarray, rowmap: np.ndarray, real: np.ndarray):
+    """(vectors (len rowmap, d) f32, their squared norms (len rowmap,) f32):
+    layout row r is source row ``rowmap[r]``, zero where ``real`` is false.
+    Gathered a slice of rows at a time, with no temporary of the table, the
+    slices spread over ``host_workers()`` threads."""
+    n_pad = len(rowmap)
+    slices = range(0, n_pad if source.shape[0] else 0, _HOST_GATHER_ROWS)
+    workers = min(host_workers(), len(slices))
+    vectors = host_zeros((n_pad, source.shape[1]), populate=workers <= 1)
+    sq = np.zeros(n_pad, np.float32)
+
+    def one(lo: int) -> None:
+        hi = min(lo + _HOST_GATHER_ROWS, n_pad)
+        v = vectors[lo:hi]
+        np.take(source, rowmap[lo:hi], axis=0, out=v, mode="clip")
+        v[~real[lo:hi]] = 0.0
+        np.einsum("ij,ij->i", v, v, out=sq[lo:hi])
+
+    if workers > 1:
+        with ThreadPoolExecutor(workers) as pool:
+            list(pool.map(one, slices))
+    else:
+        for lo in slices:
+            one(lo)
+    return vectors, sq
+
+
 def pack_layout(
     source,
     src_rows: np.ndarray,
@@ -100,10 +164,8 @@ def pack_layout(
     rowmap[:rows_used] = src_rows
     if isinstance(source, np.ndarray):
         real = rowmap >= 0
-        vectors = np.zeros((n_pad, source.shape[1]), np.float32)
-        vectors[real] = source[rowmap[real]]
-        norms = np.where(real, np.einsum("ij,ij->i", vectors, vectors), SENTINEL_NORM)
-        norms = norms.astype(np.float32)
+        vectors, sq = _host_gather(source, rowmap, real)
+        norms = np.where(real, sq, SENTINEL_NORM).astype(np.float32)
     else:
         dev = source.device
         rm = torch.as_tensor(rowmap, device=dev)
@@ -149,18 +211,20 @@ def build_layout(
     vector i."""
     labels = np.asarray(labels, dtype=np.int64)
     n = vectors.shape[0]
-    if point_ids is None:
-        point_ids = np.arange(len(labels), dtype=np.int64)
-    else:
+    if point_ids is not None:
         point_ids = np.asarray(point_ids, dtype=np.int64)
     if cluster_order is None:
         cluster_order = np.arange(num_clusters, dtype=np.int64)
     cluster_rank = np.empty(num_clusters, dtype=np.int64)
     cluster_rank[cluster_order] = np.arange(num_clusters)
 
-    # Stable sort by placement rank keeps intra-cluster insertion order.
-    entry_perm = np.argsort(cluster_rank[labels], kind="stable")
-    perm_real = point_ids[entry_perm]  # placement order -> internal id
+    # Stable sort by placement rank keeps intra-cluster insertion order;
+    # numpy sorts 16-bit keys by radix, several times faster at 1e8 entries.
+    key = (cluster_rank.astype(np.uint16) if num_clusters <= 1 << 16 else cluster_rank)[labels]
+    entry_perm = np.argsort(key, kind="stable")
+    del key
+    # placement order -> internal id (entry i is vector i by default)
+    perm_real = entry_perm if point_ids is None else point_ids[entry_perm]
 
     lengths = np.bincount(labels, minlength=num_clusters).astype(np.int32)
     sizes_in_order = _round_up_arr(lengths[cluster_order].astype(np.int64), ALIGN)

@@ -17,6 +17,9 @@
   enqueued. Without a reader ``trace`` returns a shared no-op context,
   unless the package logger is enabled for the span's ``level``: the span
   then times itself to log its line (its fields are formatted only then).
+* ``count(name, value)`` adds a tensor to a counter, while recording only,
+  on the tensor's own device and with no host read, so that a timed loop
+  never waits on it; ``counter_report`` reads the counters afterwards.
 * ``progress(total, label)`` logs rate / ETA lines for long host loops.
 * ``device_profiler(logdir)`` records a block with ``torch.profiler`` (CPU
   activity, and CUDA activity when a card is present) and writes a Chrome
@@ -40,6 +43,7 @@ import torch
 log = logging.getLogger("vector_indexer_tpu_torch")
 
 _PHASES: Dict[str, List] = {}  # phase -> [total_s, self_s, count]
+_COUNTERS: Dict[str, torch.Tensor] = {}  # counter -> float64 sum on its device
 _LOCK = threading.Lock()
 _LOCAL = threading.local()  # ``stack``: the recorded spans open on this thread
 _READERS = 0  # open recording() blocks, of any thread
@@ -122,6 +126,36 @@ def trace(phase: str, sync=None, level: int = logging.INFO, **fields):
     return _NOOP
 
 
+def recording_now() -> bool:
+    """Whether spans and counters record now (a profiler or a ``recording()``
+    block is open)."""
+    return bool(_READERS or _profiling())
+
+
+def count(name: str, value: torch.Tensor) -> None:
+    """Add ``value`` (a tensor, summed whole) to the counter ``name`` while
+    recording, as a float64 sum on ``value``'s device: the add is enqueued
+    there and nothing is read back. A counter keeps the device its first
+    value had."""
+    if not (_READERS or _profiling()):
+        return
+    value = value.detach().sum(dtype=torch.float64)
+    with _LOCK:
+        acc = _COUNTERS.get(name)
+        if acc is None:
+            _COUNTERS[name] = value
+        else:
+            acc.add_(value.to(acc.device, non_blocking=True))
+
+
+def counter_report() -> Dict[str, float]:
+    """{counter: sum} of the counters recorded since the last
+    ``reset_phases``; reads each counter's device (waits for its adds)."""
+    with _LOCK:
+        items = list(_COUNTERS.items())
+    return {name: float(acc) for name, acc in items}
+
+
 @contextlib.contextmanager
 def recording() -> Iterator[None]:
     """Record every span, of any thread, while the block runs, without a
@@ -149,8 +183,10 @@ def phase_report() -> Dict[str, dict]:
 
 
 def reset_phases() -> None:
+    """Drop the spans and the counters recorded so far."""
     with _LOCK:
         _PHASES.clear()
+        _COUNTERS.clear()
 
 
 class progress:
