@@ -20,7 +20,9 @@ Port of ``vector_indexer_tpu/index/ivf.py``:
   (stream, fused or plain dense, fused or plain flat, the int8 sweeps,
   the packed gather or the K6 range gather), ``index/programs.py`` runs
   it, and layout rows map to internal or external ids on the device, by
-  one gather through a cached row table, before the copy back;
+  one gather through a cached row table, before the copy back; a call
+  shape a device-resident index on a card has answered before replays as
+  one captured CUDA graph (index/graphs.py);
 * persistence through ``storage/persist.py`` (the reference's on-disk
   format);
 * offloaded serving (``offload_main_table``, ``offload_from_host``,
@@ -75,6 +77,7 @@ from .dispatch import (
     stream_itemsize,
     stream_params,
 )
+from .graphs import SearchGraphs
 from .staged import staged_search
 
 log = logging.getLogger("vector_indexer_tpu_torch")
@@ -133,6 +136,8 @@ class IvfIndex:
         self._n_pad = 0
         self._corr_table = None
         self._host_norms = None
+        # Captured CUDA graphs of repeated search_batch shapes.
+        self._graphs = SearchGraphs()
 
     # ------------------------------------------------------------------
     # Build
@@ -339,12 +344,14 @@ class IvfIndex:
         """Larger-than-device serving: free the f32 main table and serve
         from a compact (int8 by default) stream table; ``rerank`` is 'host',
         'device' or 'none' (index/offload.py::offload_main_table)."""
+        self._graphs.clear()
         _offload.offload_main_table(self, stream_dtype, rerank)
 
     def offload_from_host(self, stream_dtype=None, rerank: str = "host") -> None:
         """Offload entry for host-staged layouts (``load_index_from(...,
         resident='offload')``): the tables are built on the host and only
         they are uploaded (index/offload.py::offload_from_host)."""
+        self._graphs.clear()
         _offload.offload_from_host(self, stream_dtype, rerank)
 
     def to_host_resident(self, stage_dtype=None) -> None:
@@ -365,7 +372,9 @@ class IvfIndex:
         if isinstance(lay.vectors, torch.Tensor):
             lay.vectors = lay.vectors.cpu().numpy()
             lay.row_norms = lay.row_norms.cpu().numpy()
-        # Every device table derived from the layout goes.
+        # Every device table derived from the layout goes, and the graphs
+        # that read them.
+        self._graphs.clear()
         self._stream_tables = {}
         self._runs = self._sweep_q = self._lists = self._budgets = None
         self._perm_dev = self._ext_dev = self._perm_inv = None
@@ -613,6 +622,38 @@ class IvfIndex:
             n_probe, k=k, q_tile=dec.q_tile, metric=metric,
         )
 
+    def _graphable(self) -> bool:
+        """Whether ``search_batch`` may answer through a captured graph: a
+        device-resident, unspilled, not offloaded layout."""
+        lay = self.layout
+        return (not self.host_resident and not self.offloaded and not self.spill
+                and lay is not None and isinstance(lay.vectors, torch.Tensor)
+                and self.num_clusters > 0)
+
+    def _graph_state(self) -> tuple:
+        """Every table a bound program or the id map reads: a captured
+        graph is valid while each is the same object."""
+        lay = self.layout
+        return (lay, lay.vectors, lay.row_norms, self.external_ids, self._dev, self._runs,
+                self._sweep_q, self._lists, self._perm_dev, self._ext_dev,
+                *self._stream_tables.values())
+
+    def _search_ids_device(self, queries, k: int, n_probe: int, method: str,
+                           external: bool):
+        """``search_batch_device`` with its rows mapped to internal ids, or
+        external ones with ``external``: one gather on the device, enqueued
+        behind the program, so the host maps nothing after the copy back."""
+        dv, rv = self.search_batch_device(queries, k, n_probe, method)
+        with trace("search.id_map", level=DEBUG):
+            return dv, (self._ext_dev_table() if external else self._perm_dev_table())[rv]
+
+    def _search_host(self, queries, k: int, n_probe: int, method: str, external: bool):
+        """``search_batch``'s eager path on a device-resident index: (D, ids)
+        copied back to the host."""
+        dv, iv = self._search_ids_device(queries, k, n_probe, method, external)
+        with trace("search.to_host", level=DEBUG):
+            return dv.cpu().numpy(), iv.cpu().numpy()
+
     def rows_to_internal(self, rows: np.ndarray) -> np.ndarray:
         """Layout rows -> internal ids (-1 stays -1)."""
         lay = self.layout
@@ -633,7 +674,9 @@ class IvfIndex:
         int64, or external ids with ``external``), missing slots padded
         +inf / -1. An offloaded index re-ranks its shortlist as its mode
         says (index/offload.py); a host-resident one stages its probed
-        cells (index/staged.py)."""
+        cells (index/staged.py). A device-resident index on a card answers a
+        call shape it has answered before by replaying one captured CUDA
+        graph of the whole call (index/graphs.py)."""
         if self.host_resident:
             if method not in ("auto", "staged"):
                 raise RuntimeError(
@@ -654,13 +697,10 @@ class IvfIndex:
                       else _offload.search_offloaded_device)
             dvals, ids = search(self, queries, k, n_probe, method)
         else:
-            dv, rv = self.search_batch_device(queries, k, n_probe, method)
-            # One gather on the device, enqueued behind the program: the
-            # host maps nothing after the copy back.
-            with trace("search.id_map", level=DEBUG):
-                iv = (self._ext_dev_table() if external else self._perm_dev_table())[rv]
-            with trace("search.to_host", level=DEBUG):
-                return dv.cpu().numpy(), iv.cpu().numpy()
+            return self._graphs.search(
+                self, queries, k, n_probe, method, external,
+                partial(self._search_host, queries, k, n_probe, method, external),
+            )
         # The staged and re-ranked paths give internal ids on the host.
         with trace("search.id_map", level=DEBUG), trace("search.id_map.host", level=DEBUG):
             return dvals, self.internal_to_external(ids) if external else ids

@@ -20,7 +20,9 @@ kernels count per table type, as ``name[bf16]``, ``name[int8]`` or
 ``name[f32]``, and the fused sweep per int8 precision
 (``flat_sweep_topk_plane[int8]``, ``[int8x1]``; the f32 sweep keeps the
 plain name). A caller resets the counts before a run and reads them after
-it to prove which kernels (and modes) the run went through.
+it to prove which kernels (and modes) the run went through. A replayed
+CUDA graph adds the launches it captured (``add_launches``), so the counts
+stay those of the kernels that ran.
 """
 
 from __future__ import annotations
@@ -144,6 +146,13 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to the launch counts: the kernels of a replayed CUDA
+    graph, which no wrapper call counts (index/graphs.py)."""
+    for name, n in counts.items():
+        _LAUNCHES[name] += n
 
 
 def sources() -> list:
