@@ -731,10 +731,11 @@ def gather_operands(q, idx, n_probe: int):
     builds them: (starts, lengths) of the probed lists, max_len, budget."""
     from vector_indexer_tpu_torch.index import programs
 
-    c, c_sq = idx._device_tables()
-    starts, lengths = idx._list_tables()
+    c, c_sq = idx.tables().coarse
+    starts, lengths = idx.tables().lists
     probe = programs._probe(q, c, c_sq, n_probe)
-    return starts[probe], lengths[probe], max(1, idx.layout.max_list_len), idx._budget_for(n_probe)
+    budget = idx.tables().budget(n_probe)
+    return starts[probe], lengths[probe], max(1, idx.layout.max_list_len), budget
 
 
 def check_k6(q, vectors, starts, lengths, max_len: int, budget: int, metric: str):
@@ -764,7 +765,7 @@ def sweep_mask(q, idx, n_probe: int, w: int):
     from vector_indexer_tpu_torch.ops import flat_sweep as fs
 
     n_rows = idx.layout.vectors.shape[0]
-    block_run, c_ord, c_sq_ord = idx._run_tables()
+    block_run, c_ord, c_sq_ord = idx.tables().runs
     NB = fs.S * w
     mask = torch.zeros((q.shape[0], -(-n_rows // NB) * NB // 8), dtype=torch.bool,
                        device=q.device)
@@ -834,12 +835,12 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
     store = VectorStore(external_ids=np.arange(len(xs), dtype=np.uint64), vectors=xs)
     t0 = time.perf_counter()
     idx = IvfIndex.fit(store, seed=7, max_iters=10, device=dev)
-    table = idx._stream_table()
+    table = idx.tables().stream(idx.stream_dtype)
     torch.cuda.synchronize()
     log(f"  kernel-phase index: n={len(xs)} nlist={idx.num_clusters} chunk={table.chunk} "
         f"m_pad={table.m_pad} built in {time.perf_counter() - t0:.2f}s")
     q = torch.as_tensor(xq[:256], device=dev)
-    c, c_sq = idx._device_tables()
+    c, c_sq = idx.tables().coarse
     nqk = q.shape[0]
 
     # K2 (n_probe 8) and K4 (n_probe 32) at the main path's l2 shapes
@@ -964,7 +965,7 @@ def kernel_phase(torch, np, xb, xq, check, results, dev):
 
     # K3's int8 modes over the layout's int8 twin (quantized on the card),
     # at the plans plan_fused gives them, flat and masked at n_probe 64.
-    tabs = idx._sweep_int8_tables()
+    tabs = idx.tables().sweep_int8
     for prec in ("int8", "int8x1"):
         wp, _, Cp = fs.plan_fused(n_rows, 128, nqk, 100, precision=prec) or (w, 0, C)
         mask_p = mask if wp == w else sweep_mask(q, idx, 64, wp)
@@ -1155,7 +1156,7 @@ def main_shape_kernels(torch, vi, xb, xq_dev, check, results):
     lay = idx.layout
     n_rows = lay.vectors.shape[0]
     nq = xq_dev.shape[0]
-    c, c_sq = idx._device_tables()
+    c, c_sq = idx.tables().coarse
     x = torch.as_tensor(xb, device=xq_dev.device)
     results["assign_argmin"] = dict(phase3=results["assign_argmin"],
                                     **k1_entry(torch, x, c, check, "the build's final assignment"))
@@ -1166,7 +1167,7 @@ def main_shape_kernels(torch, vi, xb, xq_dev, check, results):
     # launches it (valid rows only), and every lane for comparison.
     dec = resolve(idx, nq, 8, k=K, method="stream")
     qt = xq_dev[: dec.q_tile]
-    tb = idx._stream_table()
+    tb = idx.tables().stream(idx.stream_dtype)
     grid = stream_grid(qt, tb, c, c_sq, lay.lengths, 8, "l2")
     name = "stream_distances[bf16]"
     entry = dict(phase3=results[name])
@@ -1196,11 +1197,11 @@ def main_shape_kernels(torch, vi, xb, xq_dev, check, results):
         f"{entry['shape']}")
 
     n_probe = min(128, idx.num_clusters)
-    block_run, c_ord, c_sq_ord = idx._run_tables()
+    block_run, c_ord, c_sq_ord = idx.tables().runs
     s_ord, nearest = programs._probe_sets(xq_dev, c_ord, c_sq_ord, n_probe)
     perm = torch.argsort(nearest, stable=True)
     qs = xq_dev[perm]
-    tabs = idx._sweep_int8_tables()
+    tabs = idx.tables().sweep_int8
     methods = {"highest": "dense_fused", "int8": "dense_int8", "int8x1": "dense_int8x1"}
     for prec, method in methods.items():
         w, _, C = resolve(idx, nq, n_probe, k=K, method=method).plan
@@ -1245,7 +1246,7 @@ def main_shape_kernels(torch, vi, xb, xq_dev, check, results):
     # K4: one query tile of the n_probe-32 stream program, as it launches it.
     dec = resolve(idx, nq, 32, k=K, method="stream")
     qt = xq_dev[: dec.q_tile]
-    for mode, tb in (("bf16", idx._stream_table()),
+    for mode, tb in (("bf16", idx.tables().stream(idx.stream_dtype)),
                      ("int8", bs.build_stream_table(lay, idx.centroids, torch.int8, chunk=dec.chunk))):
         name = f"stream_fused_plane[{mode}]"
         grid = stream_grid(qt, tb, c, c_sq, lay.lengths, 32, "l2")
@@ -1494,8 +1495,8 @@ def offload_phase(torch, np, xb, xq, check, dev, work, p4_overlap):
     load_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) - base
     ix = vo.index
-    f32_bytes = ix._n_pad * d * 4
-    st = ix._stream_table()
+    f32_bytes = ix.tables().rows * d * 4
+    st = ix.tables().stream(ix.stream_dtype)
     log(f"  offload load: {load_s:.2f}s; f32 table {f32_bytes / 2**20:.1f} MiB (host only), "
         f"int8 stream table + norms {st.nbytes / 2**20:.1f} MiB; peak device memory over "
         f"the load {peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before it")
@@ -1555,7 +1556,7 @@ def offload_phase(torch, np, xb, xq, check, dev, work, p4_overlap):
     ixd = load_index_from(idx_dir, sh_dir, resident="offload", device=dev,
                           offload_rerank="device")
     log(f"  offload load with the device re-rank: {time.perf_counter() - t0:.2f}s; correction "
-        f"table {ixd._corr_table.nbytes / 2**20:.1f} MiB")
+        f"table {ixd.tables().corr.nbytes / 2**20:.1f} MiB")
     for n_probe in (8, 32):
         ms = host_ms(torch, lambda: ixd.search_batch(xq, k, n_probe))
         D, Ii = ixd.search_batch(xq, k, n_probe)
@@ -1588,7 +1589,7 @@ def offload_phase(torch, np, xb, xq, check, dev, work, p4_overlap):
     after = torch.cuda.memory_allocated(dev)
     log(f"  offload_main_table: device memory {before / 2**20:.1f} -> {after / 2**20:.1f} MiB "
         f"(f32 table {f32_bytes / 2**20:.1f} MiB and the bf16 stream table freed, int8 table "
-        f"{vr.index._stream_table().nbytes / 2**20:.1f} MiB built)")
+        f"{vr.index.tables().stream(vr.index.stream_dtype).nbytes / 2**20:.1f} MiB built)")
     check(before - after >= f32_bytes, f"offload(rerank='none') frees >= the f32 table's bytes "
                                        f"({before - after} >= {f32_bytes})")
     for n_probe in (8, 32):
@@ -2709,7 +2710,7 @@ def wide_kernel_checks(torch, np, check, dev):
         store = VectorStore(external_ids=np.arange(n, dtype=np.uint64), vectors=xb.cpu().numpy())
         del xb
         idx = IvfIndex.fit(store, seed=1, nlist=8, max_iters=3, device=dev)
-        c, c_sq = idx._device_tables()
+        c, c_sq = idx.tables().coarse
         lengths = idx.layout.lengths
         for dtype in (torch.bfloat16, torch.int8, torch.float32):
             tb = bs.build_stream_table(idx.layout, idx.centroids, dtype, chunk=chunk)
@@ -2767,6 +2768,9 @@ def cpu_twin(torch, idx):
     import copy
     import dataclasses
 
+    from vector_indexer_tpu_torch.index.graphs import SearchGraphs
+    from vector_indexer_tpu_torch.index.tables import DeviceTables
+
     def to_cpu(obj):
         if obj is None:
             return None
@@ -2777,10 +2781,12 @@ def cpu_twin(torch, idx):
     tw = copy.copy(idx)
     tw.device = torch.device("cpu")
     tw.layout = to_cpu(idx.layout)
-    tw._stream_tables = {dt: to_cpu(st) for dt, st in idx._stream_tables.items()}
-    tw._corr_table = to_cpu(idx._corr_table)
-    tw._dev = tw._runs = tw._perm_inv = tw._perm_dev = tw._ext_dev = tw._sweep_q = None
-    tw._lists = tw._budgets = None
+    tables = idx.tables()
+    tw._tables = DeviceTables(
+        tw.layout, tw.centroids, tw.external_ids, tw.device, rows=tables.rows,
+        streams={dt: to_cpu(st) for dt, st in tables.streams.items()},
+        corr=to_cpu(tables.corr))
+    tw._graphs = SearchGraphs()  # the card index's graphs stay its own
     return tw
 
 
@@ -2860,8 +2866,8 @@ def k5_kpanel_entry(torch, check, idx, xq_dev, nq: int, n_probe: int) -> dict:
     from vector_indexer_tpu_torch.index import dispatch
     from vector_indexer_tpu_torch.ops import block_stream as bs
 
-    tb = idx._stream_table(torch.float32)
-    c, c_sq = idx._device_tables()
+    tb = idx.tables().stream(torch.float32)
+    c, c_sq = idx.tables().coarse
     dec = dispatch.resolve(idx, nq, n_probe, k=K, method="stream_shared_exact")
     qs = xq_dev[:nq]
     tasks = shared_tasks(qs, tb, c, c_sq, idx.layout.lengths, n_probe, dec.t_fixed, dec.t_cap,
@@ -2981,8 +2987,8 @@ def wide_phase(torch, np, check, dev, results, twins: bool = True):
 
     # K4, K2, K6 and K5's K-panels at this width, timed by graph replay
     # beside their bounds.
-    c, c_sq = idx._device_tables()
-    tb = idx._stream_table()
+    c, c_sq = idx.tables().coarse
+    tb = idx.tables().stream(idx.stream_dtype)
     lengths = idx.layout.lengths
     G = bs.pick_stream_groups(tb.chunk)
     kw = dict(chunk=tb.chunk, groups=G, metric="l2", scales=tb.scales)
@@ -3029,7 +3035,7 @@ def wide_phase(torch, np, check, dev, results, twins: bool = True):
 
     # K2 bf16 and int8 (the offload's table, built on the card) at 'auto''s
     # K2 shapes; nq 256 is the stream program's tile.
-    tb8 = idx._stream_table(torch.int8)
+    tb8 = idx.tables().stream(torch.int8)
     results["wide_k2"] = [
         k2_wide_entry(torch, check, xq_all[:nq], table, c, c_sq, lengths, p,
                       route_of(resolve(idx, nq, p, k=k), k))
@@ -3141,8 +3147,8 @@ def wide_1536(torch, np, check, dev, results, twins: bool, gpu: str) -> dict:
     for name in ("assign_argmin", "stream_distances[bf16]"):
         check(counts[name] > 0, f"{name} launched in the d {d} build and runs ({counts[name]}x)")
 
-    c, c_sq = idx._device_tables()
-    tb = idx._stream_table()
+    c, c_sq = idx.tables().coarse
+    tb = idx.tables().stream(idx.stream_dtype)
     entries = [k2_wide_entry(torch, check, xq_all[:min(nq, 256)], tb, c, c_sq,
                              idx.layout.lengths, p, route_of(dec, k)) for nq, p, dec in runs]
     log_k2_entries(entries, gpu)

@@ -11,6 +11,7 @@ from vector_indexer_tpu.ops.pallas import block_stream as jbs
 from vector_indexer_tpu.ops.pallas import flat_sweep as jfs
 from vector_indexer_tpu_torch.index import dispatch as td
 from vector_indexer_tpu_torch.index.programs import shortlist_k
+from vector_indexer_tpu_torch.index.tables import DeviceTables
 from vector_indexer_tpu_torch.ops import block_stream as tbs
 
 
@@ -100,8 +101,7 @@ class _Core:
         self.stream_dtype = torch.bfloat16
         self.offloaded = False
         self.choose_method = lambda nq, n_probe: IvfIndex.choose_method(self, nq, n_probe)
-        self._budgets = None
-        self._budget_for = lambda n_probe: IvfIndex._budget_for(self, n_probe)
+        self.tables = lambda: DeviceTables(self.layout, None, None, torch.device("cpu"))
 
 
 def test_resolve_routes_the_sift1m_shape():

@@ -84,7 +84,7 @@ def test_stream_table_of_another_chunk_is_resized(skewed_pair):
 
     jt = jbs.build_stream_table(ref.layout, ref.centroids, jnp.bfloat16, chunk=512)
     ref._stream_tables[jnp.dtype(jnp.bfloat16)] = jt
-    ours._stream_tables[torch.bfloat16] = stream_table_from_reference_arrays(
+    ours.tables().streams[torch.bfloat16] = stream_table_from_reference_arrays(
         stream_table_arrays(jt), device=CPU)
     D, R = ours.search_batch_device(q, k, n_probe, method="stream")
     rD, rR = ref.search_batch_device(q, k, n_probe, method="stream")

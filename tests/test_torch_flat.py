@@ -235,7 +235,7 @@ def test_flat_fused_program_matches(pair, precision):
     ref, ours, xq = pair
     lay = ours.layout
     w, _, C = tfs.plan_fused(lay.vectors.shape[0], D, NQ, K, precision=precision)
-    tabs = (lay.vectors, None, None) if precision == "highest" else ours._sweep_int8_tables()
+    tabs = (lay.vectors, None, None) if precision == "highest" else ours.tables().sweep_int8
     D_, R = (a.numpy() for a in programs.flat_fused_program(
         t(xq), tabs[0], lay.row_norms, tabs[1], tabs[2], k=K, w=w, c_groups=C, metric="l2",
         precision=precision))
@@ -246,7 +246,7 @@ def test_flat_fused_program_matches(pair, precision):
 
 def test_sweep_int8_tables_equal_the_reference(pair):
     ref, ours, _ = pair
-    for a, b in zip(ours._sweep_int8_tables(), jfs.quantize_table_int8(ref.layout.vectors)):
+    for a, b in zip(ours.tables().sweep_int8, jfs.quantize_table_int8(ref.layout.vectors)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 

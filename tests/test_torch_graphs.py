@@ -4,8 +4,8 @@ A stand-in for ``CudaCapture`` makes a "graph" that runs the captured body
 again on each replay, through the same static buffers, so the cache's logic
 is held here: the first call of a shape is eager, the second captures, the
 third replays; a capture that raises leaves the shape eager; the LRU bound;
-a refit, new external ids, ``offload_main_table`` and ``to_host_resident``
-drop the graphs; a CPU index with the real capture engages nothing; threads
+a refit, new external ids, a new ``stream_dtype``, ``offload_main_table``
+and ``to_host_resident`` drop the graphs, and a table built late does not; a CPU index with the real capture engages nothing; threads
 sharing an index get their own answers; and a returned array survives the
 next call. ``tests/test_torch_graphs_card.py`` holds the real graphs to the
 eager path on a card."""
@@ -194,6 +194,45 @@ def test_new_external_ids_drop_the_graphs(corpus):
     assert old not in idx._graphs._shapes.values() and idx._graphs.captured() == 0
     _same((d, ids), _eager(idx, xq[:4], external=True))
     assert ids.min() >= 1000
+
+
+def test_new_stream_dtype_captures_anew(corpus):
+    """A shape captured on the bf16 stream table is not replayed once
+    ``stream_dtype`` is int8: the next call runs eagerly (the int8 table
+    and its exact re-rank), the one after captures that route."""
+    data, xq = corpus
+    idx = _fit(data)
+    cap = _staged(idx)
+    for _ in range(3):
+        idx.search_batch(xq[:4], K, N_PROBE, "stream")
+    assert (cap.captures, cap.replays) == (1, 2)
+    idx.stream_dtype = torch.int8
+    got = []
+    for i in range(3):
+        got.append(idx.search_batch(xq[:4], K, N_PROBE, "stream"))
+        assert (cap.captures, cap.replays) == [(1, 2), (2, 3), (2, 4)][i]
+    want = _eager(idx, xq[:4], "stream")
+    for g in got:
+        _same(g, want)
+    assert torch.int8 in idx.tables().streams
+
+
+def test_a_late_table_keeps_the_captured_graphs(corpus):
+    """The first call of another method builds its own lazy tables (the
+    gather's list tables, the dense sweep's run tables) in the same owner:
+    the shape already captured keeps its graph and replays."""
+    data, xq = corpus
+    idx = _fit(data)
+    cap = _staged(idx)
+    for _ in range(2):
+        idx.search_batch(xq[:4], K, N_PROBE, "stream")
+    assert idx._graphs.captured() == 1
+    for method in ("gather", "dense"):
+        _same(idx.search_batch(xq[:4], K, N_PROBE, method), _eager(idx, xq[:4], method))
+        assert idx._graphs.captured() == 1
+    assert {"lists", "runs"} <= set(vars(idx.tables()))
+    _same(idx.search_batch(xq[:4], K, N_PROBE, "stream"), _eager(idx, xq[:4], "stream"))
+    assert (cap.captures, cap.replays) == (1, 2)
 
 
 def test_offload_drops_the_graphs(corpus):

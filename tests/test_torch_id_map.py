@@ -1,6 +1,6 @@
 """The id map of ``IvfIndex.search_batch`` on a device-resident index: one
-gather through a cached device row table (``_perm_dev_table`` for internal
-ids, ``_ext_dev_table`` for external ones) gives, bit for bit, what the
+gather through a cached device row table (``DeviceTables.row_internal`` for
+internal ids, ``row_external`` for external ones) gives, bit for bit, what the
 host pair ``internal_to_external(rows_to_internal(rows))`` gives (and
 ``rows_to_internal`` alone without ``external``): -1 on no result and on
 gap rows, external ids at or above 2**63 wrapped to int64 as numpy's cast
@@ -74,7 +74,7 @@ def test_device_map_matches_host_pair(indexes, corpus, kind, which, external):
     # Every used row (gaps among them) and no-result rows, through the table.
     rows = np.concatenate([np.arange(lay.rows_used), np.full(8 - lay.rows_used % 8 + 8, -1)])
     rows = rows.reshape(-1, 8)
-    table = idx._ext_dev_table() if external else idx._perm_dev_table()
+    table = idx.tables().row_external if external else idx.tables().row_internal
     got = table[torch.as_tensor(rows)].numpy()
     want = _host_pair(idx, rows, external)
     assert got.dtype == want.dtype == np.int64
@@ -97,20 +97,20 @@ def test_id_table_follows_layout_and_ids(corpus, event):
     data, xq = corpus
     store = VectorStore(external_ids=_ids("wide", len(data)), vectors=data)
     idx = IvfIndex.fit(store, seed=3, nlist=24, device="cpu")
-    first = idx._ext_dev_table()
-    assert idx._ext_dev_table() is first  # cached
+    first = idx.tables().row_external
+    assert idx.tables().row_external is first  # cached
     if event == "to_host_resident":
-        idx._perm_dev_table()
+        idx.tables().row_internal
         idx.to_host_resident()
-        assert idx._ext_dev is None and idx._perm_dev is None
+        assert idx._tables is None
         _, ids = idx.search_batch(xq, 10, 4, external=True)  # staged: mapped on the host
-        assert idx._ext_dev is None and (ids >= 0).any()
+        assert "row_external" not in vars(idx.tables()) and (ids >= 0).any()
         return
     if event == "new_ids":  # fit and load assign a new id column
         idx.external_ids = idx.external_ids + np.uint64(7)
     else:  # and a new layout object
         idx.layout = dataclasses.replace(idx.layout)
-    table = idx._ext_dev_table()
+    table = idx.tables().row_external
     assert table is not first
     _, rv = idx.search_batch_device(xq, K, N_PROBE)
     _, ids = idx.search_batch(xq, K, N_PROBE, external=True)

@@ -243,7 +243,7 @@ def test_offload_load_matches_reference(pair, saved, rr):
         ix = load_index_from(wd / "index", wd / "shards", resident="offload", device="cpu",
                              offload_rerank=rr)
     assert ix.offloaded and ix.layout.vectors is None and ix.stream_dtype == torch.int8
-    assert (ix._corr_table is not None) == (rr == "device")
+    assert (ix.tables().corr is not None) == (rr == "device")
     D, I = ix.search_batch(q, 10, ix.num_clusters)
     _check_offload_results(D, I, *want[rr], rr, q, pair[0])
 
@@ -259,7 +259,7 @@ def test_offload_main_table_matches_reference(pair, saved, rr):
     vi.search_sync(q, 10, 4)  # a bf16 stream table, which the offload frees
     vi.offload(rerank=rr)
     ix = vi.index
-    assert ix.offloaded and ix.layout.vectors is None and list(ix._stream_tables) == [torch.int8]
+    assert ix.offloaded and ix.layout.vectors is None and list(ix.tables().streams) == [torch.int8]
     D, I = ix.search_batch(q, 10, ix.num_clusters)
     _check_offload_results(D, I, *want_main[rr], rr, q, data)
     # Result payloads come from the host mirror once the table is gone.

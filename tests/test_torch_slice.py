@@ -71,7 +71,7 @@ def test_dense_fused_program_matches(pair, corpus, n_probe):
         run_starts_b, jnp.int32(n_probe), k=k, q_tile=q_tile, w=w, c_groups=C,
         metric="l2", precision="highest", interpret=True,
     )
-    block_run, c_ord, c_sq_ord = ours._run_tables()
+    block_run, c_ord, c_sq_ord = ours.tables().runs
     Dp, Rp = programs.dense_fused_program(
         t(xq), c_ord, c_sq_ord, ours.layout.vectors, ours.layout.row_norms, block_run,
         n_probe, k=k, w=w, c_groups=C, metric="l2",

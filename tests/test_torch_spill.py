@@ -354,5 +354,5 @@ def test_spilled_widened_decisions_match_reference(ref_pair):
             if method != "gather_dma":  # K6 tiles its queries its own way
                 assert a.q_tile == b.q_tile, (method, kk)
     assert ours.choose_method(64, 6) == ref.choose_method(64, 6)
-    assert torch.equal(ours._perm_dev_table()[: ref.layout.rows_used],
+    assert torch.equal(ours.tables().row_internal[: ref.layout.rows_used],
                        torch.as_tensor(ref.layout.perm))

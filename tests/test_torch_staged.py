@@ -285,7 +285,7 @@ def test_to_host_resident_roundtrip(saved):
     dev.search_batch(q, 10, 6, method="stream")  # builds a device stream table
     dev.to_host_resident()
     assert dev.host_resident and isinstance(dev.layout.vectors, np.ndarray)
-    assert dev._stream_tables == {}
+    assert dev.tables().streams == {}
     Ds, Is = dev.search_batch(q, 10, 6)
     _close(Dd, Ds, q, data)
     assert _sets_equal(Id, Is)

@@ -92,11 +92,11 @@ def test_query_order_changes_no_result(pair, precision):
     k, n_probe = 10, 6
     lay = ours.layout
     w, _, c_groups = fs.plan_fused(lay.vectors.shape[0], 128, len(xq), k, precision=precision)
-    block_run, c_ord, c_sq = ours._run_tables()
+    block_run, c_ord, c_sq = ours.tables().runs
     if precision == "highest":
         x, resid, scales = lay.vectors, None, None
     else:
-        x, resid, scales = ours._sweep_int8_tables()
+        x, resid, scales = ours.tables().sweep_int8
         resid = resid if precision == "int8" else None
     ordered = programs.dense_fused_program(
         t(xq), c_ord, c_sq, x, lay.row_norms, block_run, n_probe, resid, scales, k=k, w=w,

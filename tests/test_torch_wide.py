@@ -162,7 +162,7 @@ def test_stream_table_matches_at_d16384(wide_pair):
     import torch
 
     _, _, ref, ours = wide_pair
-    jt, tt = ref._stream_table(jnp.bfloat16), ours._stream_table()
+    jt, tt = ref._stream_table(jnp.bfloat16), ours.tables().stream(ours.stream_dtype)
     assert tt.m_pad == jt.m_pad > 2 * (bs._TILE_BYTES // (4 * WD))
     np.testing.assert_array_equal(tt.vecs.view(torch.int16).numpy(),
                                   np.asarray(jt.vecs).view(np.int16))

@@ -191,7 +191,7 @@ def pair():
     store = VectorStore(external_ids=np.arange(len(data), dtype=np.uint64), vectors=data)
     ref = JaxIndex.fit(store, seed=42)
     ours = index_from_reference_arrays(reference_arrays(ref), device=CPU)
-    return data, ref, ours, ref._stream_table(jnp.bfloat16), ours._stream_table()
+    return data, ref, ours, ref._stream_table(jnp.bfloat16), ours.tables().stream(ours.stream_dtype)
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])

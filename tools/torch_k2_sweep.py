@@ -68,9 +68,9 @@ def main() -> int:
         idx = IvfIndex.fit(VectorStore(external_ids=np.arange(n, dtype=np.uint64), vectors=xb),
                            seed=42, max_iters=cs.WIDE_ITERS, device=dev)
         del xb
-        c, c_sq = idx._device_tables()
+        c, c_sq = idx.tables().coarse
         for mode, nq, n_probe in shapes:
-            tb = idx._stream_table(dtypes[mode])
+            tb = idx.tables().stream(dtypes[mode])
             q = xq[:nq]
             grid = cs.stream_grid(q, tb, c, c_sq, idx.layout.lengths, n_probe, "l2")
             kw = cs.k2_kw(tb, grid, "l2", True)

@@ -82,7 +82,7 @@ def sweep_section(torch, vi, q) -> None:
     lay = idx.layout
     n_rows = lay.vectors.shape[0]
     w, _, c_groups = resolve(idx, q.shape[0], 128, k=chip_smoke.K).plan
-    block_run, c_ord, c_sq = idx._run_tables()
+    block_run, c_ord, c_sq = idx.tables().runs
     mcols = -(-n_rows // (fs.S * w)) * fs.S * w // fs.MASK_ALIGN
 
     def ordered(qq):  # the dense program's order and mask

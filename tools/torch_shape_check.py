@@ -138,7 +138,7 @@ def main() -> int:
         xb, xq = ds.clustered(40_000, d, 64, seed=d)
         store = VectorStore(external_ids=np.arange(len(xb), dtype=np.uint64), vectors=xb)
         idx = IvfIndex.fit(store, seed=1, nlist=64, max_iters=5, device=dev)
-        c, c_sq = idx._device_tables()
+        c, c_sq = idx.tables().coarse
         q = torch.as_tensor(xq, device=dev)
         lengths = idx.layout.lengths
         modes = ((torch.bfloat16, torch.int8, torch.float32) if d in QUANT_DIMS
@@ -171,7 +171,7 @@ def main() -> int:
         store = VectorStore(external_ids=np.arange(n, dtype=np.uint64), vectors=xb.cpu().numpy())
         del xb
         idx = IvfIndex.fit(store, seed=1, nlist=16, max_iters=3, device=dev)
-        c, c_sq = idx._device_tables()
+        c, c_sq = idx.tables().coarse
         q = xq
         lengths = idx.layout.lengths
         for chunk, mode in itertools.product((256, 1024), types):
@@ -221,7 +221,7 @@ def main() -> int:
         store = VectorStore(external_ids=np.arange(len(xb), dtype=np.uint64), vectors=xb)
         idx = IvfIndex.fit(store, seed=1, nlist=64, max_iters=5, device=dev)
         lay = idx.layout
-        tabs = idx._sweep_int8_tables()
+        tabs = idx.tables().sweep_int8
         for (w, C), nq, metric in itertools.product(SWEEP_WC, SWEEP_NQ, ("l2", "ip")):
             q = torch.as_tensor(xq[:nq], device=dev)
             for label, mask in (("flat", None), ("masked", chip_smoke.sweep_mask(q, idx, 8, w))):

@@ -70,6 +70,20 @@ def pick_q_tile(nq: int, budget: int, d: int, mem_cap_bytes: int = 3 << 29) -> i
     return max(8, (qt // 8) * 8)
 
 
+def fused_sweep_fits(d: int) -> bool:
+    """The fused sweeps' (K3) width gate, for every searcher: the
+    reference's TPU lane tile."""
+    return d % 128 == 0
+
+
+def stream_q_tile(t_fixed: int) -> int:
+    """Queries per stream tile: as many as keep its ``t_fixed`` task slots
+    per query under SMEM_TASK_CAP, 8 to 256 in steps of 8."""
+    from ..ops.block_stream import SMEM_TASK_CAP
+
+    return max(8, min(_QUERY_TILE, (SMEM_TASK_CAP // max(t_fixed, 1)) // 8 * 8))
+
+
 def mean_slot_rows_of(lengths_np, chunk: int) -> float:
     """Expected chunk-aligned probed rows per cell (mean over cells): the
     footprint unit the stream gates are calibrated in."""
@@ -127,7 +141,7 @@ def stream_params(
     if chunk is None:
         chunk = pick_chunk(lengths_np, d, itemsize)
     t_fixed = per_query_slots(lengths_np, n_probe, worst_case=exact, chunk=chunk)
-    q_tile = max(8, min(_QUERY_TILE, (SMEM_TASK_CAP // max(t_fixed, 1)) // 8 * 8))
+    q_tile = stream_q_tile(t_fixed)
     t_cap = 0
     if shared:
         q_tile = max(8, min(1024, _round_up(nq, 8)))
@@ -173,11 +187,9 @@ def resolve(core, nq: int, n_probe: int, k: int = 100, method: str = "auto") -> 
     (nq, n_probe, k) point into the concrete program and its parameters."""
     if getattr(core, "host_resident", False):
         return Decision(method="staged", program="staged")
-    lay = core.layout
+    lay, tables = core.layout, core.tables()
     d = core.dimension
     n_probe = min(n_probe, core.num_clusters)
-    # An offloaded index has freed its table; its padded row count stays.
-    table_rows = lay.vectors.shape[0] if lay.vectors is not None else core._n_pad
 
     if method == "auto":
         method = core.choose_method(nq, n_probe)
@@ -189,10 +201,11 @@ def resolve(core, nq: int, n_probe: int, k: int = 100, method: str = "auto") -> 
 
     if method in _SWEEP_METHODS:
         kind = "flat" if method.startswith("flat") else "dense"
+        fits = fused_sweep_fits(d)
         # The int8 fixed-point sweeps, or their f32 twins where no plan fits.
         if method.endswith(("_int8", "_int8x1")):
             prec = "int8x1" if method.endswith("x1") else "int8"
-            plan = plan_fused(table_rows, d, nq, k, precision=prec) if d % 128 == 0 else None
+            plan = plan_fused(tables.rows, d, nq, k, precision=prec) if fits else None
             if plan is not None:
                 return Decision(method=method, program=f"{kind}_fused", q_tile=plan[1],
                                 plan=plan, precision=prec)
@@ -200,13 +213,13 @@ def resolve(core, nq: int, n_probe: int, k: int = 100, method: str = "auto") -> 
         # flat_fused below the size gate still runs the plain flat program.
         want_fused = method == "dense_fused" or (
             method in ("flat", "flat_fused", "dense") and lay.n > 50_000)
-        if want_fused and d % 128 == 0:
-            plan = plan_fused(table_rows, d, nq, k)
+        if want_fused and fits:
+            plan = plan_fused(tables.rows, d, nq, k)
             if plan is not None:
                 return Decision(method=method, program=f"{kind}_fused", q_tile=plan[1], plan=plan)
         return Decision(
             method=method, program=f"{kind}_torch",
-            q_tile=pick_q_tile(nq, table_rows * 4 // d, d),
+            q_tile=pick_q_tile(nq, tables.rows * 4 // d, d),
         )
 
     if method in ("stream", "stream_exact", "stream_shared", "stream_shared_exact"):
@@ -222,7 +235,7 @@ def resolve(core, nq: int, n_probe: int, k: int = 100, method: str = "auto") -> 
         )
 
     if method in ("gather", "gather_dma"):
-        budget = core._budget_for(n_probe)
+        budget = tables.budget(n_probe)
         return Decision(method=method, program=method, budget=budget,
                         q_tile=pick_q_tile(nq, budget, d))
     raise ValueError(f"unknown search method: {method}")

@@ -13,9 +13,9 @@ and the program's Python run once per shape.
   the second captures; later calls replay. A capture that raises is logged
   and leaves that shape eager for good.
 * A shape is (nq, d, k, n_probe, method, external). The graphs read the
-  index's device tables (``IvfIndex._graph_state``): when any of them is
-  replaced, every graph goes, and the mutators that free tables drop them
-  first (``clear``).
+  index's tables (``IvfIndex.tables()``) and bind its ``stream_dtype`` and
+  ``metric``: when any of the three is replaced, every graph goes, and the
+  mutators that free tables drop them first (``clear``).
 * At most ``SLOTS`` shapes per index, the least recently used first out, so
   a caller whose nq keeps changing does not grow device memory.
 * A lock per shape covers the fill, the replay and the copy-out; callers
@@ -91,17 +91,13 @@ class _Shape:
         self.eager = False
 
 
-def _same(a: tuple, b: tuple) -> bool:
-    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
-
-
 class SearchGraphs:
     """The graphs of one index's repeated ``search_batch`` shapes."""
 
     def __init__(self, capture=None):
         self.capture = CudaCapture() if capture is None else capture
         self._lock = threading.Lock()
-        self._state = None  # the index tables the graphs read
+        self._state = None  # the owner of the tables the graphs read, and what they bind
         self._shapes: OrderedDict = OrderedDict()
 
     def __len__(self) -> int:
@@ -117,12 +113,6 @@ class SearchGraphs:
         with self._lock:
             self._shapes.clear()
             self._state = None
-
-    def _check_state(self, index) -> None:
-        state = index._graph_state()
-        if self._state is None or not _same(self._state, state):
-            self._shapes.clear()
-            self._state = state
 
     def search(self, index, queries, k: int, n_probe: int, method: str, external: bool,
                eager):
@@ -142,15 +132,17 @@ class SearchGraphs:
         if q.ndim != 2:
             return eager()
         key = (q.shape[0], q.shape[1], k, n_probe, method, external)
+        state = (index.tables(), index.stream_dtype, index.metric)
         with self._lock:
-            self._check_state(index)
+            if self._state is None or any(a is not b for a, b in zip(self._state, state)):
+                self._shapes.clear()
+                self._state = state
             shape = self._shapes.get(key)
             if shape is not None:
                 self._shapes.move_to_end(key)
         if shape is None:
             out = eager()
             with self._lock:
-                self._check_state(index)  # the call may have built tables
                 if key not in self._shapes:
                     self._shapes[key] = _Shape(out)
                     while len(self._shapes) > SLOTS:

@@ -55,11 +55,9 @@ from ..models.kmeans import (
     run_kmeans_lloyd_sampled,
     run_kmeans_mini_batch,
 )
-from ..ops.block_stream import build_stream_table, pick_chunk
-from ..ops.distance import assign_spill_chunked, sq_norms
-from ..ops.flat_sweep import quantize_table_int8
-from ..ops.gather import candidate_budget
-from ..storage.layout import ALIGN, PostingLayout, build_layout
+from ..ops.block_stream import pick_chunk
+from ..ops.distance import assign_spill_chunked
+from ..storage.layout import PostingLayout, build_layout
 from ..storage.vector_store import VectorStore
 from ..utils.heuristics import (
     calculate_max_iterations,
@@ -79,6 +77,7 @@ from .dispatch import (
 )
 from .graphs import SearchGraphs
 from .staged import staged_search
+from .tables import DeviceTables
 
 log = logging.getLogger("vector_indexer_tpu_torch")
 
@@ -112,30 +111,15 @@ class IvfIndex:
         # Host mirror of the corpus in internal-id order (persistence reads
         # it instead of copying the table back from the device).
         self._host_data: Optional[np.ndarray] = None
-        self._dev = None
         # Stream-table type of method 'stream' (bf16 halves the sweep's
-        # bytes; an offloaded index serves int8) and the tables built so
-        # far, by type (the exact methods build an f32 one).
+        # bytes; an offloaded index serves int8).
         self.stream_dtype = torch.bfloat16
-        self._stream_tables: dict = {}
-        self._runs = None
-        self._perm_inv = None
-        self._perm_dev = None
-        self._ext_dev = None
-        # Per-layout caches: the int8 sweep tables, the device list
-        # starts/lengths and the gather budgets, each (layout, value).
-        self._sweep_q = None
-        self._lists = None
-        self._budgets = None
+        # Every table derived from the layout, read through ``tables()``.
+        self._tables: Optional[DeviceTables] = None
         # Larger-than-device mode (index/offload.py): f32 table freed, a
-        # compact stream table serves; the shortlist re-rank mode, the
-        # freed table's row count, the correction table ('device') and the
-        # host mirror's norms ('host').
+        # compact stream table serves; the shortlist re-rank mode.
         self.offloaded = False
         self._offload_rerank = "host"
-        self._n_pad = 0
-        self._corr_table = None
-        self._host_norms = None
         # Captured CUDA graphs of repeated search_batch shapes.
         self._graphs = SearchGraphs()
 
@@ -323,35 +307,32 @@ class IvfIndex:
     def num_clusters(self) -> int:
         return self.centroids.shape[0]
 
-    def _device_tables(self):
-        if self._dev is None:
-            c = torch.as_tensor(self.centroids, dtype=torch.float32, device=self.device)
-            self._dev = (c, sq_norms(c))
-        return self._dev
+    def tables(self) -> DeviceTables:
+        """The owner of the tables derived from the layout: a new one once
+        the layout, the centroids or the id column is a new object."""
+        t = self._tables
+        if (t is None or t.layout is not self.layout or t.centroids is not self.centroids
+                or t.external_ids is not self.external_ids):
+            t = self._tables = DeviceTables(self.layout, self.centroids, self.external_ids,
+                                            self.device)
+        return t
 
-    def _stream_table(self, dtype: Optional[torch.dtype] = None):
-        """Stream table of ``dtype`` (default: ``stream_dtype``), built on
-        first use (a one-time device re-pack of the posting table)."""
-        dtype = self.stream_dtype if dtype is None else dtype
-        if dtype not in self._stream_tables:
-            with trace("stream_table.build", sync=self.device, dtype=str(dtype)):
-                self._stream_tables[dtype] = build_stream_table(
-                    self.layout, self.centroids, dtype
-                )
-        return self._stream_tables[dtype]
+    def _set_tables(self, tables: Optional[DeviceTables]) -> None:
+        """Install ``tables`` (None: anew on next use); the graphs go."""
+        self._graphs.clear()
+        self._tables = tables
 
     def offload_main_table(self, stream_dtype=None, rerank: str = "host") -> None:
         """Larger-than-device serving: free the f32 main table and serve
         from a compact (int8 by default) stream table; ``rerank`` is 'host',
         'device' or 'none' (index/offload.py::offload_main_table)."""
-        self._graphs.clear()
+        self._graphs.clear()  # their memory, before the compact table is built
         _offload.offload_main_table(self, stream_dtype, rerank)
 
     def offload_from_host(self, stream_dtype=None, rerank: str = "host") -> None:
         """Offload entry for host-staged layouts (``load_index_from(...,
         resident='offload')``): the tables are built on the host and only
         they are uploaded (index/offload.py::offload_from_host)."""
-        self._graphs.clear()
         _offload.offload_from_host(self, stream_dtype, rerank)
 
     def to_host_resident(self, stage_dtype=None) -> None:
@@ -372,102 +353,12 @@ class IvfIndex:
         if isinstance(lay.vectors, torch.Tensor):
             lay.vectors = lay.vectors.cpu().numpy()
             lay.row_norms = lay.row_norms.cpu().numpy()
-        # Every device table derived from the layout goes, and the graphs
-        # that read them.
-        self._graphs.clear()
-        self._stream_tables = {}
-        self._runs = self._sweep_q = self._lists = self._budgets = None
-        self._perm_dev = self._ext_dev = self._perm_inv = None
+        self._set_tables(None)  # every device table derived from the layout goes
         if stage_dtype is not None:
             self.stage_dtype = stage_dtype
         self.host_resident = True
         log.info("host-resident mode: %d rows in host memory, the device holds the "
                  "centroids only", lay.vectors.shape[0])
-
-    def _padded_perm(self) -> np.ndarray:
-        """Layout row -> internal id over the table's rows, -1 on gap and
-        tail rows, and one trailing -1: a -1 row (no result) indexes it
-        directly, since torch and numpy wrap negative indices."""
-        lay = self.layout
-        n_pad = lay.vectors.shape[0] if lay.vectors is not None else self._n_pad
-        pd = np.full(n_pad + 1, -1, np.int64)
-        pd[: lay.rows_used] = lay.perm
-        return pd
-
-    def _perm_dev_table(self):
-        """Device map layout row -> internal id (``_padded_perm``), cached
-        per layout object."""
-        lay = self.layout
-        if self._perm_dev is None or self._perm_dev[0] is not lay:
-            self._perm_dev = (lay, torch.as_tensor(self._padded_perm(), device=self.device))
-        return self._perm_dev[1]
-
-    def _ext_dev_table(self):
-        """Device map layout row -> external id as int64 (ids at or above
-        2**63 wrap, as ``internal_to_external``'s cast does), -1 where
-        ``_padded_perm`` holds -1; cached per layout and id column, both of
-        which fit and load replace. ~8 MB per 1M rows."""
-        lay, ext = self.layout, self.external_ids
-        cached = self._ext_dev
-        if cached is None or cached[0] is not lay or cached[1] is not ext:
-            ext_s = np.append(ext.astype(np.int64), -1)  # -1 indexes the trailing -1
-            table = torch.as_tensor(ext_s[self._padded_perm()], device=self.device)
-            self._ext_dev = cached = (lay, ext, table)
-        return cached[2]
-
-    def _run_tables(self):
-        """(block_run, centroids_ord, c_sq_ord): posting runs in layout order
-        with the centroid table reordered to match, and for every 8-row
-        block the index of the last run that starts at or before it."""
-        if self._runs is None:
-            starts = self.layout.offsets[:-1].astype(np.int64)
-            order = np.argsort(starts, kind="stable")
-            run_start_b = starts[order] // ALIGN
-            nb = self.layout.vectors.shape[0] // ALIGN
-            block_run = np.searchsorted(run_start_b, np.arange(nb), side="right") - 1
-            c_ord = torch.as_tensor(
-                self.centroids[order], dtype=torch.float32, device=self.device
-            )
-            self._runs = (
-                torch.as_tensor(block_run, device=self.device),
-                c_ord,
-                sq_norms(c_ord),
-            )
-        return self._runs
-
-    def _sweep_int8_tables(self):
-        """(x8, r8, sx): the fixed-point int8 twin of the layout table for
-        the int8 sweeps ('flat_int8', 'dense_int8' and their x1 variants),
-        quantized on the device once per layout (~2 n d bytes beside the
-        f32 table)."""
-        lay = self.layout
-        if self._sweep_q is None or self._sweep_q[0] is not lay:
-            with trace("sweep_int8_tables.build", sync=self.device):
-                self._sweep_q = (lay, quantize_table_int8(lay.vectors))
-        return self._sweep_q[1]
-
-    def _list_tables(self):
-        """(starts, lengths) of the posting lists as device int64 tensors,
-        cached per layout."""
-        lay = self.layout
-        if self._lists is None or self._lists[0] is not lay:
-            self._lists = (lay, (
-                torch.as_tensor(lay.offsets[:-1].astype(np.int64), device=self.device),
-                torch.as_tensor(lay.lengths.astype(np.int64), device=self.device),
-            ))
-        return self._lists[1]
-
-    def _budget_for(self, n_probe: int) -> int:
-        """Packed-gather budget for n_probe: the sum of the n_probe longest
-        lists (never truncates), on the reference's shape grid; cached per
-        layout."""
-        lay = self.layout
-        if self._budgets is None or self._budgets[0] is not lay:
-            self._budgets = (lay, {})
-        cache = self._budgets[1]
-        if n_probe not in cache:
-            cache[n_probe] = candidate_budget(np.asarray(lay.lengths), n_probe)
-        return cache[n_probe]
 
     def choose_method(self, nq: int, n_probe: int) -> str:
         """Resolve 'auto' for this (nq, n_probe): the dense-vs-stream byte
@@ -528,7 +419,7 @@ class IvfIndex:
             return self._search_rows(queries, k, n_probe, method)
         dv, rows = self._search_rows(queries, (1 + self.spill) * k, n_probe, method)
         with trace("search.select", level=DEBUG):
-            return _offload.dedup_topk(dv, rows, self._perm_dev_table(), k)
+            return _offload.dedup_topk(dv, rows, self.tables().row_internal, k)
 
     def _search_rows(self, queries, k: int, n_probe: int, method: str = "auto"):
         """``search_batch_device`` without the spill dedup: the program's
@@ -547,21 +438,19 @@ class IvfIndex:
         with no arguments that enqueues it."""
         nq = q.shape[0]  # after the reshape: one (d,) query is nq = 1
         n_probe = min(n_probe, self.num_clusters)
-        if self.offloaded:
-            if method == "auto":
-                method = self.choose_method(nq, n_probe)
-            if method not in ("stream", "stream_shared"):
-                raise RuntimeError(
-                    "offloaded index serves the stream kernels only (the f32 main "
-                    "table was freed; the dense and exact paths need it: reload the "
-                    "index to restore them)"
-                )
+        # 'auto' on an offloaded index resolves to a stream kernel.
+        if self.offloaded and method not in ("auto", "stream", "stream_shared"):
+            raise RuntimeError(
+                "offloaded index serves the stream kernels only (the f32 main "
+                "table was freed; the dense and exact paths need it: reload the "
+                "index to restore them)"
+            )
         metric = self.metric if self.metric != "cosine" else "ip"
-        lay = self.layout
+        lay, tables = self.layout, self.tables()
         dec = resolve(self, nq, n_probe, k=k, method=method)
         if dec.program in ("stream", "stream_shared"):
-            centroids, c_sq = self._device_tables()
-            st = self._stream_table(torch.float32 if dec.exact else self.stream_dtype)
+            centroids, c_sq = tables.coarse
+            st = tables.stream(torch.float32 if dec.exact else self.stream_dtype)
             t_fixed, q_tile, t_cap = dec.t_fixed, dec.q_tile, dec.t_cap
             if st.chunk != dec.chunk:
                 # The Decision sizes against the chunk pick_chunk gives; a
@@ -582,8 +471,8 @@ class IvfIndex:
                 rerank_from=(lay.vectors, lay.row_norms) if rerank else None,
             )
         if dec.program in ("gather", "gather_dma"):
-            centroids, c_sq = self._device_tables()
-            starts, lengths = self._list_tables()
+            centroids, c_sq = tables.coarse
+            starts, lengths = tables.lists
             if dec.program == "gather":
                 return partial(
                     programs.gather_program, q, centroids, c_sq, lay.vectors, lay.row_norms,
@@ -601,7 +490,7 @@ class IvfIndex:
         # The fused sweeps read the f32 table, or its int8 twin.
         table, resid, scales = lay.vectors, None, None
         if dec.precision != "highest":
-            table, resid, scales = self._sweep_int8_tables()
+            table, resid, scales = tables.sweep_int8
             resid = resid if dec.precision == "int8" else None
         if dec.program == "flat_fused":
             w, _, c_groups = dec.plan
@@ -609,7 +498,7 @@ class IvfIndex:
                 programs.flat_fused_program, q, table, lay.row_norms, resid, scales, k=k, w=w,
                 c_groups=c_groups, metric=metric, precision=dec.precision,
             )
-        block_run, c_ord, c_sq_ord = self._run_tables()
+        block_run, c_ord, c_sq_ord = tables.runs
         if dec.program == "dense_fused":
             w, _, c_groups = dec.plan
             return partial(
@@ -630,14 +519,6 @@ class IvfIndex:
                 and lay is not None and isinstance(lay.vectors, torch.Tensor)
                 and self.num_clusters > 0)
 
-    def _graph_state(self) -> tuple:
-        """Every table a bound program or the id map reads: a captured
-        graph is valid while each is the same object."""
-        lay = self.layout
-        return (lay, lay.vectors, lay.row_norms, self.external_ids, self._dev, self._runs,
-                self._sweep_q, self._lists, self._perm_dev, self._ext_dev,
-                *self._stream_tables.values())
-
     def _search_ids_device(self, queries, k: int, n_probe: int, method: str,
                            external: bool):
         """``search_batch_device`` with its rows mapped to internal ids, or
@@ -645,7 +526,8 @@ class IvfIndex:
         behind the program, so the host maps nothing after the copy back."""
         dv, rv = self.search_batch_device(queries, k, n_probe, method)
         with trace("search.id_map", level=DEBUG):
-            return dv, (self._ext_dev_table() if external else self._perm_dev_table())[rv]
+            tables = self.tables()
+            return dv, (tables.row_external if external else tables.row_internal)[rv]
 
     def _search_host(self, queries, k: int, n_probe: int, method: str, external: bool):
         """``search_batch``'s eager path on a device-resident index: (D, ids)
@@ -656,17 +538,12 @@ class IvfIndex:
 
     def rows_to_internal(self, rows: np.ndarray) -> np.ndarray:
         """Layout rows -> internal ids (-1 stays -1)."""
-        lay = self.layout
-        bound = max(lay.rows_used - 1, 0)
-        return np.where(rows >= 0, lay.perm[np.clip(rows, 0, bound)], -1).astype(np.int64)
+        return self.tables().padded_perm[np.where(rows >= 0, rows, -1)]
 
     def internal_to_external(self, internal: np.ndarray) -> np.ndarray:
         """Internal ids -> external ids as int64 (-1 stays -1)."""
-        return np.where(
-            internal >= 0,
-            self.external_ids[np.clip(internal, 0, None)].astype(np.int64),
-            -1,
-        )
+        ext = self.external_ids[np.clip(internal, 0, None)].astype(np.int64)
+        return np.where(internal >= 0, ext, -1)
 
     def search_batch(self, queries, k: int, n_probe: int, method: str = "auto",
                      external: bool = False) -> Tuple[np.ndarray, np.ndarray]:
@@ -724,13 +601,7 @@ class IvfIndex:
                 raise RuntimeError("result vectors unavailable: main table offloaded "
                                    "and no host mirror present")
             return np.asarray(self._host_data[internal_id], np.float32)
-        if self._perm_inv is None or self._perm_inv[0] is not lay:
-            size = int(lay.perm.max()) + 1 if lay.n else 0
-            inv = np.full(size, -1, np.int64)
-            real = lay.perm >= 0
-            inv[lay.perm[real]] = np.flatnonzero(real)
-            self._perm_inv = (lay, inv)
-        row = self._perm_inv[1][internal_id]
+        row = self.tables().perm_inv[internal_id]
         if row < 0:
             raise KeyError(f"internal id {internal_id} not present in layout")
         if isinstance(lay.vectors, np.ndarray):  # host-resident

@@ -32,6 +32,7 @@ from ..ops.correction import build_correction_table, build_correction_table_host
 from ..ops.distance import sq_norms
 from ..ops.topk import topk_smallest
 from ..utils.tracing import trace
+from .tables import DeviceTables
 
 log = logging.getLogger("vector_indexer_tpu_torch")
 
@@ -63,7 +64,7 @@ def dedup_topk(dvals, rows, perm_dev, k: int):
     list of layout rows (a spilled index can return a vector from each of
     its cells), keep the first occurrence (the smaller distance) and select
     the top k in distance order. ``perm_dev`` maps layout rows to internal
-    ids (``IvfIndex._perm_dev_table``). A stable sort by id marks each
+    ids (``DeviceTables.row_internal``). A stable sort by id marks each
     id's later occurrences. -> (D (nq, k), layout rows (nq, k)), padded
     +inf / -1."""
     ids = torch.where(rows >= 0, perm_dev[rows.clamp_min(0)], -1)
@@ -130,27 +131,8 @@ def offload_main_table(idx, stream_dtype=None, rerank: str = "host") -> None:
     if not isinstance(idx.layout.vectors, torch.Tensor):
         raise RuntimeError("index is not device-resident; use offload_from_host()")
     dtype = torch.int8 if stream_dtype is None else stream_dtype
-    st = idx._stream_table(dtype)  # built BEFORE its f32 source goes
-    idx._offload_rerank = rerank
-    idx.stream_dtype = dtype
-    # Tables of other types (e.g. the bf16 table of full mode) go too:
-    # offload exists to minimise device residency.
-    idx._stream_tables = {dtype: st}
-    lay = idx.layout
-    idx._n_pad = lay.vectors.shape[0]
-    idx._corr_table = None
-    if rerank == "device":
-        with trace("correction_table.build", sync=idx.device):
-            idx._corr_table = build_correction_table(lay, st)
-    # The stream table's to_main map stays valid (rows identify results);
-    # only the payload arrays are freed.
-    lay.vectors = None
-    lay.row_norms = None
-    idx._runs = None
-    idx._sweep_q = None  # the int8 sweep tables of flat_int8 / dense_int8
-    idx.offloaded = True
-    log.info("offloaded main table: stream dtype %s, %d MB resident", idx.stream_dtype,
-             st.nbytes >> 20)
+    st = idx.tables().stream(dtype)  # built BEFORE its f32 source goes
+    _install(idx, dtype, st, rerank, "correction_table.build", build_correction_table)
 
 
 def offload_from_host(idx, stream_dtype=None, rerank: str = "host") -> None:
@@ -169,21 +151,26 @@ def offload_from_host(idx, stream_dtype=None, rerank: str = "host") -> None:
     dtype = torch.int8 if stream_dtype is None else stream_dtype
     with trace("stream_table.build_host", sync=idx.device, dtype=str(dtype)):
         st = build_stream_table_host(lay, idx.centroids, dtype, device=idx.device)
+    _install(idx, dtype, st, rerank, "correction_table.build_host", build_correction_table_host)
+
+
+def _install(idx, dtype, st, rerank: str, corr_span: str, build_corr) -> None:
+    """Serve offloaded: a new owner holds only ``st`` and, for 'device', the
+    correction table (offload exists to minimise device residency); then
+    the f32 table goes, while ``st``'s to_main map still names its rows."""
+    lay, corr = idx.layout, None
+    if rerank == "device":
+        with trace(corr_span, sync=idx.device):
+            corr = build_corr(lay, st)
+    idx._set_tables(DeviceTables(lay, idx.centroids, idx.external_ids, idx.device,
+                                 streams={dtype: st}, corr=corr))
     idx._offload_rerank = rerank
     idx.stream_dtype = dtype
-    idx._stream_tables = {dtype: st}
-    idx._n_pad = lay.vectors.shape[0]
-    idx._corr_table = None
-    if rerank == "device":
-        with trace("correction_table.build_host", sync=idx.device):
-            idx._corr_table = build_correction_table_host(lay, st)
     lay.vectors = None
     lay.row_norms = None
-    idx._runs = None
     idx.offloaded = True
     idx.host_resident = False
-    log.info("offloaded (host-built) table: stream dtype %s, %d MB resident",
-             idx.stream_dtype, st.nbytes >> 20)
+    log.info("offloaded: stream dtype %s, %d MB resident", dtype, st.nbytes >> 20)
 
 
 def _shortlist(k: int) -> int:
@@ -240,9 +227,7 @@ def offload_rerank_piece(idx, queries, rows, k: int, spill: int = 0):
     """Host half of the rerank='host' search for one piece of the batch:
     exact f32 distances of the device shortlist from the host mirror, then
     the top k (without repeated ids when ``spill``)."""
-    lay = idx.layout
-    bound = max(lay.rows_used - 1, 0)
-    internal = np.where(rows >= 0, lay.perm[np.clip(rows, 0, bound)], -1)
+    internal = idx.rows_to_internal(rows)
     q = queries
     if idx.metric == "cosine":
         q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
@@ -250,13 +235,9 @@ def offload_rerank_piece(idx, queries, rows, k: int, spill: int = 0):
     # One batched matmul streams the gathered block once.
     cross = np.matmul(cand, q[:, :, None])[..., 0]
     if idx.metric == "l2":
-        if idx._host_norms is None:
-            hd = idx._host_data
-            idx._host_norms = np.einsum("ij,ij->i", hd, hd)
+        norms = idx.tables().host_norms(idx._host_data)
         exact = np.maximum(
-            (q * q).sum(1)[:, None] - 2.0 * cross + idx._host_norms[np.maximum(internal, 0)],
-            0.0,
-        )
+            (q * q).sum(1)[:, None] - 2.0 * cross + norms[np.maximum(internal, 0)], 0.0)
     else:
         exact = -cross
     if spill:
@@ -319,7 +300,7 @@ def search_offloaded_device(idx, queries, k: int, n_probe: int, method: str = "a
     """rerank='device': the widened shortlist from the device sweep,
     re-ranked on the device against the two-layer reconstruction (and
     de-duplicated when spilled); rows map
-    to internal ids on the device too (``_perm_dev_table``), so one small
+    to internal ids on the device too (``DeviceTables.row_internal``), so one small
     copy reaches the host."""
     q = idx._queries_on_device(queries)
     nq, d = q.shape
@@ -330,10 +311,11 @@ def search_offloaded_device(idx, queries, k: int, n_probe: int, method: str = "a
     # A query tile bounding the (rr, kk, d) f32 reconstruction to ~128 MB.
     rr = min(nq, max(1, (1 << 25) // max(kk * d, 1)))
     metric = idx.metric if idx.metric != "cosine" else "ip"
-    perm = idx._perm_dev_table()
+    tables = idx.tables()
+    perm = tables.row_internal
     dv, rsel = _corrected_rerank_program(
-        q, rows, idx._stream_tables[idx.stream_dtype], idx._corr_table,
+        q, rows, tables.streams[idx.stream_dtype], tables.corr,
         perm if idx.spill else None, k=k, metric=metric, rr_tile=rr,
     )
-    internal = torch.where(rsel >= 0, perm[rsel.clamp_min(0)], -1)
+    internal = perm[rsel]  # -1 (no result) reads the table's trailing -1
     return dv.cpu().numpy(), internal.cpu().numpy()

@@ -166,7 +166,7 @@ def staged_search(idx, queries, k: int, n_probe: int):
     kk = (1 + idx.spill) * (k if wide == 1 else min(max(wide * k, 32 * wide), 4096))
 
     dev = idx.device
-    centroids, c_sq = idx._device_tables()
+    centroids, c_sq = idx.tables().coarse
     q_dev = torch.as_tensor(q, device=dev)
     with trace("staged.coarse", nq=nq, n_probe=n_probe):
         probed = _coarse_probe_mask(q_dev, centroids, c_sq, n_probe).any(dim=0)
@@ -244,8 +244,7 @@ def staged_search(idx, queries, k: int, n_probe: int):
     staged_to_orig = np.full(r_pad, -1, np.int64)
     staged_to_orig[:r_used] = rows_idx
     orig_rows = np.where(rows >= 0, staged_to_orig[np.clip(rows, 0, r_pad - 1)], -1)
-    bound = max(lay.rows_used - 1, 0)
-    internal = np.where(orig_rows >= 0, lay.perm[np.clip(orig_rows, 0, bound)], -1)
+    internal = idx.rows_to_internal(orig_rows)
     dv = np.where(internal >= 0, dv, np.inf).astype(np.float32)
     if wide > 1:
         # Approximate device ranking: exact re-rank of the shortlist from

@@ -51,9 +51,10 @@ import numpy as np
 import torch
 
 from ..index import programs
-from ..index.dispatch import choose_sweep_body, pick_q_tile, stream_itemsize
+from ..index.dispatch import (choose_sweep_body, fused_sweep_fits, pick_q_tile,
+                              stream_itemsize, stream_q_tile)
 from ..index.offload import host_dedup_topk
-from ..ops.block_stream import FAN, SMEM_TASK_CAP, StreamTable, pick_chunk
+from ..ops.block_stream import FAN, StreamTable, pick_chunk
 from ..ops.distance import sq_norms
 from ..ops.flat_sweep import plan_fused
 from ..ops.gather import quantize_up
@@ -660,10 +661,9 @@ class _SlicedSearcher:
             self._stream_tables()
             chunk = next(iter(self._slices.values())).stream.chunk
             t_fixed = stream_slots(self._host_tables.local_lengths, probe_bound, chunk)
-            q_tile = max(8, min(256, (SMEM_TASK_CAP // max(t_fixed, 1)) // 8 * 8))
-            q_tile = min(q_tile, _round_up(nq_local, 8))
+            q_tile = min(stream_q_tile(t_fixed), _round_up(nq_local, 8))
             stream_args = (t_fixed, q_tile, self.index.stream_dtype == torch.int8)
-        elif method == "dense_fused" and d % 128 == 0:
+        elif method == "dense_fused" and fused_sweep_fits(d):
             # The single-device gate; no plan -> the plain dense body.
             plan = plan_fused(self._host_tables.local_vecs.shape[1], d, nq_local, kk)
         return n_probe, probe_bound, method, plan, stream_args
