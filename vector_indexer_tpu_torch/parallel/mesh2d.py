@@ -55,14 +55,17 @@ class Sharded2DSearcher(_SlicedSearcher):
         slices = [(qi, q[qi * per : (qi + 1) * per]) for qi in range(Q)]
         slices = [(qi, qs) for qi, qs in slices if len(qs)]
         jobs = [(s, self.grid[qi, s], qs) for qi, qs in slices for s in range(S)]
-        outs = self.run(jobs, kk, n_probe, per)
-        results, moved = [], 0
-        for n, (qi, _) in enumerate(slices):
-            parts = [(dv, rows, torch.full_like(rows, s))
-                     for s, (dv, rows) in enumerate(outs[n * S : (n + 1) * S])]
-            res, b = merge(parts, kk, self.grid[qi, 0])
-            results.append(res)
-            moved += b
-        self.last_merge_bytes = {"shards": moved}
-        D, rows, owner = (torch.cat([r[i].cpu() for r in results]) for i in range(3))
-        return self.finish(D, rows, owner, k)
+
+        def reduce(outs):
+            results, moved = [], 0
+            for n, (qi, _) in enumerate(slices):
+                parts = [(dv, rows, torch.full_like(rows, s))
+                         for s, (dv, rows) in enumerate(outs[n * S : (n + 1) * S])]
+                res, b = merge(parts, kk, self.grid[qi, 0])
+                results.append(res)
+                moved += b
+            self.last_merge_bytes = {"shards": moved}
+            D, rows, owner = (torch.cat([r[i].cpu() for r in results]) for i in range(3))
+            return self.finish(D, rows, owner, k)
+
+        return self._graphs.search(self, jobs, kk, n_probe, per, reduce)

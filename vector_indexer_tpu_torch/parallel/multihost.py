@@ -77,9 +77,13 @@ class MultiHostSearcher(_SlicedSearcher):
         q = normalize_queries(self.index, queries)
         kk = (1 + getattr(self.index, "spill", 0)) * k
         H, S = self.grid.shape
-        outs = self.run([(h * S + s, self.grid[h, s], q) for h in range(H) for s in range(S)],
-                        kk, n_probe, q.shape[0])
-        (D, rows, owner), b1, b2 = hier_merge(
-            [outs[h * S : (h + 1) * S] for h in range(H)], kk, self.grid)
-        self.last_merge_bytes = {"shards": b1, "hosts": b2}
-        return self.finish(D, rows, owner, k)
+
+        def reduce(outs):
+            (D, rows, owner), b1, b2 = hier_merge(
+                [outs[h * S : (h + 1) * S] for h in range(H)], kk, self.grid)
+            self.last_merge_bytes = {"shards": b1, "hosts": b2}
+            return self.finish(D, rows, owner, k)
+
+        return self._graphs.search(
+            self, [(h * S + s, self.grid[h, s], q) for h in range(H) for s in range(S)], kk,
+            n_probe, q.shape[0], reduce)

@@ -32,11 +32,12 @@ The per-device loop only enqueues work (no size read, ``.item()`` or copy
 to the host), so distinct cards run their bodies at the same time; the
 results reach the host once, after the merge. Each body runs with its
 card as the current CUDA device (the kernels launch on the current one).
-Layout rows map to internal ids on the host, and the 1-D searcher's to
-external ids; a spilled index searches (1+spill)k wide and drops repeated
-ids there (``offload.host_dedup_topk``). While spans record, each call adds
-the rows of the cells each device probes to the counter
-``sharded.probed_rows.<slice>``, on that device.
+A repeated call shape replays each card's body as one captured CUDA graph
+(``parallel/graphs.py``). Layout rows map to internal ids on the host, and
+the 1-D searcher's to external ids; a spilled index searches (1+spill)k wide
+and drops repeated ids there (``offload.host_dedup_topk``). While spans
+record, each call adds the rows of the cells each device probes to the
+counter ``sharded.probed_rows.<slice>``, on that device.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ from ..ops.gather import quantize_up
 from ..storage.layout import ALIGN, SENTINEL_NORM, SENTINEL_THRESHOLD
 from ..utils import tracing
 from ..utils.tracing import trace
+from .graphs import ShardGraphs
 from .mesh import Mesh
 
 METHODS = ("auto", "dense", "dense_fused", "stream")
@@ -533,28 +535,30 @@ class DeviceSlice:
         self.counter = f"sharded.probed_rows.{j}"
         self.stream: Optional[StreamTable] = None
 
-    def coarse(self, qt, n_probe: int):
+    def coarse(self, qt, n_probe: int, probed=None):
         """(local coarse distances (q, kc_local), global threshold (q, 1)):
         L2 to every centroid (coarse probing is always L2), the n_probe-th
         smallest, and this device's cells' columns of the same matrix (so
-        the local test reads the very values the threshold came from)."""
+        the local test reads the very values the threshold came from).
+        ``probed`` (a float64 scalar on the device), where given, takes the
+        rows of the cells this device probes."""
         dg = sq_norms(qt)[:, None] - 2.0 * torch.matmul(qt, self.cents.T) + self.c_sq[None, :]
         thresh = torch.kthvalue(dg, n_probe, dim=1, keepdim=True).values
         inf = torch.full((qt.shape[0], 1), float("inf"), device=qt.device)
         dl = torch.cat([dg, inf], dim=1)[:, self.cid]
-        if tracing.recording_now():  # the rows of the cells this device probes
-            tracing.count(self.counter, torch.where(dl <= thresh, self.lengths, 0.0))
+        if probed is not None:
+            probed.add_(torch.where(dl <= thresh, self.lengths, 0.0).sum())
         return dl, thresh
 
     def search(self, q, kk: int, n_probe: int, probe_bound: int, method: str, metric: str,
-               plan=None, stream_args=None):
+               plan=None, stream_args=None, probed=None):
         """This slice's (D (nq, kk), local rows (nq, kk) int32) for the
         queries ``q`` already on ``dev``: +inf / -1 where there is no
-        result. Only enqueues device work."""
+        result; ``probed`` as in ``coarse``. Only enqueues device work."""
         nq, d = q.shape
 
         def probe_sets(qt):
-            dl, thresh = self.coarse(qt, n_probe)
+            dl, thresh = self.coarse(qt, n_probe, probed)
             return dl <= thresh, torch.argmin(dl, dim=1)
 
         if method == "stream":
@@ -562,7 +566,7 @@ class DeviceSlice:
             pb_l = min(probe_bound, self.kc_local)
 
             def probe_fn(qt):
-                dl, thresh = self.coarse(qt, n_probe)
+                dl, thresh = self.coarse(qt, n_probe, probed)
                 pv, ploc = torch.topk(dl, pb_l, dim=1, largest=False, sorted=True)
                 return torch.where(pv <= thresh, ploc, self.kc_local)
 
@@ -608,7 +612,8 @@ def merge(parts, k: int, root: torch.device):
 class _SlicedSearcher:
     """What the 1-D, 2-D and multi-host searchers share: the local tables
     of ``n_slices`` slices, one ``DeviceSlice`` per (device, slice) pair
-    that holds it, the lazy stream tables, and the per-call parameters."""
+    that holds it, the lazy stream tables, the per-call parameters, and the
+    graphs of repeated call shapes (``_graphs``)."""
 
     def __init__(self, index, n_slices: int, placement, method: str):
         """``placement``: a list of (slice j, device) pairs."""
@@ -626,10 +631,15 @@ class _SlicedSearcher:
         built = on_each([dev for _, dev in pairs],
                         lambda i: DeviceSlice(index, t, pairs[i][0], pairs[i][1]))
         self._slices = dict(zip(pairs, built))
+        self._graphs = ShardGraphs()
 
     def _stream_tables(self) -> None:
-        if any(sl.stream is None for sl in self._slices.values()):
-            t, dtype = self._host_tables, self.index.stream_dtype
+        """Build each slice's stream table in the index's ``stream_dtype``
+        where it has none, or one of another dtype."""
+        dtype = self.index.stream_dtype
+        if any(sl.stream is None or sl.stream.vecs.dtype != dtype
+               for sl in self._slices.values()):
+            t = self._host_tables
             chunk, m_pad = stream_shape(t, dtype)
             pairs = list(self._slices)
 
@@ -673,11 +683,22 @@ class _SlicedSearcher:
         """Ranking metric (cosine is ip over unit vectors)."""
         return self.index.metric if self.index.metric != "cosine" else "ip"
 
+    def search_job(self, j: int, dev: torch.device, qd, kk: int, params, probed=None):
+        """Slice ``j``'s (D, rows) on ``dev`` for the queries ``qd`` there,
+        with ``params`` (``params()``'s tuple) and ``probed`` as in
+        ``DeviceSlice.search``."""
+        n_probe, probe_bound, method, plan, stream_args = params
+        with on_device(dev):
+            return self._slices[(j, dev)].search(qd, kk, n_probe, probe_bound, method,
+                                                 self.metric, plan, stream_args, probed)
+
     def run(self, jobs, kk: int, n_probe: int, nq_local: int):
         """Run ``jobs`` = [(slice j, device, queries numpy)] -> [(D, rows)]
-        on each job's device, all enqueued before any result is read."""
-        n_probe, probe_bound, method, plan, stream_args = self.params(nq_local, kk, n_probe)
-        self.last_method = method
+        on each job's device, all enqueued before any result is read: the
+        eager call, which the graphs replace for a repeated shape
+        (``ShardGraphs.search``)."""
+        params = self.params(nq_local, kk, n_probe)
+        self.last_method = params[2]
         # The queries go to the cards from pinned memory (a copy from
         # pageable memory would synchronise inside the loop).
         pin = any(dev.type == "cuda" for _, dev, _ in jobs)
@@ -687,12 +708,16 @@ class _SlicedSearcher:
                 t = torch.tensor(q)  # a copy: the caller's array may be read-only
                 host[id(q)] = t.pin_memory() if pin else t
         out = []
+        recording = tracing.recording_now()
         with trace("sharded.enqueue", level=DEBUG):
             for j, dev, q in jobs:
                 with on_device(dev):
                     qd = host[id(q)].to(dev, non_blocking=True)
-                    out.append(self._slices[(j, dev)].search(
-                        qd, kk, n_probe, probe_bound, method, self.metric, plan, stream_args))
+                    probed = (torch.zeros((), dtype=torch.float64, device=dev) if recording
+                              else None)
+                    out.append(self.search_job(j, dev, qd, kk, params, probed))
+                    if recording:
+                        tracing.count(self._slices[(j, dev)].counter, probed)
         return out
 
     def finish(self, D, rows, owner, k: int,
@@ -753,10 +778,14 @@ class ShardedSearcher(_SlicedSearcher):
             _check_k(k, n_probe)
             q = normalize_queries(self.index, queries)
             kk = (1 + getattr(self.index, "spill", 0)) * k
-            outs = self.run([(j, dev, q) for j, dev in enumerate(self.devices)], kk, n_probe,
-                            q.shape[0])
-            with trace("sharded.merge", level=DEBUG):
-                parts = [(dv, rows, torch.full_like(rows, j)) for j, (dv, rows) in enumerate(outs)]
-                (D, rows, owner), moved = merge(parts, kk, self.devices[0])
-            self.last_merge_bytes = {"shards": moved}
-            return self.finish(D, rows, owner, k, external=True)
+
+            def reduce(outs):
+                with trace("sharded.merge", level=DEBUG):
+                    parts = [(dv, rows, torch.full_like(rows, j))
+                             for j, (dv, rows) in enumerate(outs)]
+                    (D, rows, owner), moved = merge(parts, kk, self.devices[0])
+                self.last_merge_bytes = {"shards": moved}
+                return self.finish(D, rows, owner, k, external=True)
+
+            return self._graphs.search(self, [(j, dev, q) for j, dev in enumerate(self.devices)],
+                                       kk, n_probe, q.shape[0], reduce)
