@@ -2785,7 +2785,7 @@ def cpu_twin(torch, idx):
     tw._tables = DeviceTables(
         tw.layout, tw.centroids, tw.external_ids, tw.device, rows=tables.rows,
         streams={dt: to_cpu(st) for dt, st in tables.streams.items()},
-        corr=to_cpu(tables.corr))
+        corr=to_cpu(tables.corr), host_norms=tables.host_norms)
     tw._graphs = SearchGraphs()  # the card index's graphs stay its own
     return tw
 

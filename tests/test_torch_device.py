@@ -9,7 +9,7 @@ import torch
 from vector_indexer_tpu_torch import bindings
 from vector_indexer_tpu_torch.device import resolve_device
 from vector_indexer_tpu_torch.index.ivf import IvfIndex
-from vector_indexer_tpu_torch.ops.block_stream import build_stream_table_host
+from vector_indexer_tpu_torch.ops.block_stream import build_stream_table_from_rows
 
 
 @pytest.fixture
@@ -49,7 +49,9 @@ def test_entry_points_default_to_the_card(no_card, tmp_path):
 
 
 def test_host_stream_table_defaults_to_the_card(no_card):
-    """build_stream_table_host resolves its device like every entry point
-    (the layout is never touched before the device is known)."""
+    """The stream table's build from a host layout's rows
+    (``build_stream_table_from_rows``) resolves its device like every entry
+    point (the layout and its rows are never touched before the device is
+    known)."""
     with pytest.raises(RuntimeError, match="CUDA"):
-        build_stream_table_host(layout=None, centroids=None)
+        build_stream_table_from_rows(layout=None, centroids=None, row_chunks=None)

@@ -97,6 +97,7 @@ class _Core:
         self.layout.lengths = np.asarray(lengths, np.int32)
         self.layout.n = int(np.sum(lengths)) if n is None else n
         self.layout.vectors = torch.empty((int(np.sum(lengths) * 1.05) + 8, 0))
+        self.layout.table_shape = tuple(self.layout.vectors.shape)
         self.num_clusters = len(lengths)
         self.stream_dtype = torch.bfloat16
         self.offloaded = False

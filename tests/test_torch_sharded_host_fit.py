@@ -23,6 +23,8 @@ from vector_indexer_tpu_torch.models import kmeans  # noqa: E402
 from vector_indexer_tpu_torch.parallel import Mesh, ShardedSearcher  # noqa: E402
 from vector_indexer_tpu_torch.parallel import dp_kmeans  # noqa: E402
 from vector_indexer_tpu_torch.parallel import sharded as tsh  # noqa: E402
+from vector_indexer_tpu_torch.storage import staging  # noqa: E402
+from vector_indexer_tpu_torch.storage.layout import PostingLayout  # noqa: E402
 from vector_indexer_tpu_torch.storage.vector_store import VectorStore  # noqa: E402
 from vector_indexer_tpu_torch.utils import tracing  # noqa: E402
 
@@ -189,6 +191,23 @@ def test_sharded_answers_are_the_reference_top_k(built, method, n_probe):
         assert np.mean([len(set(a) & set(b)) for a, b in zip(I.tolist(), want.tolist())]) > 9
 
 
+@pytest.mark.parametrize("method", ["dense", "stream"])
+def test_sharded_serving_never_gathers_a_host_table(built, monkeypatch, method):
+    """Each slice reads its rows from the corpus by the host layout's row
+    map: the 2 x corpus-sized table is never made, and the answers are those
+    of an index whose table was made."""
+    xb, xq, ids, made = built
+    assert isinstance(made.layout.vectors, np.ndarray)  # made: the first read gathers it
+    idx = fit_host_mesh(xb, ids=ids)
+    assert idx.layout._pending is not None
+    monkeypatch.setattr(PostingLayout, "_make_table",
+                        lambda self: pytest.fail("the host table was gathered"))
+    D, I = ShardedSearcher(idx, mesh4(), method=method).search_batch(xq, 10, 6)
+    want_d, want_i = ShardedSearcher(made, mesh4(), method=method).search_batch(xq, 10, 6)
+    np.testing.assert_array_equal(I, want_i)
+    np.testing.assert_array_equal(D, want_d)
+
+
 def test_sharded_ids_are_the_host_resident_index_s(built):
     """The host-resident index's own (staged) search maps its rows to the
     same external ids."""
@@ -268,11 +287,12 @@ def test_staged_copy_equals_the_direct_copy(built, monkeypatch, stage_rows):
     than a run, than a cell, and larger than the slice."""
     _, _, _, idx = built
     t = tsh.plan_local_tables(idx, 4)
-    monkeypatch.setattr(tsh, "_STAGE_BYTES", stage_rows * 4 * D)
+    monkeypatch.setattr(staging, "STAGE_BYTES", stage_rows * 4 * D)
     for j in range(4):
         direct, _ = tsh.pack_rows(idx, t, j, CPU)
         staged = torch.zeros_like(direct)
-        tsh._staged_copy(staged, t.runs[j], lambda lo, hi: tsh._layout_rows(idx, lo, hi))
+        tsh._staged_copy(staged, t.runs[j],
+                         lambda lo, hi, out: tsh._layout_rows(idx, lo, hi, out))
         assert torch.equal(staged, direct)
 
 

@@ -112,8 +112,9 @@ class VectorIndexer:
     @classmethod
     def load(cls, cfg: VectorIndexerConfig, resident: str = "device",
              offload_rerank: str = "host") -> "VectorIndexer":
-        """``resident='offload'`` uploads only a host-quantized int8 stream
-        table, for serving f32 tables larger than device memory;
+        """``resident='offload'`` keeps only an int8 stream table on the
+        device, built there from staged host rows, for serving f32 tables
+        larger than device memory;
         ``offload_rerank`` ('host', 'device' or 'none') picks how its
         shortlist is re-ranked (index/offload.py). ``resident='host'``
         keeps the layout in host memory and stages each batch's probed

@@ -150,8 +150,8 @@ def build(xb: np.ndarray, work_dir: Optional[str] = None, metric: str = "l2",
 def load(index_dir: str, shards_dir: str, dim: int, resident: str = "device",
          device=None) -> VectorIndex:
     """Load a saved index onto ``device``. ``resident='offload'`` serves
-    f32 tables larger than device memory from a host-quantized int8 stream
-    table with an exact host re-rank (see IvfIndex.offload_from_host);
+    f32 tables larger than device memory from an int8 stream table built on
+    the device from staged host rows, with an exact host re-rank (see IvfIndex.offload_from_host);
     ``resident='host'`` serves method 'staged' from host memory (see
     index/staged.py)."""
     cfg = (

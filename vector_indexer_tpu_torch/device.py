@@ -10,6 +10,7 @@ measurement. The CPU is used only when the caller asks for it.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
@@ -30,3 +31,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device type: {dev.type}")
     return dev
+
+
+def on_device(dev: torch.device):
+    """Make ``dev`` the current CUDA device (a no-op for the CPU)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()

@@ -330,9 +330,10 @@ class IvfIndex:
         _offload.offload_main_table(self, stream_dtype, rerank)
 
     def offload_from_host(self, stream_dtype=None, rerank: str = "host") -> None:
-        """Offload entry for host-staged layouts (``load_index_from(...,
-        resident='offload')``): the tables are built on the host and only
-        they are uploaded (index/offload.py::offload_from_host)."""
+        """Offload entry for host layouts (a host fit, ``load_index_from(...,
+        resident='offload')``): the rows pass through the device a staging
+        buffer at a time and only the compact tables stay there
+        (index/offload.py::offload_from_host)."""
         _offload.offload_from_host(self, stream_dtype, rerank)
 
     def to_host_resident(self, stage_dtype=None) -> None:
@@ -358,7 +359,7 @@ class IvfIndex:
             self.stage_dtype = stage_dtype
         self.host_resident = True
         log.info("host-resident mode: %d rows in host memory, the device holds the "
-                 "centroids only", lay.vectors.shape[0])
+                 "centroids only", lay.table_shape[0])
 
     def choose_method(self, nq: int, n_probe: int) -> str:
         """Resolve 'auto' for this (nq, n_probe): the dense-vs-stream byte
@@ -382,7 +383,7 @@ class IvfIndex:
                 return "stream_shared"
             return "stream"
         return choose_sweep_body(
-            lengths, self.layout.vectors.shape[0], self.dimension,
+            lengths, self.layout.table_shape[0], self.dimension,
             itemsize, nq, n_probe, chunk, allow_shared=True,
         )
 
@@ -627,8 +628,8 @@ def load_index_from(index_dir, shards_dir=None, resident: str = "device",
                     device: DeviceLike = None, offload_rerank: str = "host") -> IvfIndex:
     """Load index metadata (+ the posting layout from shard files when
     ``shards_dir`` is given) onto ``device``. ``resident='offload'`` builds
-    an int8 stream table on the host and uploads only it (the f32 table
-    never reaches the device); ``offload_rerank`` is then 'host', 'device'
+    an int8 stream table on the device from staged host rows and keeps only
+    it (the f32 table never stays on the device); ``offload_rerank`` is then 'host', 'device'
     or 'none' (index/offload.py). ``resident='host'`` keeps the layout in
     host memory and serves by per-batch staging (index/staged.py)."""
     from ..storage import persist

@@ -4,9 +4,10 @@ shortlist epilogues that spilled indexes share.
 Port of ``vector_indexer_tpu/index/offload.py``:
 
 * the mode's entry points: ``offload_main_table`` (a device-resident index
-  frees its f32 table) and ``offload_from_host`` (a host-staged load
-  quantizes on the host and uploads only the compact tables, so the f32
-  corpus never reaches the device);
+  frees its f32 table) and ``offload_from_host`` (a host layout's rows go
+  to the device a chunk at a time through pinned staging, which builds the
+  compact table from them and keeps only it, so the f32 corpus never
+  stays on the device);
 * the three re-ranks of the widened shortlist that the int8 stream sweep
   (kernels K2/K4, or K5 at huge probed footprints) selects: 'host' (exact,
   from the host mirror), 'device' (against the two-layer int8
@@ -23,14 +24,18 @@ device memory : host RAM in the role of RAM : disk.
 from __future__ import annotations
 
 import logging
+from logging import DEBUG
 
 import numpy as np
 import torch
 
-from ..ops.block_stream import build_stream_table_host
+from ..device import on_device
+from ..ops.block_stream import build_stream_table_from_rows
 from ..ops.correction import build_correction_table, build_correction_table_host
 from ..ops.distance import sq_norms
 from ..ops.topk import topk_smallest
+from ..storage.staging import staged_rows
+from ..utils import tracing
 from ..utils.tracing import trace
 from .tables import DeviceTables
 
@@ -132,38 +137,62 @@ def offload_main_table(idx, stream_dtype=None, rerank: str = "host") -> None:
         raise RuntimeError("index is not device-resident; use offload_from_host()")
     dtype = torch.int8 if stream_dtype is None else stream_dtype
     st = idx.tables().stream(dtype)  # built BEFORE its f32 source goes
-    _install(idx, dtype, st, rerank, "correction_table.build", build_correction_table)
+    lay = idx.layout
+    norms = _by_internal(idx, lay.row_norms[: lay.rows_used]) if rerank == "host" else None
+    _install(idx, dtype, st, rerank, "correction_table.build", build_correction_table, norms)
 
 
 def offload_from_host(idx, stream_dtype=None, rerank: str = "host") -> None:
-    """Enter offload serving from a HOST-staged layout
-    (``load_index_from(..., resident='offload')``): the stream table (and,
-    for rerank='device', the correction table) is built on the host and
-    uploaded alone, so the f32 main table never reaches the device. Same
+    """Enter offload serving from a HOST layout (a host fit, or
+    ``load_index_from(..., resident='offload')``): the layout's rows go to
+    the device a staging buffer at a time, which builds the stream table
+    from them (``build_stream_table_from_rows``) and keeps only it, so the
+    f32 table never stays on the device, and a host layout not yet gathered
+    (``PostingLayout.rows_into``) is never gathered. The same pass gives
+    the rows' norms that rerank='host' reads. rerank='device' builds its
+    correction table on the host (``build_correction_table_host``). Same
     serving semantics as ``offload_main_table``."""
     _check(idx, rerank)
     lay = idx.layout
-    if isinstance(lay.vectors, torch.Tensor):
+    if not lay.on_host:
         raise RuntimeError(
             "layout is device-resident; use offload_main_table() "
             "(offload_from_host is for host-staged layouts)"
         )
     dtype = torch.int8 if stream_dtype is None else stream_dtype
-    with trace("stream_table.build_host", sync=idx.device, dtype=str(dtype)):
-        st = build_stream_table_host(lay, idx.centroids, dtype, device=idx.device)
-    _install(idx, dtype, st, rerank, "correction_table.build_host", build_correction_table_host)
+    dev = idx.device
+    with trace("offload.table", sync=dev, dtype=str(dtype)), on_device(dev):
+        cuda = dev.type == "cuda"
+        chunks = staged_rows(lay.rows_used, lay.dim, lay.rows_into, cuda)
+        st, row_sq = build_stream_table_from_rows(lay, idx.centroids, chunks, dtype, device=dev)
+        norms = _by_internal(idx, row_sq) if rerank == "host" else None
+    _install(idx, dtype, st, rerank, "correction_table.build_host", build_correction_table_host,
+             norms)
 
 
-def _install(idx, dtype, st, rerank: str, corr_span: str, build_corr) -> None:
-    """Serve offloaded: a new owner holds only ``st`` and, for 'device', the
-    correction table (offload exists to minimise device residency); then
-    the f32 table goes, while ``st``'s to_main map still names its rows."""
+def _by_internal(idx, row_sq: torch.Tensor) -> np.ndarray:
+    """(n,) float32 |x|^2 by internal id, from ``row_sq`` (one a layout row,
+    over the rows in use), copied back once."""
+    sq = row_sq.cpu().numpy()
+    perm = idx.layout.perm
+    real = perm >= 0
+    out = np.zeros(idx._host_data.shape[0], np.float32)
+    out[perm[real]] = sq[real]
+    return out
+
+
+def _install(idx, dtype, st, rerank: str, corr_span: str, build_corr, host_norms) -> None:
+    """Serve offloaded: a new owner holds only ``st``, ``host_norms`` and,
+    for 'device', the correction table (offload exists to minimise device
+    residency); then the f32 table goes, while ``st``'s to_main map still
+    names its rows."""
     lay, corr = idx.layout, None
     if rerank == "device":
         with trace(corr_span, sync=idx.device):
             corr = build_corr(lay, st)
     idx._set_tables(DeviceTables(lay, idx.centroids, idx.external_ids, idx.device,
-                                 streams={dtype: st}, corr=corr))
+                                 rows=lay.table_shape[0], streams={dtype: st}, corr=corr,
+                                 host_norms=host_norms))
     idx._offload_rerank = rerank
     idx.stream_dtype = dtype
     lay.vectors = None
@@ -185,7 +214,11 @@ def search_offloaded(idx, queries, k: int, n_probe: int, method: str = "auto"):
     host waits for the first: each half's rows are copied to pinned host
     memory right behind its sweep, so the host re-ranks half 1 while the
     device sweeps half 2. The method is resolved once, at the full batch
-    size, so the split cannot change the choice."""
+    size, so the split cannot change the choice. Spans: ``offload.sweep``
+    (a half's sweep and its copy back, enqueued), ``offload.wait`` (the
+    host blocked on a half's shortlist), ``offload.rerank`` (a half's host
+    re-rank); the counter ``offload.rerank_rows`` takes the rows gathered
+    from the mirror."""
     queries = np.ascontiguousarray(queries, np.float32)
     if queries.ndim == 1:
         queries = queries[None, :]
@@ -197,10 +230,17 @@ def search_offloaded(idx, queries, k: int, n_probe: int, method: str = "auto"):
     bounds = [(i * nq // pieces, (i + 1) * nq // pieces) for i in range(pieces)]
     pending = []
     for a, b in bounds:
-        _, rows = idx._search_rows(queries[a:b], kk, n_probe, method)
-        pending.append(_copy_to_host(rows))
-    outs = [offload_rerank_piece(idx, queries[a:b], _wait(p), k, idx.spill)
-            for (a, b), p in zip(bounds, pending)]
+        with trace("offload.sweep", level=DEBUG):
+            _, rows = idx._search_rows(queries[a:b], kk, n_probe, method)
+            pending.append(_copy_to_host(rows))
+    outs = []
+    for (a, b), p in zip(bounds, pending):
+        with trace("offload.wait", level=DEBUG):
+            rows = _wait(p)
+        with trace("offload.rerank", level=DEBUG):
+            outs.append(offload_rerank_piece(idx, queries[a:b], rows, k, idx.spill))
+    if tracing.recording_now():
+        tracing.count("offload.rerank_rows", torch.tensor(float(nq * kk)))
     return (np.concatenate([o[0] for o in outs], axis=0),
             np.concatenate([o[1] for o in outs], axis=0))
 
@@ -235,7 +275,7 @@ def offload_rerank_piece(idx, queries, rows, k: int, spill: int = 0):
     # One batched matmul streams the gathered block once.
     cross = np.matmul(cand, q[:, :, None])[..., 0]
     if idx.metric == "l2":
-        norms = idx.tables().host_norms(idx._host_data)
+        norms = idx.tables().host_norms
         exact = np.maximum(
             (q * q).sum(1)[:, None] - 2.0 * cross + norms[np.maximum(internal, 0)], 0.0)
     else:

@@ -35,22 +35,24 @@ class _once:
 class DeviceTables:
     """The tables derived from one (layout, centroids, external_ids) on
     ``device``. ``rows`` is the table's padded row count, which an
-    offloaded index keeps after freeing the table; ``streams`` and
-    ``corr`` take what offload built before it freed it."""
+    offloaded index keeps after freeing the table; ``streams``, ``corr``
+    and ``host_norms`` take what offload built before it freed it."""
 
     def __init__(self, layout, centroids: np.ndarray, external_ids: np.ndarray,
                  device: torch.device, *, rows: Optional[int] = None,
-                 streams: Optional[dict] = None, corr=None):
+                 streams: Optional[dict] = None, corr=None,
+                 host_norms: Optional[np.ndarray] = None):
         self.layout = layout
         self.centroids = centroids
         self.external_ids = external_ids
         self.device = device
-        self.rows = layout.vectors.shape[0] if rows is None else rows
+        self.rows = layout.table_shape[0] if rows is None else rows
         # Stream tables by type (bf16 serves 'stream', f32 the exact methods)
         self.streams = dict(streams or {})
         self.corr = corr  # the correction table of an offloaded rerank='device' index
+        # |x|^2 (f32) of every internal id, for an offloaded rerank='host' index
+        self.host_norms = host_norms
         self.gather_budgets: dict = {}  # n_probe -> budget
-        self._host_norms = None
 
     @_once
     def coarse(self):
@@ -132,9 +134,3 @@ class DeviceTables:
         real = np.flatnonzero(pd >= 0)
         inv[pd[real]] = real
         return inv
-
-    def host_norms(self, host_data: np.ndarray) -> np.ndarray:
-        """|x|^2 of every row of the host mirror (offloaded rerank='host')."""
-        if self._host_norms is None:
-            self._host_norms = np.einsum("ij,ij->i", host_data, host_data)
-        return self._host_norms

@@ -52,6 +52,9 @@ FUSED_STREAM_MIN_ROWS = 12 << 10  # probed rows/query where K4 engages
 _TARGET_BLOCK_BYTES = 128 << 10
 # f32 bytes of one residual tile of a table build (2^19 rows at d 128).
 _TILE_BYTES = 1 << 28
+# f32 bytes of the rows a build from arriving rows converts at a time: its
+# device transient is a few such tiles, far below the f32 table it avoids.
+_ROW_TILE_BYTES = 16 << 20
 
 
 def pick_chunk(lengths_np, d: int, itemsize: int) -> int:
@@ -217,63 +220,84 @@ def build_stream_table(layout, centroids, dtype: torch.dtype = torch.bfloat16,
                   chunk, dev)
 
 
-def build_stream_table_host(layout, centroids, dtype: torch.dtype = torch.int8,
-                            chunk: Optional[int] = None, device=None) -> StreamTable:
-    """Host twin of ``build_stream_table`` for a host-staged layout (numpy
-    ``layout.vectors``, the ``load(..., resident='offload')`` path): the
-    residuals are computed and quantized with numpy and ONLY the compact
-    table is uploaded to ``device``, so the f32 corpus never reaches it.
-    Same math as build_stream_table; the norms differ only by f32
-    summation order. (numpy has no bf16: that cast goes through a CPU
-    tensor.)"""
+def build_stream_table_from_rows(layout, centroids, row_chunks, dtype: torch.dtype = torch.int8,
+                                 chunk: Optional[int] = None, device=None):
+    """``build_stream_table``'s table, built on ``device`` from the layout's
+    rows as they arrive, so that the layout's own table need not be there
+    (a host layout: ``index/offload.py::offload_from_host``).
+    ``row_chunks`` yields (lo, hi, rows) in row order over rows 0:rows_used,
+    ``rows`` the layout's rows lo:hi as a float32 tensor (copied to
+    ``device`` when it is elsewhere, _ROW_TILE_BYTES at a time; it may be
+    reused once the copies are enqueued). Each row arrives once: the rows of the lists a chunk ends
+    inside stay on the device until the chunk that ends them, so that every
+    list is converted whole, int8 lists with one scale max|r| / 127 from
+    their own rows. Codes and scales equal ``build_stream_table``'s on the
+    same layout; the norms differ only by float32 summation order.
+    -> (StreamTable, (rows_used,) float32 |x|^2 of every layout row, on
+    ``device``)."""
     _check_dtype(dtype)
     dev = resolve_device(device)
-    vecs_host = np.asarray(layout.vectors)
-    d = layout.dim
-    main_pad_row = vecs_host.shape[0] - 1
+    n_pad, d = layout.table_shape
+    main_pad_row = n_pad - 1
     chunk, bases, m_pad, to_main, row_cid = _stream_maps(
         layout.lengths, layout.offsets[:-1], d, _itemsize(dtype), main_pad_row, chunk
     )
     kc = len(layout.lengths)
-    cent = np.asarray(centroids, np.float32)
-    real = to_main != main_pad_row
-    R = max(1, _TILE_BYTES // (4 * d))
+    rows_used = layout.rows_used
+    # Lists in placement order (``_stream_maps``'): each one's first layout
+    # row, the most past-the-end row of it and the lists before it (an empty
+    # list may share its start with the next), and the end of its
+    # chunk-rounded region of stream rows.
+    order = np.argsort(layout.offsets[:-1], kind="stable")
+    lengths = layout.lengths.astype(np.int64)[order]
+    first = layout.offsets[:-1].astype(np.int64)[order]
+    past = np.maximum.accumulate(first + lengths) if kc else first
+    region_end = bases[order] + _round_up(lengths, chunk)
 
-    def residual(lo, hi):
-        res = vecs_host[to_main[lo:hi]].astype(np.float32, copy=True)
-        res -= cent[row_cid[lo:hi]]
-        res[~real[lo:hi]] = 0.0
-        return res
+    cent = torch.as_tensor(np.asarray(centroids, np.float32), device=dev)
+    to_main_t = torch.as_tensor(to_main, device=dev)
+    row_cid_t = torch.as_tensor(row_cid, device=dev)
+    vecs = torch.zeros((m_pad, d), dtype=dtype, device=dev)
+    norms = torch.full((m_pad,), _SENTINEL, dtype=torch.float32, device=dev)
+    smax = torch.zeros(kc, dtype=torch.float32, device=dev)
+    row_sq = torch.empty(rows_used, dtype=torch.float32, device=dev)
+    sentinel = torch.tensor(_SENTINEL, device=dev)
+    held, held_lo, done = None, 0, 0  # rows held_lo: of unfinished lists; lists finished
 
-    scales = np.ones(kc, np.float32)
-    if dtype == torch.int8:
-        smax = np.zeros(kc, np.float32)
-        for lo in range(0, m_pad, R):
-            hi = min(lo + R, m_pad)
-            np.maximum.at(smax, row_cid[lo:hi], np.abs(residual(lo, hi)).max(axis=1))
-        scales = np.maximum(smax / np.float32(127.0), np.float32(1e-12))
-    out = torch.empty((m_pad, d), dtype=dtype)
-    norms = np.empty(m_pad, np.float32)
-    for lo in range(0, m_pad, R):
-        hi = min(lo + R, m_pad)
-        res = residual(lo, hi)
-        if dtype == torch.int8:
-            s = scales[row_cid[lo:hi]][:, None]
-            q8 = np.clip(np.round(res / s), -127, 127)
-            out[lo:hi] = torch.from_numpy(q8.astype(np.int8))
-            deq = q8 * s
-        elif dtype == torch.bfloat16:
-            out[lo:hi] = torch.from_numpy(res).to(torch.bfloat16)
-            deq = out[lo:hi].to(torch.float32).numpy()
+    step = max(1, _ROW_TILE_BYTES // (4 * d))
+    tiles = ((a, min(a + step, hi), rows[a - lo: min(a + step, hi) - lo])
+             for lo, hi, rows in row_chunks for a in range(lo, hi, step))
+    for lo, hi, rows in tiles:
+        rows = rows.to(dev, non_blocking=True)
+        row_sq[lo:hi] = torch.sum(rows * rows, dim=1)
+        if held is None:
+            held_lo = lo
         else:
-            out[lo:hi] = torch.from_numpy(res)
-            deq = res
-        norms[lo:hi] = np.where(real[lo:hi], (deq * deq).sum(axis=1), np.float32(_SENTINEL))
-    return _table(
-        out.to(dev), torch.as_tensor(norms, device=dev), to_main, bases, row_cid,
-        layout.lengths, torch.as_tensor(cent, device=dev),
-        torch.as_tensor(scales, device=dev), chunk, dev,
-    )
+            rows = torch.cat([held, rows])
+        ended = kc if hi >= rows_used else int(np.searchsorted(past, hi, side="right"))
+        if ended > done:
+            a, b = (int(region_end[done - 1]) if done else 0), int(region_end[ended - 1])
+            tm, cid = to_main_t[a:b], row_cid_t[a:b]
+            real = tm != main_pad_row
+            res = rows[(tm - held_lo).clamp_(0, rows.shape[0] - 1)]
+            res.sub_(cent[cid]).masked_fill_(~real[:, None], 0.0)
+            if dtype == torch.int8:
+                smax.scatter_reduce_(0, cid, res.abs().amax(dim=1), reduce="amax")
+                s = (smax[cid] / 127.0).clamp_min(1e-12)[:, None]
+                q8 = torch.round(res / s).clamp_(-127, 127)
+                vecs[a:b] = q8.to(torch.int8)
+                deq = q8.mul_(s)
+            else:
+                vecs[a:b] = res.to(dtype)
+                deq = vecs[a:b].to(torch.float32)
+            norms[a:b] = torch.where(real, torch.sum(deq * deq, dim=1), sentinel)
+            done = ended
+        keep = int(first[ended]) if ended < kc else hi
+        held = rows[keep - held_lo:].clone() if keep < hi else None
+        held_lo = keep
+    scales = (smax / 127.0).clamp_min(1e-12) if dtype == torch.int8 else torch.ones_like(smax)
+    return (_table(vecs, norms, to_main_t, bases, row_cid, layout.lengths, cent, scales, chunk,
+                   dev), row_sq)
 
 
 def expected_tasks_per_query(lengths_np, n_probe: int, chunk: int = CHUNK) -> float:

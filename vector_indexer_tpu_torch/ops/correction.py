@@ -121,9 +121,11 @@ def build_correction_table(layout, st: StreamTable) -> CorrectionTable:
 def build_correction_table_host(layout, st: StreamTable) -> CorrectionTable:
     """Host (numpy) twin for host-staged layouts (``offload_from_host``):
     only the compact q2 / norms / inv arrays are uploaded to the stream
-    table's device; the f32 corpus never reaches it. The first layer is
-    re-derived with build_stream_table_host's formulas (bit-identical on the
-    host) instead of copying the table back."""
+    table's device; the f32 corpus never reaches it (a host layout not yet
+    gathered is gathered here). The first layer is re-derived with the
+    stream table's formulas (``build_stream_table_from_rows``; bit-identical
+    on the host, from the table's own scales) instead of copying the table
+    back."""
     dev = st.vecs.device
     vecs_host = np.asarray(layout.vectors)
     n_pad = vecs_host.shape[0]

@@ -42,7 +42,6 @@ counter ``sharded.probed_rows.<slice>``, on that device.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 from logging import DEBUG
@@ -51,6 +50,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import on_device
 from ..index import programs
 from ..index.dispatch import (choose_sweep_body, fused_sweep_fits, pick_q_tile,
                               stream_itemsize, stream_q_tile)
@@ -60,13 +60,13 @@ from ..ops.distance import sq_norms
 from ..ops.flat_sweep import plan_fused
 from ..ops.gather import quantize_up
 from ..storage.layout import ALIGN, SENTINEL_NORM, SENTINEL_THRESHOLD
+from ..storage.staging import staged_rows
 from ..utils import tracing
 from ..utils.tracing import trace
 from .graphs import ShardGraphs
 from .mesh import Mesh
 
 METHODS = ("auto", "dense", "dense_fused", "stream")
-_STAGE_BYTES = 256 << 20  # each of the two pinned buffers a host layout is copied through
 _TILE_BYTES = 256 << 20  # f32 rows per tile of the on-device norm and residual passes
 
 
@@ -76,11 +76,6 @@ def _round_up(x: int, m: int) -> int:
 
 def _round_up_arr(x, m):
     return ((x + m - 1) // m) * m
-
-
-def on_device(dev: torch.device):
-    """Make ``dev`` the current CUDA device (a no-op for the CPU)."""
-    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def on_each(devices: list, fn) -> list:
@@ -255,65 +250,66 @@ def _plan_local_tables(index, n_dev: int) -> LocalTables:
     )
 
 
-def _layout_rows(index, lo: int, hi: int):
-    """Layout rows lo:hi: a view of the layout's table (a tensor or a host
-    array), or, where an offloaded index freed it, the host mirror's rows
-    gathered by ``perm`` (zeros on gap rows)."""
+def _layout_rows(index, lo: int, hi: int, out: Optional[np.ndarray] = None):
+    """Layout rows lo:hi, written into ``out`` (a host array) where given: a
+    host layout's rows, read without gathering a table not yet gathered
+    (``PostingLayout.rows_into``); a view of a device table; or, where an
+    offloaded index freed the table, the host mirror's rows gathered by
+    ``perm`` (zeros on gap rows)."""
     lay = index.layout
+    if lay.on_host:
+        out = np.empty((hi - lo, lay.dim), np.float32) if out is None else out
+        lay.rows_into(lo, hi, out)
+        return out
     if lay.vectors is not None:
         return lay.vectors[lo:hi]
     p = np.full(hi - lo, -1, np.int64)
     got = lay.perm[lo:hi]
     p[: len(got)] = got
-    out = index._host_data[np.maximum(p, 0)]
-    out[p < 0] = 0.0
+    rows = index._host_data[np.maximum(p, 0)]
+    rows[p < 0] = 0.0
+    if out is None:
+        return rows
+    out[:] = rows
     return out
 
 
-def _staged_copy(dst: torch.Tensor, runs, rows_of) -> None:
+def _staged_copy(dst: torch.Tensor, runs, rows_into) -> None:
     """Copy host rows into ``dst`` by ``runs`` (sorted, covering ``dst``'s
     rows 0 to the last run's end), through two staging buffers, pinned for
-    a card: one is filled while the other's copy runs."""
-    end = runs[-1][1] + runs[-1][2]
-    rows = max(ALIGN, _STAGE_BYTES // (4 * dst.shape[1]))
-    cuda = dst.is_cuda
-    bufs = [torch.empty((rows, dst.shape[1]), dtype=torch.float32, pin_memory=cuda)
-            for _ in range(2)]
-    done = [None, None]
+    a card (``staged_rows``): ``rows_into(lo, hi, out)`` writes source rows
+    lo:hi into a view of a buffer."""
     r = 0
-    for i, lo in enumerate(range(0, end, rows)):
-        hi = min(lo + rows, end)
-        if done[i % 2] is not None:
-            done[i % 2].synchronize()  # the buffer's last copy has finished
-        view = bufs[i % 2].numpy()
+
+    def fill(lo: int, hi: int, view: np.ndarray) -> None:
+        nonlocal r
         while runs[r][1] + runs[r][2] <= lo:
             r += 1
         for s, t, m in runs[r:]:
             if t >= hi:
                 break
             a, b = max(lo, t), min(hi, t + m)
-            view[a - lo : b - lo] = rows_of(s + a - t, s + b - t)
-        dst[lo:hi].copy_(bufs[i % 2][: hi - lo], non_blocking=cuda)
-        if cuda:
-            done[i % 2] = torch.cuda.Event()
-            done[i % 2].record()
-    for ev in done:
-        if ev is not None:
-            ev.synchronize()
+            rows_into(s + a - t, s + b - t, view[a - lo : b - lo])
+
+    end = runs[-1][1] + runs[-1][2]
+    for lo, hi, buf in staged_rows(end, dst.shape[1], fill, dst.is_cuda):
+        dst[lo:hi].copy_(buf, non_blocking=dst.is_cuda)
 
 
 def pack_rows(index, tables: LocalTables, j: int, dev: torch.device):
     """Slice ``j``'s (rows (rows, d) f32, norms (rows,) f32) on ``dev``,
     copied straight from the posting layout by the plan's runs: a host
-    layout through pinned staging (``_staged_copy``), a tensor layout
-    tensor to tensor. Rows of no vector are zero with SENTINEL norms; the
+    layout's rows through pinned staging (``_staged_copy``; a host table
+    not yet gathered is read from its source, and never gathered whole), a
+    tensor layout tensor to tensor. Rows of no vector are zero with SENTINEL norms; the
     norms are ``sq_norms_f64``'s, as ``build_local_tables`` gives them."""
     _, rows, d = tables.local_vecs.shape
     runs = tables.runs[j]
     with on_device(dev):
         vecs = torch.zeros((rows, d), dtype=torch.float32, device=dev)
-        if runs and dev.type == "cuda" and not isinstance(index.layout.vectors, torch.Tensor):
-            _staged_copy(vecs, runs, lambda lo, hi: _layout_rows(index, lo, hi))
+        lay = index.layout
+        if runs and dev.type == "cuda" and (lay.on_host or lay.vectors is None):
+            _staged_copy(vecs, runs, lambda lo, hi, out: _layout_rows(index, lo, hi, out))
         else:
             for s, t, m in runs:
                 vecs[t : t + m].copy_(torch.as_tensor(_layout_rows(index, s, s + m)))

@@ -26,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import mmap
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -38,6 +39,7 @@ ALIGN = 8  # posting-run row alignment (block-mask granularity)
 SENTINEL_NORM = np.float32(1e30)  # gap/tail rows: distance ~1e30, never win
 SENTINEL_THRESHOLD = 1e29  # distances above this are non-results
 _HOST_GATHER_ROWS = 1 << 20  # rows per gather of a host-packed table
+_MIN_PART_ROWS = 1 << 12  # rows per thread of one ``rows_into`` at the least
 
 
 def _round_up(x: int, m: int) -> int:
@@ -52,15 +54,22 @@ def _round_up_arr(x, m):
 class PostingLayout:
     """Cluster-permuted vector table + CSR offsets on one device (or, host
     staged, in numpy arrays). ``vectors`` and ``row_norms`` are None once
-    an offloaded index has freed them."""
+    an offloaded index has freed them. A host layout packed from a host
+    array gathers its table on the first read of either (``_Table``);
+    ``rows_into`` reads its rows before that without making it."""
 
-    vectors: Optional[torch.Tensor]  # (n_pad, d) f32; gap/tail rows are zero
-    row_norms: Optional[torch.Tensor]  # (n_pad,) f32 squared norms; SENTINEL_NORM on pads
+    # (n_pad, d) f32; gap/tail rows are zero
+    vectors: Optional[torch.Tensor] = dataclasses.field(repr=False)
+    # (n_pad,) f32 squared norms; SENTINEL_NORM on pads
+    row_norms: Optional[torch.Tensor] = dataclasses.field(repr=False)
     offsets: np.ndarray  # (k + 1,) int32: per-cluster start rows (+ row end)
     lengths: np.ndarray  # (k,) int32 posting-list lengths
     perm: np.ndarray  # (rows_used,) int64: layout row -> internal id; -1 gaps
     n: int  # real vector count
     max_list_len: int
+    # A host table not yet gathered: (source (m, d) host array, (n_pad,) row
+    # map, -1 on rows of no vector).
+    _pending = None
 
     @property
     def num_clusters(self) -> int:
@@ -68,11 +77,89 @@ class PostingLayout:
 
     @property
     def dim(self) -> int:
-        return int(self.vectors.shape[1])
+        return int(self.table_shape[1])
+
+    @property
+    def table_shape(self) -> tuple:
+        """(n_pad, d) of the table, made or pending."""
+        if self._pending is not None:
+            source, rowmap = self._pending
+            return (len(rowmap), source.shape[1])
+        return tuple(self.vectors.shape)
+
+    @property
+    def on_host(self) -> bool:
+        """Whether the table is (or will be) a host array."""
+        return self._pending is not None or isinstance(self.vectors, np.ndarray)
 
     @property
     def rows_used(self) -> int:
         return len(self.perm)
+
+    def rows_into(self, lo: int, hi: int, out: np.ndarray) -> None:
+        """Write table rows lo:hi of a host layout into ``out`` (a (hi - lo, d)
+        float32 host array): copied from the table where it is made, else
+        gathered from the source (zero on rows of no vector) in parts over
+        threads, without making the table. The parts of all the calls that
+        run at once (one a card's packing thread) share ``host_workers()``
+        slots, so they gather on as many cores as there are, not more."""
+        pending = self._pending
+        if pending is None:
+            out[:] = self.vectors[lo:hi]
+            return
+        source, rowmap = pending
+        slots = _gather_slots()
+        parts = range(lo, hi, max(_MIN_PART_ROWS, -(-(hi - lo) // host_workers())))
+
+        def one(a: int) -> None:
+            b = min(a + parts.step, hi)
+            with slots:
+                _gather_rows(source, rowmap[a:b], out[a - lo:b - lo])
+
+        if len(parts) > 1:
+            with ThreadPoolExecutor(len(parts)) as pool:
+                list(pool.map(one, parts))
+        else:
+            for a in parts:
+                one(a)
+
+    def _make_table(self) -> None:
+        with _TABLE_LOCK:
+            if self._pending is None:  # another thread made it
+                return
+            source, rowmap = self._pending
+            real = rowmap >= 0
+            vectors, sq = _host_gather(source, rowmap, real)
+            # Both tables are in place before the pending gather goes: a
+            # reader that finds none pending reads them without the lock.
+            self.__dict__["_vectors"] = vectors
+            self.__dict__["_row_norms"] = np.where(real, sq, SENTINEL_NORM).astype(np.float32)
+            self._pending = None
+
+
+class _Table:
+    """A PostingLayout's ``vectors`` / ``row_norms``: the first read of either
+    on a layout with a pending host table gathers both; setting either drops
+    the pending gather (an offloaded index frees both)."""
+
+    def __init__(self, name: str):
+        self.key = "_" + name
+
+    def __get__(self, lay, cls=None):
+        if lay is None:
+            return self
+        if lay._pending is not None:
+            lay._make_table()
+        return lay.__dict__.get(self.key)
+
+    def __set__(self, lay, value) -> None:
+        lay._pending = None
+        lay.__dict__[self.key] = value
+
+
+PostingLayout.vectors = _Table("vectors")
+PostingLayout.row_norms = _Table("row_norms")
+_TABLE_LOCK = threading.Lock()
 
 
 def _placement(starts: np.ndarray, lengths: np.ndarray, num_clusters: int):
@@ -119,6 +206,27 @@ def host_workers() -> int:
     return max(1, os.cpu_count() or 1)
 
 
+def _gather_slots() -> threading.BoundedSemaphore:
+    """The ``host_workers()`` slots that the parts of every ``rows_into``
+    running at once share (one semaphore per count of usable cores: the
+    count is read at the call, since the process may pin itself after
+    import)."""
+    n = host_workers()
+    return _SLOTS.setdefault(n, threading.BoundedSemaphore(n))
+
+
+_SLOTS: dict = {}
+
+
+def _gather_rows(source: np.ndarray, rowmap: np.ndarray, out: np.ndarray, real=None) -> None:
+    """``out`` = the ``source`` rows ``rowmap`` names, zero where it holds -1."""
+    if source.shape[0]:
+        np.take(source, rowmap, axis=0, out=out, mode="clip")
+        out[~(rowmap >= 0 if real is None else real)] = 0.0
+    else:
+        out[:] = 0.0
+
+
 def _host_gather(source: np.ndarray, rowmap: np.ndarray, real: np.ndarray):
     """(vectors (len rowmap, d) f32, their squared norms (len rowmap,) f32):
     layout row r is source row ``rowmap[r]``, zero where ``real`` is false.
@@ -133,8 +241,7 @@ def _host_gather(source: np.ndarray, rowmap: np.ndarray, real: np.ndarray):
     def one(lo: int) -> None:
         hi = min(lo + _HOST_GATHER_ROWS, n_pad)
         v = vectors[lo:hi]
-        np.take(source, rowmap[lo:hi], axis=0, out=v, mode="clip")
-        v[~real[lo:hi]] = 0.0
+        _gather_rows(source, rowmap[lo:hi], v, real[lo:hi])
         np.einsum("ij,ij->i", v, v, out=sq[lo:hi])
 
     if workers > 1:
@@ -163,9 +270,7 @@ def pack_layout(
     rowmap = np.full(n_pad, -1, np.int64)
     rowmap[:rows_used] = src_rows
     if isinstance(source, np.ndarray):
-        real = rowmap >= 0
-        vectors, sq = _host_gather(source, rowmap, real)
-        norms = np.where(real, sq, SENTINEL_NORM).astype(np.float32)
+        vectors = norms = None  # gathered on first read (PostingLayout._make_table)
     else:
         dev = source.device
         rm = torch.as_tensor(rowmap, device=dev)
@@ -181,7 +286,7 @@ def pack_layout(
     csr = np.zeros(num_clusters + 1, dtype=np.int32)
     csr[:-1] = starts
     csr[-1] = rows_used
-    return PostingLayout(
+    lay = PostingLayout(
         vectors=vectors,
         row_norms=norms,
         offsets=csr,
@@ -190,6 +295,9 @@ def pack_layout(
         n=int(n_real),
         max_list_len=max_len,
     )
+    if isinstance(source, np.ndarray):
+        lay._pending = (source, rowmap)
+    return lay
 
 
 def build_layout(

@@ -117,9 +117,9 @@ def load_index(index_dir, shards_dir=None, device: DeviceLike = None,
     """Read index.bin; when shards_dir is given, re-stage the posting lists.
 
     ``resident``: 'device' stages the layout on ``device``; 'offload' stages
-    it in host memory, builds the int8 stream table there and uploads only
-    that (plus the correction table for ``offload_rerank='device'``), so the
-    f32 table never reaches the device (IvfIndex.offload_from_host); 'host'
+    it in host memory, passes its rows through the device to build the int8
+    stream table there and keeps only that (plus the correction table for
+    ``offload_rerank='device'``), so the f32 table never stays on the device (IvfIndex.offload_from_host); 'host'
     keeps it in host memory and serves by staging each batch's probed cells
     (index/staged.py), so no corpus-sized copy reaches the device."""
     from ..index.ivf import IvfIndex
